@@ -1,0 +1,57 @@
+"""Carrying state from host arrays (and from the JAX package) into the port.
+
+The port's functions take tensors and run on their device.  These two
+helpers build those tensors: the mesh arrays that parameterise a render,
+and the per-frame prep arrays of the JAX package, so that a test can feed
+JAX's own binning and row table into the port's tile kernel and compare
+the kernel alone.  Both take numpy-convertible arrays (a JAX array
+converts with ``np.asarray``); neither imports JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import config
+
+
+def as_device(dev) -> torch.device:
+    """``torch.device(dev)``, refusing a CUDA device on a machine without
+    one: the port never falls back to the CPU behind the caller's back."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {dev} was asked for but torch.cuda.is_available() is "
+            f"False; pass device='cpu' to run the plain versions")
+    return dev
+
+
+def mesh_to_torch(verts, faces, colors, device):
+    """Mesh arrays -> (verts (V, 3) float, faces (F, 3) int64,
+    colors (V, 4) float) on ``device``, floats in
+    ``config.default_dtype()``."""
+    dev = as_device(device)
+    dtype = config.default_dtype()
+
+    def f(a):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    return (f(verts),
+            torch.tensor(np.asarray(faces), dtype=torch.int64, device=dev),
+            f(colors))
+
+
+def prep_to_torch(sorted_pad, starts, counts, table, device):
+    """Per-frame prep of the flat binned raster (``bin_triangles_flat``'s
+    sorted pair array, starts and counts, ``build_table``'s row table) ->
+    int32 / float32 tensors on ``device``, the types the tile
+    kernel takes."""
+    dev = as_device(device)
+
+    def i32(a):
+        return torch.tensor(np.asarray(a), dtype=torch.int32, device=dev)
+
+    return (i32(sorted_pad), i32(starts), i32(counts),
+            torch.tensor(np.asarray(table), dtype=torch.float32,
+                         device=dev))

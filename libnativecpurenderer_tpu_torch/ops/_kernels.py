@@ -1,0 +1,101 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is
+compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
+the package's ``_build/`` directory, named by a hash of the source and the
+flags (so an edited source rebuilds), and loaded with ``ctypes``.  Pointers
+and the stream are passed as ``c_void_p``; every C entry returns a
+``cudaError_t``, and a non-zero one raises here.
+
+``-fmad=false`` keeps nvcc from contracting a multiply and an add into one
+fused operation: the kernels must round each product and sum the way the
+plain torch versions do, bit for bit.  ``-Xptxas=-v`` writes each kernel's
+register and shared-memory use into the build log beside the library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+              "-Xptxas=-v")
+
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ((os.path.join(home, "bin", "nvcc") if home else None),
+                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the port's CUDA "
+                       "kernels are built from csrc/ at first use")
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library is already built;
+    returns the library's path.  The nvcc output is kept in a ``.log``
+    beside it."""
+    src = CSRC / f"{name}.cu"
+    tag = hashlib.sha256(src.read_bytes()
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib = BUILD_DIR / f"{name}-{tag}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                         capture_output=True, text=True)
+    log = res.stdout + res.stderr
+    lib.with_suffix(".log").write_text(log)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed on {src.name} "
+                           f"(rc {res.returncode}):\n{log}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def build_log(name: str) -> str:
+    """The nvcc/ptxas output of the current build of ``name``."""
+    return build(name).with_suffix(".log").read_text()
+
+
+def tile_raster() -> ctypes.CDLL:
+    """The loaded ``tile_raster`` library (K1), built if needed."""
+    lib = _libs.get("tile_raster")
+    if lib is None:
+        lib = ctypes.CDLL(str(build("tile_raster")))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.tile_raster_u8.argtypes = [p, i, p, p, i, p, i, p, p, i, i, i,
+                                       i, i, p]
+        lib.tile_raster_u8.restype = ctypes.c_int
+        lib.tile_raster_error_string.argtypes = [ctypes.c_int]
+        lib.tile_raster_error_string.restype = ctypes.c_char_p
+        _libs["tile_raster"] = lib
+    return lib
+
+
+def launch_tile_raster_u8(sorted_pad, spad, starts, counts, nt, table,
+                          nrows, packed_bg, out, ntx, tile_w, tile_h,
+                          opaque, z_clip, stream) -> None:
+    """Launch K1 (pointers and stream as ints); raises on a refused
+    launch."""
+    lib = tile_raster()
+    err = lib.tile_raster_u8(sorted_pad, spad, starts, counts, nt, table,
+                             nrows, packed_bg, out, ntx, tile_w, tile_h,
+                             int(opaque), int(z_clip), stream)
+    if err:
+        raise RuntimeError(
+            f"tile_raster_u8 launch failed: cudaError {err} "
+            f"({lib.tile_raster_error_string(err).decode()})")

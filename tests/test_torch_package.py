@@ -1,0 +1,90 @@
+"""Package-level contracts of the PyTorch port: it imports no JAX, never
+falls back to the CPU when a CUDA device is asked for, and rejects the
+JAX package's TPU layout knobs."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import libnativecpurenderer_tpu_torch as port
+from libnativecpurenderer_tpu_torch import config, interop
+from libnativecpurenderer_tpu_torch.ops import raster3d as tr
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_import_pulls_in_no_jax():
+    code = ("import sys, libnativecpurenderer_tpu_torch as p; "
+            "import libnativecpurenderer_tpu_torch.ops.tile_raster; "
+            "import libnativecpurenderer_tpu_torch.ops._kernels; "
+            "bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'libnativecpurenderer_tpu.')) "
+            "or m == 'libnativecpurenderer_tpu']; "
+            "print(p.get_version(), bad)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "1 []"
+
+
+def _tri():
+    verts = np.array([[-0.5, -0.5, 0.2], [0.7, -0.2, 0.2], [0.0, 0.8, 0.2]],
+                     np.float32)
+    return verts, np.array([[0, 1, 2]]), np.ones((3, 4), np.float32)
+
+
+def test_cuda_device_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    verts, faces, colors = _tri()
+    with pytest.raises(RuntimeError, match="is_available"):
+        interop.mesh_to_torch(verts, faces, colors, "cuda")
+    with pytest.raises(RuntimeError, match="is_available"):
+        interop.prep_to_torch([0], [0], [0], np.zeros((1, 32)), "cuda:0")
+    with pytest.raises(RuntimeError, match="is_available"):
+        port.MeshVideoPipeline(object(), 16, 16, verts, faces,
+                               colors=colors, device="cuda")
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("interpret", True), ("resident_out", True), ("mega", 8), ("wf", 8),
+    ("out8", True), ("ktail", 8), ("mxu", 1), ("dynrows", 1),
+    ("near_clip", True)])
+def test_tpu_knobs_raise_type_error(knob, value):
+    verts, faces, colors = interop.mesh_to_torch(*_tri(), "cpu")
+    with pytest.raises(TypeError):
+        tr.render_gouraud_u8(verts, faces, colors, 16, 16, **{knob: value})
+    with pytest.raises(TypeError):
+        tr.render_gouraud_u8_loop(verts, faces, colors, 16, 16,
+                                  torch.eye(4)[None], **{knob: value})
+    with pytest.raises(TypeError):
+        port.MeshVideoPipeline(object(), 16, 16, *_tri()[:2],
+                               colors=_tri()[2], device="cpu",
+                               **{knob: value})
+
+
+def test_textured_pipeline_not_ported_yet():
+    verts, faces, _ = _tri()
+    with pytest.raises(NotImplementedError, match="M3"):
+        port.MeshVideoPipeline(object(), 16, 16, verts, faces,
+                               uvs=np.zeros((3, 2)),
+                               tex_u8=np.zeros((4, 4, 4), np.uint8),
+                               device="cpu")
+
+
+def test_default_dtype_feeds_mesh_tensors():
+    prev = config.default_dtype()
+    try:
+        config.set_default_dtype(torch.float64)
+        v, f, c = interop.mesh_to_torch(*_tri(), "cpu")
+        assert v.dtype == c.dtype == torch.float64 and f.dtype == torch.int64
+        with pytest.raises(ValueError):
+            config.set_default_dtype(torch.int32)
+    finally:
+        config.set_default_dtype(prev)
+    assert interop.mesh_to_torch(*_tri(), "cpu")[0].dtype == torch.float32
