@@ -1,12 +1,16 @@
-"""On-card smoke run of the PyTorch port's mesh -> u8 frame path.
+"""On-card smoke run of the PyTorch port: the mesh -> u8 frame path and
+the 2D canvas.
 
     python3 chip_smoke.py
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and nvcc;
-imports nothing of JAX.  Phases, one line each, any failure raising:
+imports nothing of JAX.  Phases, one line each (or a few), any failure
+raising:
   1. device: the card, and its name and power limit from nvidia-smi;
-  2. build: K1 (csrc/tile_raster.cu) compiled from the checkout;
-  3. kernel vs plain: the per-frame prep of mesh_10k at 1920x1080 (tiles
+  2. build: K1 (csrc/tile_raster.cu) and K4 (csrc/canvas_span.cu)
+     compiled from the checkout, one nvcc each, started together; ptxas
+     registers and spills for each instantiation;
+  3. k1 vs plain: the per-frame prep of mesh_10k at 1920x1080 (tiles
      32x32, span (5, 3), capacity 1024) for 4 cameras (opaque, no z test)
      and one of them again with opaque=False, z_clip=True, fed to K1 and
      to its plain torch version on the card; the packed (NT, P) outputs
@@ -14,14 +18,36 @@ imports nothing of JAX.  Phases, one line each, any failure raising:
      other instantiations (1, 2, 8 and 16 pixels a thread, the JAX
      entry's default 128x16 among them), one of them with runs longer
      than the capacity (a flagged overflow, whose reads stay in bounds);
-  4. main path: MeshVideoPipeline over 48 frames, batch 16, into a tiled
-     sink and into a plain sink, after 3 timed runs of each whose sink
-     drops the frames; no overflow, K1 launched once per frame,
-     every frame more than 10 % mesh, tiled == plain after the detile, and
-     one frame equal to the same frame rendered on the CPU by the plain
-     versions;
-  5. times on the card: K1 and plain ms/frame (CUDA events), pipeline
-     frames/s, peak device memory.
+  4. mesh main path: MeshVideoPipeline over 48 frames, batch 16, into a
+     tiled sink and into a plain sink, after 3 timed runs of each whose
+     sink drops the frames; no overflow, K1 launched once per frame,
+     every frame more than 10 % mesh, tiled == plain after the detile,
+     and one frame equal to the same frame rendered on the CPU by the
+     plain versions;
+  5. mesh times: K1 and plain ms/frame (CUDA events), pipeline frames/s,
+     peak device memory;
+  6. k4 vs plain: at 1920x1080, in float32 and float64, K4 and its plain
+     version on (a) the two arithmetic runs of bench.py's 60-command
+     canvas frame over a nonzero framebuffer and (b) a seeded 64-command
+     frame of all 9 arithmetic kinds, mostly full-frame or large, under
+     rotations, scales and colour transforms; bit-equal;
+  7. canvas main path: RenderContext(1920, 1080, True) on the card
+     (float32) through 45 frames of bench.py's draw(t) with 4 seeded
+     128x128 textures, one flush a frame; K4 launched twice a frame, and
+     the last frame's u8 buffer bit-equal to the same script run on the
+     CPU through the port;
+  8. canvas times: ms/frame on the host clock (3 runs of 45 frames, each
+     ended by a sync), K4 and plain ms per launch on each run of phase 6
+     (CUDA events) beside each run's bound, host launch and sync calls a
+     frame and the device's busy share (profiler, 16 frames), peak
+     device memory;
+  9. blits card vs cpu: two seeded 1920x1080 frames of what bench.py's
+     frame leaves out, rotated and scaled blits and milrenderer's hit
+     effects (Helpers' dissolve textures), drawn on the card and on the
+     CPU in float32 and float64; the u8 frames bit-equal, except float32
+     hit effects within HIT_FLIP_SHARE of their pixels and nowhere else;
+     then torch.sin and the dissolve alpha, card against CPU, as the
+     cause.
 The line before the last is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}.
 """
@@ -29,8 +55,11 @@ The line before the last is the kernel table as JSON, the last line
 from __future__ import annotations
 
 import json
+import math
+import re
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -42,6 +71,32 @@ FRAMES, BATCH = 48, 16
 # pixels-per-thread instantiations; 64x64 with capacity 64 overflows
 OTHER_SHAPES = [(16, 16, 1024, False, True), (32, 16, 1024, True, False),
                 (128, 16, 2048, False, True), (64, 64, 64, True, True)]
+CANVAS_FRAMES = 45
+PROFILE_FRAMES = 16
+# Float32 hit effects may differ between the card and the CPU on this
+# share of the pixels their windows hold: torch.sin is not correctly
+# rounded on either, differs by an ulp on ~20 % of the arguments, and the
+# x43758.5453 hash of the dissolve noise turns that into ~3e-3, enough to
+# flip an alpha at the threshold (ROADMAP "Parity contracts").
+HIT_FLIP_SHARE = 1e-3
+
+# One H100 SXM at its full 700 W (NVIDIA's data sheet): memory rate, and
+# the peak rates of separate operations outside the tensor cores.  The
+# data sheet's 67 TFLOP/s float32 and 34 TFLOP/s float64 count a fused
+# multiply-add as two operations; both kernels are built with
+# -fmad=false for bit parity and count each multiply and add as one, so
+# those issue at half the rates.
+MEM_BYTES_S = 3.35e12
+PEAK_OPS_S = {torch.float32: 33.5e12, torch.float64: 17e12}
+# K1's operations per (pixel, triangle) of the walk, counted from
+# csrc/tile_raster.cu: 3 edges (2 mul, 2 add each), z (3 mul, 2 add),
+# 3 coverage compares, the z quantisation (mul, convert), the key (shift,
+# or) and the running-minimum test (compare, and)
+K1_OPS_PER_PAIR = 26
+# K4's operations per pixel of a command's box, counted from
+# csrc/canvas_span.cu: ~14 for the snapped inverse point, 4-8 compares,
+# 10 for the blend (RECT 28, LINE ~60, FILL 10): ~25 on a typical frame
+K4_OPS_PER_PIXEL = 25
 
 
 def nvidia_smi() -> str:
@@ -73,6 +128,27 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def ptxas_summary(log: str) -> str:
+    """'entry: N registers, S B spill stores/loads' for each kernel
+    instantiation in an nvcc -Xptxas=-v log."""
+    out, entry = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            entry, spill = m.group(1), "spills not reported"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and entry:
+            spill = f"{m.group(1)}/{m.group(2)} B spill stores/loads"
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry:
+            out.append(f"{entry}: {m.group(1)} registers, {spill}")
+            entry = None
+    return "; ".join(out)
+
+
 class PlainSink:
     def __init__(self):
         self.frames = []
@@ -100,35 +176,36 @@ class DropSink:
         pass
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
-                         "this run needs a CUDA card")
+def build_kernels(_kernels) -> float:
+    """Build every kernel library of the port in parallel (one nvcc per
+    source), load them, print the ptxas summary; returns the seconds."""
+    names = ("tile_raster", "canvas_span")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(_kernels.build, names))
+    _kernels.tile_raster()
+    _kernels.canvas_span()
+    build_s = time.perf_counter() - t0
+    print(f"[build] {', '.join(n + '.cu' for n in names)} built and loaded "
+          f"in {build_s:.1f} s", flush=True)
+    for n in names:
+        print(f"[build] ptxas {n}: {ptxas_summary(_kernels.build_log(n))}",
+              flush=True)
+    return build_s
+
+
+def mesh_phases(dev, card: str) -> dict:
+    """Phases 3-5: K1 against its plain version, the mesh main path and
+    its times; returns K1's entry of the kernel table."""
     from libnativecpurenderer_tpu_torch import MeshVideoPipeline, interop
     from libnativecpurenderer_tpu_torch.models import mesh
-    from libnativecpurenderer_tpu_torch.ops import _kernels, raster3d
-    from libnativecpurenderer_tpu_torch.ops import tile_raster
-
-    dev = torch.device("cuda", 0)
-    card = nvidia_smi()
-    kind = torch.cuda.get_device_name(0)
-    print(f"[device] {kind}; torch {torch.__version__} cuda "
-          f"{torch.version.cuda}; nvidia-smi: {card}", flush=True)
-
-    t0 = time.perf_counter()
-    _kernels.tile_raster()
-    build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in _kernels.build_log("tile_raster")
-             .splitlines() if "registers" in ln or "spill" in ln]
-    print(f"[build] tile_raster.cu built and loaded in {build_s:.1f} s; "
-          f"ptxas: {' | '.join(ptxas[:4])}", flush=True)
+    from libnativecpurenderer_tpu_torch.ops import raster3d, tile_raster
 
     verts_np, faces_np, colors_np = mesh.mesh_10k()
     verts, faces, colors = interop.mesh_to_torch(verts_np, faces_np,
                                                  colors_np, dev)
     pre = (raster3d.pregather_mesh(verts, faces), colors[faces])
 
-    # 3. K1 against its plain version, same prep, on the card
     def k1_vs_plain(mvp, opaque, z_clip, cfg, expect_overflow):
         """Prep one frame, run K1 and the plain version on it, require
         bit-equal outputs; returns (kernel args, max u8 |delta|)."""
@@ -159,6 +236,7 @@ def main() -> None:
             raise AssertionError("K1 and its plain version disagree")
         return args, err
 
+    tile_raster.raster_tiles_flat_u8.launches = 0
     cams = [camera(mesh, k, 0.45) for k in range(4)]
     preps = []
     max_err = 0
@@ -176,7 +254,6 @@ def main() -> None:
     if tile_raster.raster_tiles_flat_u8.launches != 5 + len(OTHER_SHAPES):
         raise AssertionError("a K1 comparison did not launch the kernel")
 
-    # 4. the main path
     def run_pipeline(sink, n, tiled):
         """frames/s of n frames through a MeshVideoPipeline into sink."""
         pipe = MeshVideoPipeline(sink, WIDTH, HEIGHT, verts_np, faces_np,
@@ -226,7 +303,7 @@ def main() -> None:
         *cpu, WIDTH, HEIGHT, torch.from_numpy(camera(mesh, k, 0.03))[None])
     cpu_diff = int((torch.from_numpy(plain_sink.frames[k]) != ref[0])
                    .any(-1).sum())
-    print(f"[main path] MeshVideoPipeline {FRAMES} frames x2 (tiled, "
+    print(f"[mesh main path] MeshVideoPipeline {FRAMES} frames x2 (tiled, "
           f"plain): overflow False, K1 launches {launches} = frames "
           f"rendered, mesh covers {min(covered):.3f}..{max(covered):.3f} "
           f"of each frame, tiled == plain; frame {k} vs the CPU plain "
@@ -234,7 +311,6 @@ def main() -> None:
     if bool(ovf_ref) or cpu_diff:
         raise AssertionError("card frame differs from the CPU plain path")
 
-    # 5. times
     def k1_all():
         for a in preps:
             tile_raster.raster_tiles_flat_u8(*a, opaque=True, z_clip=False)
@@ -248,19 +324,469 @@ def main() -> None:
     k1_ms = cuda_ms(k1_all, 10) / len(preps)
     plain_ms = cuda_ms(plain_all, 2) / len(preps)
     tile_raster.raster_tiles_flat_u8.launches = saved
-    print(f"[times] {card}: K1 {k1_ms} ms/frame, plain version "
-          f"{plain_ms} ms/frame (1080p mesh_10k, 32x32 tiles, CUDA "
-          f"events, mean of 4 cameras); pipeline frames/s, 3 runs of "
-          f"{FRAMES} frames, batch {BATCH}, host clock: tiled sink "
-          f"{fps[True]}, plain sink {fps[False]}; peak device memory "
-          f"{peak_mib} MiB; build {build_s} s", flush=True)
 
-    print(json.dumps({"kernels": [{
-        "name": "raster_tiles_flat_u8", "route": "cuda",
-        "source": "libnativecpurenderer_tpu_torch/csrc/tile_raster.cu",
-        "replaces": "libnativecpurenderer_tpu/ops/pallas_raster.py:125",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": k1_ms, "plain_ms": plain_ms}]}))
+    # K1's bound on these 4 frames: the table, the pairs walked, starts
+    # and counts, and the packed output, each once; the walk's operations
+    byte_s, op_s, pairs = [], [], []
+    for sorted_pad, starts, counts, table, *_ in preps:
+        n_pairs = int(counts.sum())
+        p = PROD["tile_w"] * PROD["tile_h"]
+        nbytes = 4 * (table.numel() + n_pairs + 2 * starts.numel()
+                      + starts.numel() * p)
+        byte_s.append(nbytes / MEM_BYTES_S)
+        op_s.append(n_pairs * p * K1_OPS_PER_PAIR
+                    / PEAK_OPS_S[torch.float32])
+        pairs.append(n_pairs)
+    bytes_ms = 1e3 * float(np.mean(byte_s))
+    ops_ms = 1e3 * float(np.mean(op_s))
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    print(f"[mesh times] {card}: K1 {k1_ms} ms/frame, plain version "
+          f"{plain_ms} ms/frame (1080p mesh_10k, 32x32 tiles, CUDA "
+          f"events, mean of 4 cameras); K1 bound {bound_ms} ms/frame by "
+          f"{bound_by} (bytes {bytes_ms} ms, operations {ops_ms} ms; "
+          f"pairs walked {pairs}), K1 at {bound_ms / k1_ms:.4f} of it; "
+          f"pipeline frames/s, 3 runs of {FRAMES} frames, batch {BATCH}, "
+          f"host clock: tiled sink {fps[True]}, plain sink {fps[False]}; "
+          f"peak device memory {peak_mib} MiB", flush=True)
+    return {"name": "raster_tiles_flat_u8", "route": "cuda",
+            "source": "libnativecpurenderer_tpu_torch/csrc/tile_raster.cu",
+            "replaces": "libnativecpurenderer_tpu/ops/pallas_raster.py:125",
+            "launches": launches, "max_abs_err": max_err,
+            "ms": k1_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def bench_draw(ctx, texs, t):
+    """bench.py:488-508's draw(t): the ~60-command canvas frame at
+    1920x1080 (a dim full-frame fill, a gradient, 8 lines, 30 split blits,
+    12 plain blits, 8 rects)."""
+    W, H = WIDTH, HEIGHT
+    ctx.fill_color(0.05, 0.05, 0.08, 0.25)
+    ctx.draw_vertical_grd(0, H - 200, W, 200, 0, 0, 0, 0, 0, 0, 0, 0.8)
+    r2 = np.random.default_rng(42)
+    for i in range(8):
+        x = float(r2.uniform(100, W - 100) + 30 * math.sin(t + i))
+        y = float(r2.uniform(100, H - 100))
+        ctx.draw_line(x, y, x + 90, y + 40, 6.0, 0.9, 0.9, 1.0, 0.8)
+    for i in range(30):
+        x = float(r2.uniform(0, W - 140) + 40 * math.sin(t * 2 + i))
+        y = float(r2.uniform(0, H - 140))
+        ctx.draw_splitted_texture(texs[i % 4], x, y, 100.0, 50.0,
+                                  0.1, 0.9, 0.0, 1.0)
+    for i in range(12):
+        ctx.draw_texture(texs[i % 4], float(r2.uniform(0, W - 120)),
+                         float(r2.uniform(0, H - 120)), 80.0, 80.0)
+    for i in range(8):
+        ctx.draw_rect(float(r2.uniform(0, W - 60)),
+                      float(r2.uniform(0, H - 60)),
+                      40.0, 24.0, 0.2, 0.8, 0.4, 0.7)
+
+
+def frame64(ctx, seed: int):
+    """A seeded frame of 60 drawn arithmetic commands, mostly full-frame
+    or large, each under its own rotation, scale, translation and colour
+    transform; 4 NOOP rows are inserted into the returned list.  Returns
+    host (kinds int32, params float64), 64 rows."""
+    rng = np.random.default_rng(seed)
+    W, H = WIDTH, HEIGHT
+    ctx.set_color(*rng.uniform(0, 1, 4))
+    for i in range(59):
+        ctx.save_state()
+        ctx.translate(*rng.uniform(0, [W, H]))
+        ctx.rotate(rng.uniform(-math.pi, math.pi))
+        ctx.scale(*rng.uniform(0.6, 1.6, 2))
+        ctx.set_color_transform(*rng.uniform(0.5, 1.2, 4))
+        col = rng.uniform(0, 1, 4)
+        kind = i % 7
+        if kind == 0:
+            ctx.fill_color(*rng.uniform(0, 1, 3), rng.uniform(0.05, 0.4))
+        elif kind == 1:
+            w, h = rng.uniform([800, 500], [1800, 1000])
+            ctx.draw_rect(-w / 2, -h / 2, w, h, *col)
+        elif kind == 2:
+            ctx.draw_circle(0.0, 0.0, rng.uniform(300, 700), *col)
+        elif kind == 3:
+            ctx.draw_line(-1100.0, rng.uniform(-200, 200), 1100.0,
+                          rng.uniform(-200, 200), rng.uniform(50, 300), *col)
+        elif kind == 4:
+            ctx.draw_vertical_grd(-W, -H, 2 * W, 2 * H, *col,
+                                  *rng.uniform(0, 1, 4))
+        elif kind == 5:
+            ctx.set_pixel(int(rng.integers(0, W)), int(rng.integers(0, H)),
+                          *col)
+        else:
+            ctx.apply_pixel(int(rng.integers(0, W)),
+                            int(rng.integers(0, H)), *col)
+        ctx.restore_state()
+    kinds, params = (np.array(a) for a in ctx._cmds.snapshot())
+    ctx._cmds.clear()
+    at = np.sort(rng.choice(np.arange(1, 61), 4, replace=False))
+    kinds = np.insert(kinds, at, 0).astype(np.int32)
+    params = np.insert(params, at, 0.0, axis=0)
+    return kinds, params
+
+
+def rotated_blits(ctx, texs):
+    """The blits bench_draw leaves out: 12 draw_texture and 12 split
+    blits, each under a seeded rotation and scale, over a dim fill."""
+    rng = np.random.default_rng(11)
+    ctx.fill_color(0.1, 0.1, 0.15, 1.0)
+    for i in range(12):
+        ctx.save_state()
+        ctx.translate(*rng.uniform([150, 150], [WIDTH - 150, HEIGHT - 150]))
+        ctx.rotate(rng.uniform(-math.pi, math.pi))
+        ctx.scale(*rng.uniform(0.6, 2.0, 2))
+        ctx.set_color_transform(*rng.uniform(0.5, 1.0, 4))
+        ctx.draw_texture(texs[i % 4], -64.0, -64.0, 128.0, 128.0)
+        ctx.draw_splitted_texture(texs[(i + 1) % 4], -70.0, -35.0, 140.0,
+                                  70.0, 0.1, 0.9, 0.2, 0.8)
+        ctx.restore_state()
+
+
+def hit_effects(ctx, group):
+    """24 hit effects of one group of Helpers' dissolve textures, drawn as
+    apps/milrenderer.py:725-740 draws them: progress p picks the texture
+    and sets the size; a third at the identity transform (the fast path),
+    the rest under a note's translation and rotation."""
+    rng = np.random.default_rng(12)
+    ctx.fill_color(0.1, 0.1, 0.15, 1.0)
+    for i in range(24):
+        p = (i + 0.5) / 24
+        size = (WIDTH + HEIGHT) * 0.12 * (1.0 - (1.0 - p) ** 3)
+        tex = group[int(p * (len(group) - 1))]
+        x, y = rng.uniform([size, size], [WIDTH - size, HEIGHT - size])
+        ctx.save_state()
+        if i % 3 == 0:
+            ctx.draw_texture(tex, x - size / 2, y - size / 2, size, size)
+        else:
+            ctx.translate(x, y)
+            ctx.rotate(rng.uniform(-math.pi, math.pi))
+            ctx.draw_texture(tex, -size / 2, -size / 2, size, size)
+        ctx.restore_state()
+
+
+def blit_phase(dev) -> None:
+    """Phase 9: rotated blits and hit effects, the card's u8 frame against
+    the CPU's, in float32 and float64; then the cause of the float32 hit
+    effects' flips (HIT_FLIP_SHARE)."""
+    import random
+
+    from libnativecpurenderer_tpu_torch import Helpers, RenderContext, \
+        Texture
+    from libnativecpurenderer_tpu_torch.ops import commands as C
+    from libnativecpurenderer_tpu_torch.ops import noise
+    from libnativecpurenderer_tpu_torch.ops.executor import sample_window
+
+    rng = np.random.default_rng(5)
+    texs = [Texture._from_array(rng.random((128, 128, 4)), True)
+            for _ in range(4)]
+    # a 512x512 ring mask, as milrenderer's resampled perfect_circ.png
+    yy, xx = np.mgrid[0:512, 0:512] / 511.0 - 0.5
+    ring = np.clip(1.0 - np.abs(np.hypot(xx, yy) - 0.35) * 8.0, 0.0, 1.0)
+    mask = Texture._from_array(
+        np.stack([np.ones_like(ring)] * 3 + [ring], -1), True)
+    random.seed(3)
+    group = Helpers.create_milthm_hit_effect_textures(mask, 30)
+
+    for dtype in (torch.float32, torch.float64):
+        for name, draw, arg in (("rotated blits", rotated_blits, texs),
+                                ("hit effects", hit_effects, group)):
+            u8 = []
+            for d in (dev, "cpu"):
+                ctx = RenderContext(WIDTH, HEIGHT, True, dtype, device=d)
+                draw(ctx, arg)
+                kinds, params = ctx._cmds.snapshot()
+                u8.append(ctx.uint8_buffer())
+            # the pixels the hit effects' windows hold (as a flush cuts them)
+            inside = np.zeros((HEIGHT, WIDTH), bool)
+            boxes = params[:, 6:10].astype(str(dtype)[6:])
+            for k, box in zip(kinds.tolist(), boxes):
+                win = sample_window(box, WIDTH, HEIGHT)
+                if k == C.KIND_HITEFFECT and win is not None:
+                    inside[win[2]:win[3], win[0]:win[1]] = True
+            px = (u8[0] != u8[1]).any(-1)
+            drawn = float((u8[1] != u8[1][0, 0]).any(-1).mean())
+            allowed = (int(HIT_FLIP_SHARE * inside.sum())
+                       if dtype == torch.float32 and inside.any() else 0)
+            print(f"[blits card vs cpu] {name} {str(dtype)[6:]} "
+                  f"{WIDTH}x{HEIGHT}: {int(px.sum())} pixels differ "
+                  f"({int(px[~inside].sum())} outside the "
+                  f"{int(inside.sum())} pixels of hit effect "
+                  f"windows; allowed {allowed} inside), max u8 |delta| "
+                  f"{int(np.abs(u8[0].astype(int) - u8[1]).max())}; "
+                  f"{drawn:.3f} of the frame drawn", flush=True)
+            if px[~inside].any() or px.sum() > allowed:
+                raise AssertionError(f"{name}: card frame differs from the "
+                                     f"CPU port")
+            if drawn < 0.05:
+                raise AssertionError(f"{name}: the frame is mostly empty")
+
+    # the cause: torch.sin on the card and on the CPU, and the dissolve
+    gen = torch.Generator().manual_seed(4)
+    for dtype in (torch.float32, torch.float64):
+        x = (torch.rand(1 << 20, generator=gen, dtype=torch.float64)
+             * 4e4).to(dtype)
+        s = torch.sin(x.to(dev)).cpu()
+        sd = int((s != torch.sin(x)).sum())
+        uv = torch.rand((2, 512, 512), generator=gen,
+                        dtype=torch.float64).to(dtype)
+        flips = []
+        for tex in group[5::6]:
+            a_cpu = noise.hit_effect_alpha(uv[0], uv[1], tex.seed, tex.t)
+            a_dev = noise.hit_effect_alpha(uv[0].to(dev), uv[1].to(dev),
+                                           tex.seed, tex.t).cpu()
+            flips.append(int((a_cpu != a_dev).sum()))
+        print(f"[blits card vs cpu] {str(dtype)[6:]}: torch.sin differs "
+              f"on {sd} of {x.numel()} arguments in [0, 4e4); "
+              f"hit_effect_alpha differs on {flips} of {512 * 512} seeded "
+              f"uv for t = {[tex.t for tex in group[5::6]]}", flush=True)
+
+
+def k4_bound(kinds, p, dtype):
+    """(bound ms, 'bytes'|'operations', bytes ms, operations ms) of one K4
+    run at 1920x1080 from its host params p (in the frame's type): the
+    tiles some command may touch (the kernel's test) read and written
+    once plus the commands; K4_OPS_PER_PIXEL operations per pixel of each
+    command's box clamped to the frame (FILL: every pixel)."""
+    from libnativecpurenderer_tpu_torch.ops import canvas_kernel
+    from libnativecpurenderer_tpu_torch.ops import commands as C
+    from libnativecpurenderer_tpu_torch.ops.executor import sample_window
+    W, H, T = WIDTH, HEIGHT, canvas_kernel.TILE
+    touched = np.zeros((-(-H // T), -(-W // T)), bool)
+    pixels = 0
+    for k, q in zip(kinds.tolist(), p):
+        hit = canvas_kernel.tiles_touched(k, q, W, H)
+        touched |= hit
+        if k == C.KIND_FILL:
+            pixels += W * H
+        elif k in (C.KIND_SET_PIXEL, C.KIND_APPLY_PIXEL):
+            pixels += int(hit.any())
+        elif k != C.KIND_NOOP:
+            win = sample_window(q[6:10], W, H)
+            if win is not None:
+                pixels += (win[1] - win[0]) * (win[3] - win[2])
+    tw = np.minimum(W - np.arange(0, W, T), T)[None, :]
+    th = np.minimum(H - np.arange(0, H, T), T)[:, None]
+    px_touched = int((touched * (tw * th)).sum())
+    item = p.dtype.itemsize
+    nbytes = 2 * px_touched * 4 * item + len(kinds) * (32 * item + 4)
+    bytes_ms = 1e3 * nbytes / MEM_BYTES_S
+    ops_ms = 1e3 * pixels * K4_OPS_PER_PIXEL / PEAK_OPS_S[dtype]
+    if bytes_ms >= ops_ms:
+        return bytes_ms, "bytes", bytes_ms, ops_ms
+    return ops_ms, "operations", bytes_ms, ops_ms
+
+
+def canvas_phases(dev, card: str) -> dict:
+    """Phases 6-8: K4 against its plain version, the canvas main path and
+    its times; returns K4's entry of the kernel table."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from libnativecpurenderer_tpu_torch import RenderContext, Texture
+    from libnativecpurenderer_tpu_torch.ops import _kernels, canvas_kernel
+
+    rng = np.random.default_rng(0)
+    texs = [Texture._from_array(rng.random((128, 128, 4)), True)
+            for _ in range(4)]
+
+    # 6. K4 against its plain version on the card
+    rec = RenderContext(WIDTH, HEIGHT, True, device=dev)
+    bench_draw(rec, texs, 0.0)
+    bk, bp = (np.array(a) for a in rec._cmds.snapshot())
+    rec._cmds.clear()
+    runs = {f"bench run {i + 1} ({hi - lo} cmds)": (bk[lo:hi], bp[lo:hi])
+            for i, (lo, hi) in enumerate(
+                canvas_kernel.arith_runs(bk.tolist()))}
+    if len(runs) != 2:
+        raise AssertionError(f"bench frame has {len(runs)} arithmetic runs")
+    k64, p64 = frame64(rec, 7)
+    if len(k64) != 64 or set(k64.tolist()) != canvas_kernel.KERNEL_KINDS:
+        raise AssertionError("the 64-command frame misses a kind")
+    runs["64-cmd frame"] = (k64, p64)
+
+    gen = torch.Generator().manual_seed(1)
+    fb_seed = torch.rand((HEIGHT, WIDTH, 4), generator=gen,
+                         dtype=torch.float64)
+    cases = []      # (label, dtype, fb0, kinds, params, host params)
+    max_err = 0.0
+    saved = canvas_kernel.render_span.launches
+    for dtype in (torch.float32, torch.float64):
+        fb0 = fb_seed.to(dtype).to(dev)
+        for label, (k, p) in runs.items():
+            ph = p.astype(np.float32 if dtype == torch.float32
+                          else np.float64)
+            kt = torch.from_numpy(k.astype(np.int32))
+            pt = torch.from_numpy(ph).to(dev)
+            got = canvas_kernel.render_span(fb0.clone(), kt, pt)
+            want = canvas_kernel.render_span_reference(fb0.clone(), kt, pt)
+            torch.cuda.synchronize()
+            bad = int((got != want).sum())
+            err = float((got - want).abs().max())
+            changed = int((got != fb0).any(-1).sum())
+            print(f"[k4 vs plain] {label} {str(dtype)[6:]} "
+                  f"{WIDTH}x{HEIGHT}: {bad} of {got.numel()} values differ "
+                  f"(max |delta| {err}); {changed} pixels changed",
+                  flush=True)
+            if bad or not changed:
+                raise AssertionError("K4 and its plain version disagree")
+            max_err = max(max_err, err)
+            cases.append((label, dtype, fb0, kt, pt, ph))
+    canvas_kernel.render_span.launches = saved
+
+    # 7. the canvas main path, K4 launches counted from zero
+    def run_frames(ctx, n, t0=0):
+        for i in range(n):
+            bench_draw(ctx, texs, (t0 + i) * 0.016)
+            ctx.flush()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mib = torch.cuda.memory_allocated() / 2 ** 20
+    canvas_kernel.render_span.launches = 0
+    ctx = RenderContext(WIDTH, HEIGHT, True, device=dev)
+    run_frames(ctx, CANVAS_FRAMES)
+    launches = canvas_kernel.render_span.launches
+    card_u8 = ctx.uint8_buffer()
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    if launches != 2 * CANVAS_FRAMES:
+        raise AssertionError(f"K4 launched {launches} times for "
+                             f"{CANVAS_FRAMES} frames")
+    t = time.perf_counter()
+    cpu = RenderContext(WIDTH, HEIGHT, True, device="cpu")
+    run_frames(cpu, CANVAS_FRAMES)
+    cpu_u8 = cpu.uint8_buffer()
+    cpu_s = time.perf_counter() - t
+    if card_u8.shape != (HEIGHT, WIDTH, 4) or card_u8.dtype != np.uint8:
+        raise AssertionError(f"frame {card_u8.shape} {card_u8.dtype}")
+    diff = int((card_u8 != cpu_u8).sum())
+    lit = float((card_u8[..., :3] > 0).any(-1).mean())
+    print(f"[canvas main path] RenderContext 1920x1080 float32 on the card, "
+          f"{CANVAS_FRAMES} frames of bench.py's draw(t), one flush each: "
+          f"K4 launches {launches} = 2 x frames; last frame's u8 vs the "
+          f"same script on the CPU through the port ({cpu_s:.1f} s): "
+          f"{diff} bytes differ; {lit:.3f} of the pixels lit", flush=True)
+    if diff:
+        raise AssertionError("card canvas frame differs from the CPU port")
+    if lit < 0.5:
+        raise AssertionError("the canvas frame is mostly dark")
+
+    # 8. times
+    frame_ms = []
+    for r in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run_frames(ctx, CANVAS_FRAMES, CANVAS_FRAMES * (r + 1))
+        torch.cuda.synchronize()
+        frame_ms.append(1e3 * (time.perf_counter() - t) / CANVAS_FRAMES)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run_frames(ctx, PROFILE_FRAMES)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t)
+    calls = {"cudaLaunchKernel": 0, "cudaStreamSynchronize": 0,
+             "cudaMemcpyAsync": 0}
+    spans = []
+    for e in prof.events():
+        if e.name in calls:
+            calls[e.name] += 1
+        elif e.name == "cudaLaunchKernelExC":
+            calls["cudaLaunchKernel"] += 1
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+    busy_us, end = 0.0, -math.inf
+    for s, e in sorted(spans):
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
+    per_frame = {k: v / PROFILE_FRAMES for k, v in calls.items()}
+    busy = (f"{busy_us / 1e3} ms of {wall_us / 1e3} ms wall, busy share "
+            f"{busy_us / wall_us:.4f}") if spans else \
+        "not measured (the profiler recorded no device activity)"
+
+    # device time of the main path's K4 launches, by run (the profiled
+    # frames launch run 1, run 2, run 1, ...)
+    k4_prof = [e.time_range.end - e.time_range.start for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "canvas_span_kernel" in e.name]
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+
+    # K4's own time: CUDA events around raw launches (the kinds already
+    # on the card), so the wrapper's host work cannot leave the card idle
+    k4_ms = {}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for label, dtype, fb0, kt, pt, ph in cases:
+        fb = fb0.clone()
+        kd = kt.to(dev)
+
+        def raw():
+            _kernels.launch_canvas_span(
+                fb.data_ptr(), WIDTH, HEIGHT, kd.data_ptr(), pt.data_ptr(),
+                kd.numel(), dtype == torch.float64, stream)
+
+        k_ms = cuda_ms(raw, 50)
+        p_ms = cuda_ms(
+            lambda: canvas_kernel.render_span_reference(fb, kt, pt), 3)
+        b_ms, b_by, bb, bo = k4_bound(kt.numpy(), ph, dtype)
+        k4_ms[(label, dtype)] = (k_ms, p_ms, b_ms, b_by)
+        print(f"[canvas times] {card}: K4 {label} {str(dtype)[6:]} "
+              f"{k_ms} ms/launch, plain version {p_ms} ms (CUDA events); "
+              f"bound {b_ms} ms by {b_by} (bytes {bb} ms, operations "
+              f"{bo} ms), K4 at {b_ms / k_ms:.4f} of it", flush=True)
+    if k4_prof:
+        print(f"[canvas times] {card}: K4 in the profiled main path, "
+              f"device ms per launch: run 1 "
+              f"{1e-3 * float(np.mean(k4_prof[0::2]))}, run 2 "
+              f"{1e-3 * float(np.mean(k4_prof[1::2]))}", flush=True)
+    print(f"[canvas times] device ms per frame by kernel (profiler): "
+          + "; ".join(f"{name[:60]} {1e-3 * us / PROFILE_FRAMES:.4f}"
+                      for name, us in top), flush=True)
+    print(f"[canvas times] {card}: canvas {sorted(frame_ms)} ms/frame "
+          f"(host clock, 3 runs of {CANVAS_FRAMES} frames each ended by a "
+          f"sync, record + flush); per frame over {PROFILE_FRAMES} "
+          f"profiled frames: {per_frame['cudaLaunchKernel']} "
+          f"cudaLaunchKernel, {per_frame['cudaStreamSynchronize']} "
+          f"cudaStreamSynchronize, {per_frame['cudaMemcpyAsync']} "
+          f"cudaMemcpyAsync; device {busy}; peak device memory "
+          f"{peak_mib} MiB in the main path, {peak_mib - base_mib} MiB "
+          f"above the {base_mib} MiB held before it", flush=True)
+
+    bench = [v for (label, dtype), v in k4_ms.items()
+             if label.startswith("bench") and dtype == torch.float32]
+    bound = max(bench, key=lambda v: v[2])
+    return {"name": "render_span", "route": "cuda",
+            "source": "libnativecpurenderer_tpu_torch/csrc/canvas_span.cu",
+            "replaces": "libnativecpurenderer_tpu/ops/canvas_kernel.py:52",
+            "launches": launches, "max_abs_err": max_err,
+            "ms": float(np.mean([v[0] for v in bench])),
+            "plain_ms": float(np.mean([v[1] for v in bench])),
+            "bound_ms": float(np.mean([v[2] for v in bench])),
+            "bound_by": bound[3], "library_ms": None}
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
+                         "this run needs a CUDA card")
+    from libnativecpurenderer_tpu_torch.ops import _kernels
+
+    dev = torch.device("cuda", 0)
+    card = nvidia_smi()
+    kind = torch.cuda.get_device_name(0)
+    print(f"[device] {kind}; torch {torch.__version__} cuda "
+          f"{torch.version.cuda}; nvidia-smi: {card}", flush=True)
+    build_kernels(_kernels)
+    k1 = mesh_phases(dev, card)
+    k4 = canvas_phases(dev, card)
+    blit_phase(dev)
+    print(json.dumps({"kernels": [k1, k4]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

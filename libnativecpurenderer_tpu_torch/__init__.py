@@ -2,17 +2,25 @@
 ``libnativecpurenderer_tpu``, for one NVIDIA H100.
 
 The port grows slice by slice beside the JAX package, which stays the
-reference it is tested against.  This slice is the mesh -> u8 frame path:
-projection, edge setup and tile binning as torch ops, the per-tile
-visibility + Gouraud shading as a hand-written CUDA kernel
-(``csrc/tile_raster.cu``), and the Gouraud half of ``MeshVideoPipeline``.
+reference it is tested against.  Slices so far:
+  * mesh -> u8 frame: projection, edge setup and tile binning as torch
+    ops, the per-tile visibility + Gouraud shading as a hand-written CUDA
+    kernel (``csrc/tile_raster.cu``), and the Gouraud half of
+    ``MeshVideoPipeline``;
+  * the 2D canvas: ``RenderContext`` records draw calls on the host and
+    its flush runs arithmetic command runs through a hand-written CUDA
+    kernel (``csrc/canvas_span.cu``) and texture blits as torch ops.
 Nothing here imports JAX.
 """
 
 from . import config
-from .interop import mesh_to_torch, prep_to_torch
+from .context import RenderContext
+from .helpers import Helpers
+from .interop import (canvas_to_torch, commands_to_torch, mesh_to_torch,
+                      prep_to_torch)
 from .ops.raster3d import render_gouraud_u8, render_gouraud_u8_loop
 from .pipeline import MeshVideoPipeline
+from .texture import HitEffectTexture, PtrCreatedTexture, Texture
 
 VERSION = 1  # same LIB_NATIVE_CPU_RENDERER_VERSION as the JAX package
 
@@ -22,7 +30,14 @@ def get_version() -> int:
 
 
 __all__ = [
+    "Helpers",
+    "HitEffectTexture",
     "MeshVideoPipeline",
+    "PtrCreatedTexture",
+    "RenderContext",
+    "Texture",
+    "canvas_to_torch",
+    "commands_to_torch",
     "config",
     "get_version",
     "mesh_to_torch",

@@ -1,0 +1,280 @@
+// Kernel K4: a run of arithmetic canvas commands applied to the frame.
+//
+// Replaces the TPU kernel canvas_kernel._make_kernel
+// (libnativecpurenderer_tpu/ops/canvas_kernel.py:52), launched by
+// render_span_kernel (pl.pallas_call at :286).  Wrapper and plain
+// version: ops/canvas_kernel.py (render_span, render_span_reference);
+// the per-kind semantics are those of ops/executor.py.
+//
+// What it computes.  For every pixel (X, Y) of the (H, W, 4) frame, in
+// recorded order, each command of the run whose mask admits the pixel
+// blends its colour in: rgb = fb*(1-a) + src*a (a raw store for
+// SET_COLOR / SET_PIXEL), and the stored alpha is the source alpha (the
+// reference quirk, cpp:543-546).  Kinds: NOOP, SET_COLOR, FILL, RECT,
+// CIRCLE, LINE, VGRD, SET_PIXEL, APPLY_PIXEL; the wrapper refuses the
+// sampling kinds.  Pixel coordinates are the integers X, Y (no +0.5).
+// The inverse-mapped point is (a*X + c*Y) + e, snapped to the 2^-20
+// grid with rint (half to even, as torch.round) times the exact 2^-20.
+//
+// Bits.  Built with -fmad=false and written with the _rn intrinsics, so
+// every product, sum, quotient and square root is rounded on its own in
+// the plain version's order: the kernel equals render_span_reference bit
+// for bit, in float and in double.  Never build it with
+// --use_fast_math: IEEE division and sqrt are part of the result.
+//
+// Design.  One block of 32x8 threads per 32x32 tile of the frame (2040
+// blocks at 1080p, enough to fill 132 SMs); each thread owns one column
+// and 4 rows of the tile and keeps their RGBA in registers.  Every block
+// walks all commands of the run in order, staged through shared memory
+// CHUNK at a time (kind + 32 params in the frame's type), and skips a
+// command whose mask cannot meet the tile.  That replaces the TPU
+// kernel's per-tile bins (_bin_commands, its (NT, N) argsort and f32
+// boxes): skipping a command whose mask is false on the whole tile
+// changes nothing.  The test is made in the frame's own type (the JAX
+// binning casts boxes to f32, which can round a fractional right edge
+// down).  The command is the same for every thread, so branching on its
+// kind does not diverge.  The frame is updated in place: no tiled
+// layout, no transpose, no copy.  A tile that no command of the run
+// touches is neither read nor written.
+//
+// What bounds it on an H100.  A sparse run (small rects, lines) touches
+// few tiles: its bound is bytes, the touched tiles read and written once
+// (16 B a pixel each way in float) at 3.35 TB/s.  A dense run (full-frame
+// fills, gradients, large rotated shapes) does ~25 float operations per
+// covered pixel and command: its bound is operations, covered pixels x
+// commands x ~25 at 33.5 T operations/s (float32 outside the tensor
+// cores: the data sheet's 67 TFLOP/s counts a fused multiply-add as two,
+// and this kernel fuses none).  chip_smoke.py computes both from each
+// run's inputs.  Nothing here is a matrix
+// product or a large tile copy, so no tensor cores or TMA.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int PARAM_W = 32;
+constexpr int TILE = 32;        // tile width and height
+constexpr int TX = 32;          // threads a row (one column each)
+constexpr int TY = 8;           // thread rows
+constexpr int ROWS = TILE / TY; // pixel rows a thread
+constexpr int CHUNK = 32;       // commands staged per pass
+
+enum Kind {
+  NOOP = 0, SET_COLOR = 1, FILL = 2, RECT = 3, CIRCLE = 4, LINE = 5,
+  VGRD = 6, SET_PIXEL = 11, APPLY_PIXEL = 12
+};
+
+// rounded-once arithmetic in the frame's type
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float dvd(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ float sqrt_rn(float a) { return __fsqrt_rn(a); }
+__device__ __forceinline__ float rint_(float a) { return rintf(a); }
+__device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ double dvd(double a, double b) { return __ddiv_rn(a, b); }
+__device__ __forceinline__ double sqrt_rn(double a) { return __dsqrt_rn(a); }
+__device__ __forceinline__ double rint_(double a) { return rint(a); }
+
+template <typename T>
+__device__ __forceinline__ T snap(T v) {
+  return mul(rint_(mul(v, (T)1048576.0)), (T)(1.0 / 1048576.0));
+}
+
+// Could the command's mask admit a pixel of the tile [ox, ox+TILE) x
+// [oy, oy+TILE)?  A superset test in the frame's type: false only where
+// the mask is false on every pixel of the tile (NaN bounds: false).
+template <typename T>
+__device__ __forceinline__ bool touches(int kind, const T* p, T ox, T oy) {
+  const T ex = ox + (T)TILE, ey = oy + (T)TILE;
+  switch (kind) {
+    case FILL:
+      return true;
+    case SET_COLOR: case RECT: case CIRCLE: case LINE: case VGRD:
+      return p[7] > ox && p[6] < ex && p[9] > oy && p[8] < ey;
+    case SET_PIXEL: case APPLY_PIXEL:
+      return p[14] >= ox && p[14] < ex && p[15] >= oy && p[15] < ey;
+    default:
+      return false;
+  }
+}
+
+// The command's mask at (X, Y) and its source colour; store = raw store.
+template <typename T>
+__device__ __forceinline__ bool shade(int kind, const T* p, T X, T Y,
+                                      T& sr, T& sg, T& sb, T& sa,
+                                      bool& store) {
+  const bool box = X >= p[6] && X < p[7] && Y >= p[8] && Y < p[9];
+  store = false;
+  int c = 0;  // first colour slot
+  bool m = false;
+  switch (kind) {
+    case SET_COLOR:
+      sr = p[14]; sg = p[15]; sb = p[16]; sa = p[17];
+      store = true;
+      return box;
+    case SET_PIXEL:
+      sr = p[16]; sg = p[17]; sb = p[18]; sa = p[19];
+      store = true;
+      return X == p[14] && Y == p[15];
+    case FILL:
+      m = true; c = 14;
+      break;
+    case APPLY_PIXEL:
+      m = X == p[14] && Y == p[15]; c = 16;
+      break;
+    default: {
+      const T ix = snap(add(add(mul(p[0], X), mul(p[2], Y)), p[4]));
+      const T iy = snap(add(add(mul(p[1], X), mul(p[3], Y)), p[5]));
+      if (kind == CIRCLE) {
+        const T dx = sub(ix, p[14]), dy = sub(iy, p[15]);
+        m = sqrt_rn(add(mul(dx, dx), mul(dy, dy))) <= p[16] && box;
+        c = 18;
+      } else if (kind == LINE) {
+        bool res = false;
+        int j = 3;
+        for (int i = 0; i < 4; ++i) {
+          const T xi = p[14 + 2 * i], yi = p[15 + 2 * i];
+          const T xj = p[14 + 2 * j], yj = p[15 + 2 * j];
+          const T den = sub(yj, yi);
+          const T safe = den != (T)0 ? den : (T)1;
+          const bool crosses = (yi > iy) != (yj > iy);
+          const T xint = add(dvd(mul(sub(xj, xi), sub(iy, yi)), safe), xi);
+          res = res != (crosses && ix < xint);
+          j = i;
+        }
+        m = res && box;
+        c = 22;
+      } else {  // RECT, VGRD
+        m = ix >= p[14] && ix <= p[16] && iy >= p[15] && iy <= p[17] && box;
+        if (kind == VGRD) {
+          const T t = dvd(sub(iy, p[18]), p[19]);
+          sr = add(p[20], mul(sub(p[24], p[20]), t));
+          sg = add(p[21], mul(sub(p[25], p[21]), t));
+          sb = add(p[22], mul(sub(p[26], p[22]), t));
+          sa = add(p[23], mul(sub(p[27], p[23]), t));
+          sr = mul(sr, p[10]); sg = mul(sg, p[11]);
+          sb = mul(sb, p[12]); sa = mul(sa, p[13]);
+          return m;
+        }
+        c = 18;
+      }
+    }
+  }
+  sr = mul(p[c], p[10]);
+  sg = mul(p[c + 1], p[11]);
+  sb = mul(p[c + 2], p[12]);
+  sa = mul(p[c + 3], p[13]);
+  return m;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(TX * TY)
+canvas_span_kernel(T* __restrict__ fb, int W, int H, int ntx,
+                   const int* __restrict__ kinds,
+                   const T* __restrict__ params, int n) {
+  __shared__ T s_p[CHUNK][PARAM_W];
+  __shared__ int s_k[CHUNK];
+
+  const int ox = (blockIdx.x % ntx) * TILE;
+  const int oy = (blockIdx.x / ntx) * TILE;
+  const int px = ox + threadIdx.x;
+  const T X = (T)px;
+  const int tid = threadIdx.y * TX + threadIdx.x;
+
+  T r[ROWS], g[ROWS], b[ROWS], a[ROWS];
+  bool loaded = false;  // the same in every thread of the block
+
+  for (int base = 0; base < n; base += CHUNK) {
+    const int m = min(CHUNK, n - base);
+    __syncthreads();  // the previous chunk is no longer read
+    for (int i = tid; i < m * PARAM_W; i += TX * TY)
+      s_p[i / PARAM_W][i % PARAM_W] = params[(size_t)base * PARAM_W + i];
+    if (tid < m) s_k[tid] = kinds[base + tid];
+    __syncthreads();
+    for (int j = 0; j < m; ++j) {
+      const int kind = s_k[j];
+      const T* p = s_p[j];
+      if (!touches(kind, p, (T)ox, (T)oy)) continue;
+      if (!loaded) {
+        loaded = true;
+#pragma unroll
+        for (int k = 0; k < ROWS; ++k) {
+          const int py = oy + threadIdx.y + k * TY;
+          if (px < W && py < H) {
+            const T* q = fb + ((size_t)py * W + px) * 4;
+            r[k] = q[0]; g[k] = q[1]; b[k] = q[2]; a[k] = q[3];
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < ROWS; ++k) {
+        const int py = oy + threadIdx.y + k * TY;
+        if (px >= W || py >= H) continue;
+        T sr, sg, sb, sa;
+        bool store;
+        if (!shade(kind, p, X, (T)py, sr, sg, sb, sa, store)) continue;
+        if (store) {
+          r[k] = sr; g[k] = sg; b[k] = sb;
+        } else {
+          const T keep = sub((T)1, sa);
+          r[k] = add(mul(r[k], keep), mul(sr, sa));
+          g[k] = add(mul(g[k], keep), mul(sg, sa));
+          b[k] = add(mul(b[k], keep), mul(sb, sa));
+        }
+        a[k] = sa;
+      }
+    }
+  }
+  if (!loaded) return;
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k) {
+    const int py = oy + threadIdx.y + k * TY;
+    if (px < W && py < H) {
+      T* q = fb + ((size_t)py * W + px) * 4;
+      q[0] = r[k]; q[1] = g[k]; q[2] = b[k]; q[3] = a[k];
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch(T* fb, int W, int H, const int* kinds, const T* params,
+                   int n, cudaStream_t stream) {
+  const int ntx = (W + TILE - 1) / TILE;
+  const int nty = (H + TILE - 1) / TILE;
+  canvas_span_kernel<T><<<ntx * nty, dim3(TX, TY), 0, stream>>>(
+      fb, W, H, ntx, kinds, params, n);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Applies the n commands (kinds: n int32, params: n x 32 of the frame's
+// type, both on the card) to the contiguous (H, W, 4) frame in place, on
+// `stream`; is_double picks double over float.  Returns the
+// cudaError_t of the launch (0 on success).  An error left pending by an
+// earlier launch is returned without launching, so the caller raises it.
+int canvas_span(void* fb, int W, int H, const int* kinds,
+                const void* params, int n, int is_double, void* stream) {
+  const cudaError_t pending = cudaGetLastError();
+  if (pending != cudaSuccess) return (int)pending;
+  if (n == 0 || W == 0 || H == 0) return 0;
+  if (n < 0 || W < 0 || H < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_double)
+    return (int)launch<double>((double*)fb, W, H, kinds,
+                               (const double*)params, n, s);
+  return (int)launch<float>((float*)fb, W, H, kinds, (const float*)params,
+                            n, s);
+}
+
+const char* canvas_span_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

@@ -1,11 +1,12 @@
 """Carrying state from host arrays (and from the JAX package) into the port.
 
-The port's functions take tensors and run on their device.  These two
+The port's functions take tensors and run on their device.  These
 helpers build those tensors: the mesh arrays that parameterise a render,
-and the per-frame prep arrays of the JAX package, so that a test can feed
-JAX's own binning and row table into the port's tile kernel and compare
-the kernel alone.  Both take numpy-convertible arrays (a JAX array
-converts with ``np.asarray``); neither imports JAX.
+the per-frame prep arrays of the JAX package (so that a test can feed
+JAX's own binning and row table into the port's tile kernel), and a
+canvas's recorded commands, framebuffer and atlas (so that a test can
+replay a JAX context's flush in the port).  All take numpy-convertible
+arrays (a JAX array converts with ``np.asarray``); none imports JAX.
 """
 
 from __future__ import annotations
@@ -55,3 +56,22 @@ def prep_to_torch(sorted_pad, starts, counts, table, device):
     return (i32(sorted_pad), i32(starts), i32(counts),
             torch.tensor(np.asarray(table), dtype=torch.float32,
                          device=dev))
+
+
+def commands_to_torch(kinds, params, dtype, device):
+    """A recorded command list (a JAX context's ``_cmds.snapshot()``:
+    kinds (N,) int32, params (N, 32) float64) -> (kinds as a host int32
+    tensor, params cast to ``dtype`` on ``device``): what
+    ``context.execute`` and the K4 wrapper take."""
+    dev = as_device(device)
+    return (torch.tensor(np.asarray(kinds), dtype=torch.int32),
+            torch.tensor(np.asarray(params), dtype=torch.float64).to(
+                dtype=dtype, device=dev))
+
+
+def canvas_to_torch(fb, atlas, device):
+    """A canvas state (a JAX context's ``_fb`` and its store's atlas) ->
+    (fb, atlas) tensors on ``device``, each in its own float dtype."""
+    dev = as_device(device)
+    return (torch.tensor(np.asarray(fb), device=dev),
+            torch.tensor(np.asarray(atlas), device=dev))

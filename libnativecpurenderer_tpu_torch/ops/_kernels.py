@@ -86,6 +86,33 @@ def tile_raster() -> ctypes.CDLL:
     return lib
 
 
+def canvas_span() -> ctypes.CDLL:
+    """The loaded ``canvas_span`` library (K4), built if needed."""
+    lib = _libs.get("canvas_span")
+    if lib is None:
+        lib = ctypes.CDLL(str(build("canvas_span")))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.canvas_span.argtypes = [p, i, i, p, p, i, i, p]
+        lib.canvas_span.restype = ctypes.c_int
+        lib.canvas_span_error_string.argtypes = [ctypes.c_int]
+        lib.canvas_span_error_string.restype = ctypes.c_char_p
+        _libs["canvas_span"] = lib
+    return lib
+
+
+def launch_canvas_span(fb, width, height, kinds, params, n, is_double,
+                       stream) -> None:
+    """Launch K4 (pointers and stream as ints); raises on a refused
+    launch."""
+    lib = canvas_span()
+    err = lib.canvas_span(fb, width, height, kinds, params, n,
+                          int(is_double), stream)
+    if err:
+        raise RuntimeError(
+            f"canvas_span launch failed: cudaError {err} "
+            f"({lib.canvas_span_error_string(err).decode()})")
+
+
 def launch_tile_raster_u8(sorted_pad, spad, starts, counts, nt, table,
                           nrows, packed_bg, out, ntx, tile_w, tile_h,
                           opaque, z_clip, stream) -> None:

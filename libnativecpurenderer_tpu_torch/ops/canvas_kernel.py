@@ -1,0 +1,138 @@
+"""Arithmetic canvas command runs: kernel K4.
+
+Counterpart of ``libnativecpurenderer_tpu/ops/canvas_kernel.py``: the
+TPU tile kernel ``_make_kernel`` (``:52``) launched by
+``render_span_kernel`` (``pl.pallas_call`` at ``:286``).  Its tiled planar
+framebuffer (``tile_fb``/``detile_fb``), per-tile command bins and
+command-count buckets are TPU layout and compile machinery and are not
+ported.
+
+:func:`render_span` is the wrapper: on CUDA tensors it launches the
+hand-written kernel in ``csrc/canvas_span.cu`` (or raises), on CPU
+tensors it runs :func:`render_span_reference`, the executor's branches
+(``ops/executor.py``) applied command by command over the full frame.
+The two are bit-identical on the card.  Both update the framebuffer in
+place.  The wrapper counts its kernel launches in
+``render_span.launches``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import commands as C
+from . import executor
+
+# kinds this kernel can execute (everything that never reads the atlas)
+KERNEL_KINDS = frozenset((
+    C.KIND_NOOP, C.KIND_SET_COLOR, C.KIND_FILL, C.KIND_RECT,
+    C.KIND_CIRCLE, C.KIND_LINE, C.KIND_VGRD, C.KIND_SET_PIXEL,
+    C.KIND_APPLY_PIXEL))
+
+# the kernel's tile edge (csrc/canvas_span.cu TILE)
+TILE = 32
+
+
+def arith_runs(kind_list):
+    """(lo, hi) of each maximal run of ``KERNEL_KINDS`` in a recorded
+    kind list: the K4 calls a flush makes."""
+    runs, i, n = [], 0, len(kind_list)
+    while i < n:
+        j = i + 1
+        if kind_list[i] in KERNEL_KINDS:
+            while j < n and kind_list[j] in KERNEL_KINDS:
+                j += 1
+            runs.append((i, j))
+        i = j
+    return runs
+
+
+def tiles_touched(kind, p, width: int, height: int):
+    """The kernel's culling test (``touches`` in csrc/canvas_span.cu) on
+    the host: a (ceil(H/TILE), ceil(W/TILE)) bool array of the tiles whose
+    pixels the command's mask may admit.  ``p`` is the command's numpy
+    params row; the test is made in its dtype, as the kernel makes it in
+    the frame's."""
+    ox = np.arange(0, width, TILE).astype(p.dtype)[None, :]
+    oy = np.arange(0, height, TILE).astype(p.dtype)[:, None]
+    ex, ey = ox + p.dtype.type(TILE), oy + p.dtype.type(TILE)
+    shape = (oy.size, ox.size)
+    if kind == C.KIND_FILL:
+        return np.ones(shape, bool)
+    if kind in (C.KIND_SET_COLOR, C.KIND_RECT, C.KIND_CIRCLE, C.KIND_LINE,
+                C.KIND_VGRD):
+        return (p[7] > ox) & (p[6] < ex) & (p[9] > oy) & (p[8] < ey)
+    if kind in (C.KIND_SET_PIXEL, C.KIND_APPLY_PIXEL):
+        return (p[14] >= ox) & (p[14] < ex) & (p[15] >= oy) & (p[15] < ey)
+    return np.zeros(shape, bool)
+
+
+def _check_inputs(fb, kinds, params):
+    if fb.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"fb must be float32 or float64, got {fb.dtype}")
+    if fb.dim() != 3 or fb.shape[2] != 4:
+        raise ValueError(f"fb must be (H, W, 4), got {tuple(fb.shape)}")
+    if not fb.is_contiguous():
+        raise ValueError("fb must be contiguous")
+    if params.dtype != fb.dtype:
+        raise TypeError(f"params are {params.dtype}, fb is {fb.dtype}")
+    if params.device != fb.device:
+        raise ValueError(f"params are on {params.device}, fb on "
+                         f"{fb.device}")
+    if (params.dim() != 2 or params.shape[1] != C.PARAM_W
+            or not params.is_contiguous()):
+        raise ValueError(f"params must be a contiguous (N, {C.PARAM_W}), "
+                         f"got {tuple(params.shape)}")
+    if kinds.device.type != "cpu" or kinds.dtype != torch.int32:
+        raise ValueError("kinds must be a host int32 tensor: they were "
+                         "recorded and routed on the host")
+    if kinds.shape != (params.shape[0],):
+        raise ValueError(f"kinds {tuple(kinds.shape)} and params "
+                         f"{tuple(params.shape)} disagree")
+    bad = set(kinds.tolist()) - KERNEL_KINDS
+    if bad:
+        raise ValueError(f"kinds {sorted(bad)} are not arithmetic kinds: "
+                         f"K4 takes only {sorted(KERNEL_KINDS)}")
+
+
+def render_span(fb, kinds, params):
+    """Kernel K4: apply a run of arithmetic commands to ``fb`` in place,
+    and return ``fb``.
+
+    fb: contiguous (H, W, 4) float32 or float64; kinds: (N,) host int32
+    tensor of ``KERNEL_KINDS``; params: contiguous (N, PARAM_W) in
+    fb.dtype on fb's device.  For every pixel, in recorded order, each
+    command whose mask admits it blends its colour in, exactly as
+    :func:`executor.render_commands` does.
+
+    CUDA tensors launch the kernel on the current stream, after a
+    non-blocking upload of the kinds from pinned memory (no sync); CPU
+    tensors run :func:`render_span_reference`."""
+    _check_inputs(fb, kinds, params)
+    dev = fb.device
+    if dev.type == "cpu":
+        return render_span_reference(fb, kinds, params)
+    if dev.type != "cuda":
+        raise ValueError(f"no K4 kernel for device {dev}")
+    n = kinds.shape[0]
+    if n == 0:
+        return fb
+    from . import _kernels
+    kinds_dev = kinds.pin_memory().to(dev, non_blocking=True)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _kernels.launch_canvas_span(
+            fb.data_ptr(), fb.shape[1], fb.shape[0], kinds_dev.data_ptr(),
+            params.data_ptr(), n, fb.dtype == torch.float64, stream)
+    render_span.launches += 1
+    return fb
+
+
+render_span.launches = 0
+
+
+def render_span_reference(fb, kinds, params):
+    """Plain torch version of K4: the executor's branches applied command
+    by command over the full frame, in place; returns ``fb``."""
+    return executor.render_commands(fb, kinds.tolist(), params)

@@ -41,8 +41,10 @@ def _to_i32(x):
     """float -> int32 as XLA converts (``.astype(jnp.int32)``): truncate
     toward zero, saturate out of range, NaN -> 0.  ``Tensor.to(int32)``
     leaves those cases undefined (the CPU gives INT_MIN).  2**31 - 128 is
-    the largest float32 below 2**31."""
-    y = torch.nan_to_num(x, nan=0.0).clamp(-2.0 ** 31, 2.0 ** 31 - 128)
+    the largest float32 below 2**31, 2**31 - 1 the largest float64 that
+    truncates into range."""
+    hi = 2.0 ** 31 - (1 if x.dtype == torch.float64 else 128)
+    y = torch.nan_to_num(x, nan=0.0).clamp(-2.0 ** 31, hi)
     return torch.where(x >= 2.0 ** 31, torch.iinfo(torch.int32).max,
                        y.to(torch.int32))
 

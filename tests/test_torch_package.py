@@ -23,6 +23,13 @@ def test_import_pulls_in_no_jax():
     code = ("import sys, libnativecpurenderer_tpu_torch as p; "
             "import libnativecpurenderer_tpu_torch.ops.tile_raster; "
             "import libnativecpurenderer_tpu_torch.ops._kernels; "
+            "import libnativecpurenderer_tpu_torch.ops.canvas_kernel; "
+            "import libnativecpurenderer_tpu_torch.ops.executor; "
+            "import libnativecpurenderer_tpu_torch.ops.noise; "
+            "import libnativecpurenderer_tpu_torch.ops.sampling; "
+            "import libnativecpurenderer_tpu_torch.context; "
+            "import libnativecpurenderer_tpu_torch.helpers; "
+            "import libnativecpurenderer_tpu_torch.core.state; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'libnativecpurenderer_tpu.')) "
             "or m == 'libnativecpurenderer_tpu']; "
@@ -49,6 +56,14 @@ def test_cuda_device_raises_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="is_available"):
         port.MeshVideoPipeline(object(), 16, 16, verts, faces,
                                colors=colors, device="cuda")
+    with pytest.raises(RuntimeError, match="is_available"):
+        port.RenderContext(16, 16, True)           # the default device
+    with pytest.raises(RuntimeError, match="is_available"):
+        interop.commands_to_torch([0], np.zeros((1, 32)), torch.float32,
+                                  "cuda")
+    with pytest.raises(RuntimeError, match="is_available"):
+        interop.canvas_to_torch(np.zeros((2, 2, 4)), np.zeros((2, 2, 4)),
+                                "cuda")
 
 
 @pytest.mark.parametrize("knob,value", [
@@ -88,3 +103,15 @@ def test_default_dtype_feeds_mesh_tensors():
     finally:
         config.set_default_dtype(prev)
     assert interop.mesh_to_torch(*_tri(), "cpu")[0].dtype == torch.float32
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("flush_mode", "scan"), ("canvas_kernel", False), ("canvas_group_g", 4),
+    ("flush_unrolled", True), ("flush_unroll_min_seen", 1),
+    ("flush_unroll_compile_cap", 160), ("pipeline_vmap", True),
+    ("interpret", True)])
+def test_canvas_tpu_knobs_raise_type_error(knob, value):
+    with pytest.raises(TypeError):
+        port.RenderContext(16, 16, True, device="cpu", **{knob: value})
+    # nor does the port's config carry them
+    assert not hasattr(config, f"set_{knob}")
