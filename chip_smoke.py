@@ -1,5 +1,5 @@
-"""On-card smoke run of the PyTorch port: the mesh -> u8 frame path and
-the 2D canvas.
+"""On-card smoke run of the PyTorch port: the mesh -> u8 frame path, the
+2D canvas and the textured mesh -> u8 frame path.
 
     python3 chip_smoke.py
 
@@ -7,9 +7,10 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and nvcc;
 imports nothing of JAX.  Phases, one line each (or a few), any failure
 raising:
   1. device: the card, and its name and power limit from nvidia-smi;
-  2. build: K1 (csrc/tile_raster.cu) and K4 (csrc/canvas_span.cu)
-     compiled from the checkout, one nvcc each, started together; ptxas
-     registers and spills for each instantiation;
+  2. build: K1, K3, K2b, K2a (csrc/tile_raster.cu) and K4
+     (csrc/canvas_span.cu) compiled from the checkout, one nvcc each,
+     started together; ptxas registers and spills for each
+     instantiation;
   3. k1 vs plain: the per-frame prep of mesh_10k at 1920x1080 (tiles
      32x32, span (5, 3), capacity 1024) for 4 cameras (opaque, no z test)
      and one of them again with opaque=False, z_clip=True, fed to K1 and
@@ -47,13 +48,37 @@ raising:
      CPU in float32 and float64; the u8 frames bit-equal, except float32
      hit effects within HIT_FLIP_SHARE of their pixels and nowhere else;
      then torch.sin and the dissolve alpha, card against CPU, as the
-     cause.
+     cause;
+ 10. tex vs plain: the per-frame prep of bench.py's textured mesh_10k
+     (planar uvs, seeded 256x256 u8 texture) at 1920x1080 (tiles 32x32,
+     span (5, 3), capacity 1024) for 4 cameras (perspective-correct,
+     z_clip on), one with z_clip off, one affine, one with a 300x200
+     texture and one with crafted uv rows (huge, negative, tiny or zero
+     denominators, NaN), fed to K3, K2b and K2a and to their plain
+     versions on the card; packed texels, texel indices, keys and the
+     float attributes' bits must be equal;
+ 11. textured main paths: MeshVideoPipeline(uvs=, tex_u8=) on its
+     default device over 48 frames, batch 16, into a tiled and a plain
+     sink, after 3 timed runs into a sink that drops the frames: no
+     overflow, K3 launched once a frame, tiled == plain, one frame equal
+     to the CPU plain path's; render_textured (K2a) on one frame, rgba
+     and depth equal card vs CPU, then K2a against its plain version,
+     keys and attribute bits, at render_textured's own shapes (128x8
+     tiles, span (2, 10), capacity 512) on that frame's prep and the 4
+     cameras'; render_binned_tex_idx_batch (K2b) over the 4 cameras, one
+     launch a frame;
+ 12. textured times: K3, K2b and K2a and their plain versions ms/frame
+     (CUDA events; K3 and K2b at 32x32 tiles, K2a at render_textured's
+     shapes) beside each bound, the device time by kernel, host
+     launches and syncs a frame and the busy share (profiler, 16
+     frames), pipeline frames/s, peak device memory.
 The line before the last is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 import math
 import re
@@ -93,6 +118,13 @@ PEAK_OPS_S = {torch.float32: 33.5e12, torch.float64: 17e12}
 # 3 coverage compares, the z quantisation (mul, convert), the key (shift,
 # or) and the running-minimum test (compare, and)
 K1_OPS_PER_PAIR = 26
+# The textured epilogues' operations per pixel slot, counted from
+# csrc/tile_raster.cu: K2b 31 (three attributes of 5, the guarded
+# denominator 2, per coordinate a divide, a multiply and a conversion,
+# 4 clamps, the index 2, the sky select 2), K3 32 (K2b's and the texel
+# load's address), K2a 25 (four attributes of 5, the sky test and 4
+# selects)
+K2B_EPI_OPS, K3_EPI_OPS, K2A_EPI_OPS = 31, 32, 25
 # K4's operations per pixel of a command's box, counted from
 # csrc/canvas_span.cu: ~14 for the snapped inverse point, 4-8 compares,
 # 10 for the blend (RECT 28, LINE ~60, FILL 10): ~25 on a typical frame
@@ -174,6 +206,65 @@ class DropSink:
 
     def put_frame_tiled_u8(self, tiles, w, h, tw, th):
         pass
+
+
+def profile_frames(run, n: int):
+    """Profile run() (n frames), ended by a sync: (host cudaLaunchKernel,
+    cudaStreamSynchronize and cudaMemcpyAsync calls a frame, the device's
+    busy share as text, the profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t)
+    calls = {"cudaLaunchKernel": 0, "cudaStreamSynchronize": 0,
+             "cudaMemcpyAsync": 0}
+    spans = []
+    for e in prof.events():
+        if e.name in calls:
+            calls[e.name] += 1
+        elif e.name == "cudaLaunchKernelExC":
+            calls["cudaLaunchKernel"] += 1
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+    busy_us, end = 0.0, -math.inf
+    for s, e in sorted(spans):
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
+    per_frame = {k: v / n for k, v in calls.items()}
+    busy = (f"{busy_us / 1e3} ms of {wall_us / 1e3} ms wall, busy share "
+            f"{busy_us / wall_us:.4f}") if spans else \
+        "not measured (the profiler recorded no device activity)"
+    return per_frame, busy, prof
+
+
+def walk_bound(preps, epi_ops: int, out_bytes_px: int, extra_bytes: int = 0,
+               tile=PROD):
+    """(bound ms, 'bytes'|'operations', bytes ms, operations ms, pairs) of
+    the tile walk on these frames' preps, made at ``tile``'s tile shape,
+    the mean over frames: the table, the pairs walked, starts and counts,
+    ``extra_bytes`` of other inputs and ``out_bytes_px`` a pixel slot of
+    output, each once; K1_OPS_PER_PAIR operations per (pair, pixel) and
+    ``epi_ops`` per pixel slot."""
+    byte_s, op_s, pairs = [], [], []
+    p = tile["tile_w"] * tile["tile_h"]
+    for sorted_pad, starts, counts, table, *_ in preps:
+        n_pairs = int(counts.sum())
+        slots = starts.numel() * p
+        nbytes = (4 * (table.numel() + n_pairs + 2 * starts.numel())
+                  + extra_bytes + out_bytes_px * slots)
+        byte_s.append(nbytes / MEM_BYTES_S)
+        op_s.append((n_pairs * p * K1_OPS_PER_PAIR + slots * epi_ops)
+                    / PEAK_OPS_S[torch.float32])
+        pairs.append(n_pairs)
+    bytes_ms = 1e3 * float(np.mean(byte_s))
+    ops_ms = 1e3 * float(np.mean(op_s))
+    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    return max(bytes_ms, ops_ms), by, bytes_ms, ops_ms, pairs
 
 
 def build_kernels(_kernels) -> float:
@@ -325,22 +416,9 @@ def mesh_phases(dev, card: str) -> dict:
     plain_ms = cuda_ms(plain_all, 2) / len(preps)
     tile_raster.raster_tiles_flat_u8.launches = saved
 
-    # K1's bound on these 4 frames: the table, the pairs walked, starts
-    # and counts, and the packed output, each once; the walk's operations
-    byte_s, op_s, pairs = [], [], []
-    for sorted_pad, starts, counts, table, *_ in preps:
-        n_pairs = int(counts.sum())
-        p = PROD["tile_w"] * PROD["tile_h"]
-        nbytes = 4 * (table.numel() + n_pairs + 2 * starts.numel()
-                      + starts.numel() * p)
-        byte_s.append(nbytes / MEM_BYTES_S)
-        op_s.append(n_pairs * p * K1_OPS_PER_PAIR
-                    / PEAK_OPS_S[torch.float32])
-        pairs.append(n_pairs)
-    bytes_ms = 1e3 * float(np.mean(byte_s))
-    ops_ms = 1e3 * float(np.mean(op_s))
-    bound_ms = max(bytes_ms, ops_ms)
-    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    # K1's bound on these 4 frames: the walk alone (its epilogue is not
+    # counted, as in the bounds first reported for it)
+    bound_ms, bound_by, bytes_ms, ops_ms, pairs = walk_bound(preps, 0, 4)
     print(f"[mesh times] {card}: K1 {k1_ms} ms/frame, plain version "
           f"{plain_ms} ms/frame (1080p mesh_10k, 32x32 tiles, CUDA "
           f"events, mean of 4 cameras); K1 bound {bound_ms} ms/frame by "
@@ -355,6 +433,326 @@ def mesh_phases(dev, card: str) -> dict:
             "launches": launches, "max_abs_err": max_err,
             "ms": k1_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None}
+
+
+def textured_scene():
+    """bench.py:546-553's textured mesh_10k: planar uvs from x and y, and
+    its seeded 256x256 u8 RGBA texture."""
+    from libnativecpurenderer_tpu_torch.models import mesh
+    verts, faces, _ = mesh.mesh_10k()
+    uvs = (verts[:, :2] - verts[:, :2].min(0)) / np.ptp(verts[:, :2], 0)
+    tex_u8 = np.random.default_rng(1).integers(0, 256, (256, 256, 4)).astype(
+        np.uint8)
+    return verts, faces, uvs, tex_u8
+
+
+def textured_phases(dev, card: str) -> list:
+    """Phases 10-12: K3, K2b and K2a against their plain versions, the
+    textured main path (MeshVideoPipeline with uvs/tex_u8, render_textured,
+    render_binned_tex_idx_batch) and its times; returns the three kernels'
+    entries of the kernel table."""
+    from libnativecpurenderer_tpu_torch import MeshVideoPipeline, interop
+    from libnativecpurenderer_tpu_torch.models import mesh
+    from libnativecpurenderer_tpu_torch.ops import raster3d, tile_raster
+    from libnativecpurenderer_tpu_torch.testing import crafted_uv_table
+
+    verts_np, faces_np, uvs_np, tex_np = textured_scene()
+    verts, faces, uvs, tex = interop.textured_mesh_to_torch(
+        verts_np, faces_np, uvs_np, tex_np, dev)
+    v4f, fuv = raster3d.pregather_mesh(verts, faces), uvs[faces]
+    tex_packed = raster3d.pack_texture_u8(tex)
+    tex_dims = tuple(tex.shape[:2])
+    # 300 wide, 200 high: clamping on sizes that are not powers of two
+    tex2_np = np.random.default_rng(2).integers(0, 256, (200, 300, 4)).astype(
+        np.uint8)
+    tex2 = torch.from_numpy(tex2_np).to(dev)
+    bgp = tile_raster.pack_bg(torch.zeros(4, device=dev))
+    kernels = (tile_raster.raster_tiles_tex_u8,
+               tile_raster.raster_tiles_tex_idx,
+               tile_raster.raster_tiles_keys_f32)
+    cfg = dict(PROD)
+    # render_textured's own defaults, the shapes its K2a launch walks
+    sig = inspect.signature(raster3d.render_textured).parameters
+    rt_cfg = {n: sig[n].default
+              for n in ("tile_w", "tile_h", "capacity", "span_x", "span_y")}
+
+    def prep(mvp, persp=True, z_clip=True, shape=cfg):
+        return raster3d.prepare_textured_frame(
+            verts, faces, fuv, WIDTH, HEIGHT, torch.from_numpy(mvp).to(dev),
+            perspective_correct=persp, z_clip=z_clip, v4f=v4f, **shape)
+
+    def calls(walk, packed, dims, z_clip, plain, shape=cfg):
+        """K3, K2b, K2a (or their plain versions) on one prep made at
+        tile shape ``shape``, each a call without arguments."""
+        sfx = "_reference" if plain else ""
+        tw, th = shape["tile_w"], shape["tile_h"]
+        k3 = getattr(tile_raster, "raster_tiles_tex_u8" + sfx)
+        k2b = getattr(tile_raster, "raster_tiles_tex_idx" + sfx)
+        k2a = getattr(tile_raster, "raster_tiles_keys_f32" + sfx)
+        return (lambda: k3(*walk, packed, dims, bgp, WIDTH, tw, th,
+                           z_clip=z_clip),
+                lambda: k2b(*walk, dims, WIDTH, tw, th, z_clip=z_clip),
+                lambda: k2a(*walk, WIDTH, tw, th, z_clip=z_clip))
+
+    # 10. K3, K2b and K2a against their plain versions, bit for bit
+    cams = [camera(mesh, k, 0.45) for k in range(4)]
+    cases = [(f"camera {k}", cams[k], True, True, None) for k in range(4)]
+    cases += [("camera 1 z_clip=False", cams[1], True, False, None),
+              ("camera 2 affine", cams[2], False, True, None),
+              ("camera 3 300x200 texture", cams[3], True, True, "tex2"),
+              ("camera 0 crafted uv rows", cams[0], True, True, "crafted")]
+    errs = [0, 0, 0.0]
+    preps = []
+    for label, mvp, persp, z_clip, variant in cases:
+        pr = prep(mvp, persp, z_clip)
+        if bool(pr["overflow"]):
+            raise AssertionError(f"textured prep overflows at {label}")
+        table = (crafted_uv_table(pr["table"]) if variant == "crafted"
+                 else pr["table"])
+        walk = (pr["sorted_pad"], pr["starts"], pr["counts"], table)
+        packed, dims = ((raster3d.pack_texture_u8(tex2), (200, 300))
+                        if variant == "tex2" else (tex_packed, tex_dims))
+        got = [c() for c in calls(walk, packed, dims, z_clip, False)]
+        want = [c() for c in calls(walk, packed, dims, z_clip, True)]
+        torch.cuda.synchronize()
+        bad = [int((got[0] != want[0]).sum()), int((got[1] != want[1]).sum()),
+               int((got[2][0] != want[2][0]).sum())
+               + int((got[2][1].view(torch.int32)
+                      != want[2][1].view(torch.int32)).sum())]
+        d3 = int((tile_raster.tiles_u8(got[0]).int()
+                  - tile_raster.tiles_u8(want[0]).int()).abs().max())
+        d2b = int((got[1] - want[1]).abs().max())
+        fin = torch.isfinite(want[2][1]) & torch.isfinite(got[2][1])
+        d2a = float((got[2][1] - want[2][1])[fin].abs().max())
+        errs = [max(errs[0], d3), max(errs[1], d2b), max(errs[2], d2a)]
+        hit = got[1] >= 0
+        print(f"[tex vs plain] {label}: K3 {bad[0]}, K2b {bad[1]}, K2a "
+              f"{bad[2]} of {got[0].numel()} pixels' values differ (max "
+              f"|delta| u8 {d3}, index {d2b}, f32 {d2a}); "
+              f"{float(hit.float().mean()):.3f} of the slots covered, "
+              f"{int(got[1][hit].unique().numel())} distinct texels; pairs "
+              f"{int(pr['counts'].sum())}", flush=True)
+        if any(bad):
+            raise AssertionError(f"a textured kernel and its plain version "
+                                 f"disagree at {label}")
+        if variant is None and persp and z_clip:
+            preps.append(walk)
+
+    # 11. the main paths, each kernel's launches counted from zero
+    def run_pipeline(sink, n, tiled, surface=None):
+        """frames/s of n frames through a textured MeshVideoPipeline on
+        its default device (the card) — or a Gouraud one, with
+        ``surface=dict(colors=...)``."""
+        pipe = MeshVideoPipeline(sink, WIDTH, HEIGHT, verts_np, faces_np,
+                                 batch=BATCH, tiled=tiled,
+                                 **(surface or dict(uvs=uvs_np,
+                                                    tex_u8=tex_np)))
+        t = time.perf_counter()
+        for k in range(n):
+            pipe.submit(camera(mesh, k, 0.03))
+        pipe.finish()
+        torch.cuda.synchronize()
+        return n / (time.perf_counter() - t)
+
+    # frames/s, the textured and the Gouraud pipeline in turns in this
+    # process (T, G, G, T, T, G), so the two compare on one host state
+    gouraud = dict(colors=mesh.mesh_10k()[2])
+    run_pipeline(DropSink(), 2 * BATCH, True)
+    run_pipeline(DropSink(), 2 * BATCH, True, gouraud)
+    fps, fps_g = [], []
+    for turn in "TGGTTG":
+        if turn == "T":
+            fps.append(run_pipeline(DropSink(), FRAMES, True))
+        else:
+            fps_g.append(run_pipeline(DropSink(), FRAMES, True, gouraud))
+    fps, fps_g = sorted(fps), sorted(fps_g)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mib = torch.cuda.memory_allocated() / 2 ** 20
+    for k in kernels:
+        k.launches = 0
+    tiled_sink, plain_sink = TiledSink(), PlainSink()
+    run_pipeline(tiled_sink, FRAMES, None)
+    run_pipeline(plain_sink, FRAMES, None)
+    k3_launches = [k.launches for k in kernels]
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    if k3_launches != [2 * FRAMES, 0, 0]:
+        raise AssertionError(f"K3, K2b, K2a launched {k3_launches} times for "
+                             f"{2 * FRAMES} textured frames")
+    if not len(tiled_sink.tiles) == len(plain_sink.frames) == FRAMES:
+        raise AssertionError("a sink did not get every frame")
+    lit = []
+    for (tiles, w, h, tw, th), frame in zip(tiled_sink.tiles,
+                                            plain_sink.frames):
+        if frame.shape != (HEIGHT, WIDTH, 4) or frame.dtype != np.uint8:
+            raise AssertionError(f"frame {frame.shape} {frame.dtype}")
+        if not np.array_equal(raster3d.detile_u8_host(tiles, w, h, tw, th),
+                              frame):
+            raise AssertionError("tiled and plain textured frames differ")
+        lit.append(float(frame.any(-1).mean()))
+    if min(lit) <= 0.10:
+        raise AssertionError(f"a textured frame covers only {min(lit):.3f}")
+    k = FRAMES - 1
+    mvp_k = torch.from_numpy(camera(mesh, k, 0.03))
+    cpu = interop.textured_mesh_to_torch(verts_np, faces_np, uvs_np, tex_np,
+                                         "cpu")
+    ref, ovf_ref = raster3d.render_textured_u8_loop(*cpu, WIDTH, HEIGHT,
+                                                    mvp_k[None])
+    cpu_diff = int((torch.from_numpy(plain_sink.frames[k]) != ref[0])
+                   .any(-1).sum())
+    print(f"[tex main path] MeshVideoPipeline(uvs=, tex_u8=) on its default "
+          f"device, {FRAMES} frames x2 (tiled, plain): overflow False, "
+          f"K3, K2b, K2a launches {k3_launches}, tiled == plain, "
+          f"{min(lit):.3f}..{max(lit):.3f} of each frame lit; frame {k} vs "
+          f"the CPU plain path: {cpu_diff} pixels differ", flush=True)
+    if bool(ovf_ref) or cpu_diff:
+        raise AssertionError("card textured frame differs from the CPU plain "
+                             "path")
+
+    # render_textured (K2a) on one frame, a float texture made on the host
+    tex_f_np = tex_np.astype(np.float32) / 255.0
+    for kk in kernels:
+        kk.launches = 0
+    rgba, zq, ovf = raster3d.render_textured(
+        verts, faces, uvs, torch.from_numpy(tex_f_np).to(dev), WIDTH, HEIGHT,
+        mvp_k.to(dev))
+    k2a_launches = [kk.launches for kk in kernels]
+    rgba_c, zq_c, ovf_c = raster3d.render_textured(
+        cpu[0], cpu[1], cpu[2], torch.from_numpy(tex_f_np), WIDTH, HEIGHT,
+        mvp_k)
+    d_rgba = int((rgba.cpu() != rgba_c).any(-1).sum())
+    d_z = int((zq.cpu() != zq_c).sum())
+    print(f"[tex main path] render_textured (float texture, "
+          f"{rt_cfg['tile_w']}x{rt_cfg['tile_h']} tiles) on frame {k}: K3, "
+          f"K2b, K2a launches {k2a_launches}; card vs CPU: {d_rgba} rgba "
+          f"pixels and {d_z} depths differ; overflow {bool(ovf)}/"
+          f"{bool(ovf_c)}", flush=True)
+    if k2a_launches != [0, 0, 1] or d_rgba or d_z or bool(ovf) or bool(ovf_c):
+        raise AssertionError("render_textured on the card differs from the "
+                             "CPU, or did not launch K2a once")
+    # K2a against its plain version at render_textured's shapes, on frame
+    # k's prep (the launch above) and the 4 cameras': keys and rgba bits
+    rt_preps = []
+    for label, mvp in [(f"frame {k}", mvp_k.numpy())] + [
+            (f"camera {i}", c) for i, c in enumerate(cams)]:
+        pr = prep(mvp, shape=rt_cfg)
+        walk = (pr["sorted_pad"], pr["starts"], pr["counts"], pr["table"])
+        k2a, k2a_plain = (calls(walk, None, None, True, plain, rt_cfg)[2]
+                          for plain in (False, True))
+        (gk, gr), (wk, wr) = k2a(), k2a_plain()
+        torch.cuda.synchronize()
+        bad = int((gk != wk).sum()) + int(
+            (gr.view(torch.int32) != wr.view(torch.int32)).sum())
+        d2a = float((gr - wr).abs().max())
+        errs[2] = max(errs[2], d2a)
+        print(f"[tex main path] K2a vs plain at render_textured's shapes "
+              f"{rt_cfg}, {label}: {bad} of {gk.numel()} keys and "
+              f"{gr.numel()} attribute values differ (max |delta| f32 "
+              f"{d2a}); {float((gk != tile_raster.SKY_KEY).float().mean()):.3f}"
+              f" of the slots covered; pairs {int(pr['counts'].sum())}, "
+              f"overflow {bool(pr['overflow'])}", flush=True)
+        if bad or bool(pr["overflow"]):
+            raise AssertionError(f"K2a and its plain version disagree at "
+                                 f"render_textured's shapes, {label}")
+        if label.startswith("camera"):
+            rt_preps.append(walk)
+
+    # render_binned_tex_idx_batch (K2b) over the 4 cameras' preps
+    for kk in kernels:
+        kk.launches = 0
+    idx = tile_raster.render_binned_tex_idx_batch(
+        *(torch.stack([p[i] for p in preps]) for i in range(4)), WIDTH,
+        HEIGHT, cfg["tile_w"], cfg["tile_h"], tex_dims)
+    k2b_launches = [kk.launches for kk in kernels]
+    idx_ref = torch.stack([tile_raster._detile_plane(
+        tile_raster.raster_tiles_tex_idx_reference(
+            *p, tex_dims, WIDTH, cfg["tile_w"], cfg["tile_h"], z_clip=True),
+        WIDTH, HEIGHT, cfg["tile_w"], cfg["tile_h"]) for p in preps])
+    d_idx = int((idx != idx_ref).sum())
+    print(f"[tex main path] render_binned_tex_idx_batch over {len(preps)} "
+          f"frames: K3, K2b, K2a launches {k2b_launches}; (B, H, W) "
+          f"{tuple(idx.shape)}, {d_idx} indices differ from the plain "
+          f"version", flush=True)
+    if k2b_launches != [0, len(preps), 0] or d_idx:
+        raise AssertionError("render_binned_tex_idx_batch did not run K2b "
+                             "once a frame, or disagrees")
+
+    # 12. times: each kernel and its plain version (CUDA events, mean of
+    # the 4 cameras), the pipeline on the host clock and in the profiler
+    # (K3 and K2b at the 32x32 tiles of the pipeline and the batch entry,
+    # K2a at render_textured's shapes)
+    timed = {"K3": (preps, cfg), "K2b": (preps, cfg), "K2a": (rt_preps, rt_cfg)}
+    ms = {}
+    for i, name in enumerate(("K3", "K2b", "K2a")):
+        pp, shape = timed[name]
+        kern = [calls(w, tex_packed, tex_dims, True, False, shape)[i]
+                for w in pp]
+        plain = [calls(w, tex_packed, tex_dims, True, True, shape)[i]
+                 for w in pp]
+        ms[name] = (cuda_ms(lambda: [c() for c in kern], 10) / len(pp),
+                    cuda_ms(lambda: [c() for c in plain], 2) / len(pp))
+    for kk in kernels:
+        kk.launches = 0
+    pipe = MeshVideoPipeline(DropSink(), WIDTH, HEIGHT, verts_np, faces_np,
+                             uvs=uvs_np, tex_u8=tex_np, batch=BATCH)
+
+    def frames16():
+        for k in range(PROFILE_FRAMES):
+            pipe.submit(camera(mesh, k, 0.03))
+        pipe.finish()
+
+    frames16()   # warm
+    per_frame, busy, prof = profile_frames(frames16, PROFILE_FRAMES)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    # bounds: the walk's operations and bytes, plus each epilogue's
+    # operations a pixel slot (counted from csrc/tile_raster.cu) and its
+    # outputs (K3 also reads the texture once)
+    bounds = {"K3": walk_bound(preps, K3_EPI_OPS, 4, 4 * tex_packed.numel()),
+              "K2b": walk_bound(preps, K2B_EPI_OPS, 4),
+              "K2a": walk_bound(rt_preps, K2A_EPI_OPS, 4 + 4 * 4,
+                                tile=rt_cfg)}
+    for name in ("K3", "K2b", "K2a"):
+        b_ms, b_by, bb, bo, pairs = bounds[name]
+        shape = timed[name][1]
+        print(f"[tex times] {card}: {name} {ms[name][0]} ms/frame, plain "
+              f"version {ms[name][1]} ms/frame (1080p textured mesh_10k, "
+              f"{shape['tile_w']}x{shape['tile_h']} tiles, span "
+              f"({shape['span_x']}, {shape['span_y']}), CUDA events, mean "
+              f"of 4 cameras); bound {b_ms} "
+              f"ms/frame by {b_by} (bytes {bb} ms, operations {bo} ms; "
+              f"pairs walked {pairs}), {name} at {b_ms / ms[name][0]:.4f} of "
+              f"it", flush=True)
+    print(f"[tex times] device ms per frame by kernel (profiler): "
+          + "; ".join(f"{name[:60]} {1e-3 * us / PROFILE_FRAMES:.4f}"
+                      for name, us in top), flush=True)
+    print(f"[tex times] {card}: textured pipeline frames/s, 3 runs of "
+          f"{FRAMES} frames, batch {BATCH}, tiled sink dropping frames, host "
+          f"clock: {fps} (Gouraud, in turns with them: {fps_g}); per "
+          f"frame over {PROFILE_FRAMES} profiled frames: "
+          f"{per_frame['cudaLaunchKernel']} cudaLaunchKernel, "
+          f"{per_frame['cudaStreamSynchronize']} cudaStreamSynchronize, "
+          f"{per_frame['cudaMemcpyAsync']} cudaMemcpyAsync; device {busy}; "
+          f"peak device memory {peak_mib} MiB in the checked main path, "
+          f"{peak_mib - base_mib} MiB above the {base_mib} MiB held before "
+          f"it", flush=True)
+    src = "libnativecpurenderer_tpu_torch/csrc/tile_raster.cu"
+    tpu = "libnativecpurenderer_tpu/ops/pallas_raster.py"
+    rows = []
+    for name, fn, line, launches, err in (
+            ("K3", "raster_tiles_tex_u8", 895, k3_launches[0], errs[0]),
+            ("K2b", "raster_tiles_tex_idx", 793, k2b_launches[1], errs[1]),
+            ("K2a", "raster_tiles_keys_f32", 805, k2a_launches[2], errs[2])):
+        rows.append({"name": fn, "route": "cuda", "source": src,
+                     "replaces": f"{tpu}:{line}", "launches": launches,
+                     "max_abs_err": err, "ms": ms[name][0],
+                     "plain_ms": ms[name][1], "bound_ms": bounds[name][0],
+                     "bound_by": bounds[name][1], "library_ms": None})
+    return rows
 
 
 def bench_draw(ctx, texs, t):
@@ -581,8 +979,6 @@ def k4_bound(kinds, p, dtype):
 def canvas_phases(dev, card: str) -> dict:
     """Phases 6-8: K4 against its plain version, the canvas main path and
     its times; returns K4's entry of the kernel table."""
-    from torch.profiler import ProfilerActivity, profile
-
     from libnativecpurenderer_tpu_torch import RenderContext, Texture
     from libnativecpurenderer_tpu_torch.ops import _kernels, canvas_kernel
 
@@ -679,32 +1075,8 @@ def canvas_phases(dev, card: str) -> dict:
         run_frames(ctx, CANVAS_FRAMES, CANVAS_FRAMES * (r + 1))
         torch.cuda.synchronize()
         frame_ms.append(1e3 * (time.perf_counter() - t) / CANVAS_FRAMES)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        run_frames(ctx, PROFILE_FRAMES)
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t)
-    calls = {"cudaLaunchKernel": 0, "cudaStreamSynchronize": 0,
-             "cudaMemcpyAsync": 0}
-    spans = []
-    for e in prof.events():
-        if e.name in calls:
-            calls[e.name] += 1
-        elif e.name == "cudaLaunchKernelExC":
-            calls["cudaLaunchKernel"] += 1
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            spans.append((e.time_range.start, e.time_range.end))
-    busy_us, end = 0.0, -math.inf
-    for s, e in sorted(spans):
-        if e > end:
-            busy_us += e - max(s, end)
-            end = e
-    per_frame = {k: v / PROFILE_FRAMES for k, v in calls.items()}
-    busy = (f"{busy_us / 1e3} ms of {wall_us / 1e3} ms wall, busy share "
-            f"{busy_us / wall_us:.4f}") if spans else \
-        "not measured (the profiler recorded no device activity)"
+    per_frame, busy, prof = profile_frames(
+        lambda: run_frames(ctx, PROFILE_FRAMES), PROFILE_FRAMES)
 
     # device time of the main path's K4 launches, by run (the profiled
     # frames launch run 1, run 2, run 1, ...)
@@ -786,7 +1158,8 @@ def main() -> None:
     k1 = mesh_phases(dev, card)
     k4 = canvas_phases(dev, card)
     blit_phase(dev)
-    print(json.dumps({"kernels": [k1, k4]}))
+    tex_rows = textured_phases(dev, card)
+    print(json.dumps({"kernels": [k1, k4, *tex_rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -7,6 +7,11 @@ reference it is tested against.  Slices so far:
     ops, the per-tile visibility + Gouraud shading as a hand-written CUDA
     kernel (``csrc/tile_raster.cu``), and the Gouraud half of
     ``MeshVideoPipeline``;
+  * textured mesh -> u8 frame: the same walk in the same CUDA source with
+    texel epilogues (u8 texels, texel indices, float attributes and
+    depth keys), and the textured half of ``MeshVideoPipeline``
+    (``render_textured_u8_batch`` is ``render_textured_u8_loop`` under
+    the JAX batch entry's defaults, not a path of its own);
   * the 2D canvas: ``RenderContext`` records draw calls on the host and
     its flush runs arithmetic command runs through a hand-written CUDA
     kernel (``csrc/canvas_span.cu``) and texture blits as torch ops.
@@ -17,8 +22,11 @@ from . import config
 from .context import RenderContext
 from .helpers import Helpers
 from .interop import (canvas_to_torch, commands_to_torch, mesh_to_torch,
-                      prep_to_torch)
-from .ops.raster3d import render_gouraud_u8, render_gouraud_u8_loop
+                      prep_to_torch, textured_mesh_to_torch)
+from .ops.raster3d import (pack_texture_u8, render_gouraud_u8,
+                           render_gouraud_u8_loop, render_textured,
+                           render_textured_u8, render_textured_u8_batch,
+                           render_textured_u8_loop)
 from .pipeline import MeshVideoPipeline
 from .texture import HitEffectTexture, PtrCreatedTexture, Texture
 
@@ -41,7 +49,13 @@ __all__ = [
     "config",
     "get_version",
     "mesh_to_torch",
+    "pack_texture_u8",
     "prep_to_torch",
     "render_gouraud_u8",
     "render_gouraud_u8_loop",
+    "render_textured",
+    "render_textured_u8",
+    "render_textured_u8_batch",
+    "render_textured_u8_loop",
+    "textured_mesh_to_torch",
 ]

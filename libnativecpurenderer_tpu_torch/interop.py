@@ -43,6 +43,21 @@ def mesh_to_torch(verts, faces, colors, device):
             f(colors))
 
 
+def textured_mesh_to_torch(verts, faces, uvs, tex_u8, device):
+    """Textured mesh arrays -> (verts (V, 3) float, faces (F, 3) int64,
+    uvs (V, 2) float, tex_u8 (th, tw, 4) uint8) on ``device``, floats in
+    ``config.default_dtype()``."""
+    dev = as_device(device)
+    dtype = config.default_dtype()
+    tex = np.asarray(tex_u8)
+    if tex.ndim != 3 or tex.shape[-1] != 4:
+        raise ValueError(f"texture must be (th, tw, 4), got {tex.shape}")
+    return (torch.tensor(np.asarray(verts), dtype=dtype, device=dev),
+            torch.tensor(np.asarray(faces), dtype=torch.int64, device=dev),
+            torch.tensor(np.asarray(uvs), dtype=dtype, device=dev),
+            torch.tensor(tex, dtype=torch.uint8, device=dev))
+
+
 def prep_to_torch(sorted_pad, starts, counts, table, device):
     """Per-frame prep of the flat binned raster (``bin_triangles_flat``'s
     sorted pair array, starts and counts, ``build_table``'s row table) ->

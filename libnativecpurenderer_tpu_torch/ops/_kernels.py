@@ -72,14 +72,22 @@ def build_log(name: str) -> str:
 
 
 def tile_raster() -> ctypes.CDLL:
-    """The loaded ``tile_raster`` library (K1), built if needed."""
+    """The loaded ``tile_raster`` library (K1, K3, K2b, K2a), built if
+    needed."""
     lib = _libs.get("tile_raster")
     if lib is None:
         lib = ctypes.CDLL(str(build("tile_raster")))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.tile_raster_u8.argtypes = [p, i, p, p, i, p, i, p, p, i, i, i,
-                                       i, i, p]
-        lib.tile_raster_u8.restype = ctypes.c_int
+        # sorted_pad, spad, starts, counts, nt, table, nrows, ntx, tile_w,
+        # tile_h, z_clip; then each entry's epilogue; then the stream
+        walk = [p, i, p, p, i, p, i, i, i, i, i]
+        for entry, epilogue in (("tile_raster_u8", [p, i, p]),
+                                ("tile_raster_tex_u8", [p, i, i, p, p]),
+                                ("tile_raster_tex_idx", [i, i, p]),
+                                ("tile_raster_keys_f32", [p, p])):
+            fn = getattr(lib, entry)
+            fn.argtypes = walk + epilogue + [p]
+            fn.restype = ctypes.c_int
         lib.tile_raster_error_string.argtypes = [ctypes.c_int]
         lib.tile_raster_error_string.restype = ctypes.c_char_p
         _libs["tile_raster"] = lib
@@ -113,16 +121,13 @@ def launch_canvas_span(fb, width, height, kinds, params, n, is_double,
             f"({lib.canvas_span_error_string(err).decode()})")
 
 
-def launch_tile_raster_u8(sorted_pad, spad, starts, counts, nt, table,
-                          nrows, packed_bg, out, ntx, tile_w, tile_h,
-                          opaque, z_clip, stream) -> None:
-    """Launch K1 (pointers and stream as ints); raises on a refused
+def launch_tile_raster(entry: str, *args) -> None:
+    """Launch ``entry`` of the tile_raster library (pointers and stream
+    as ints, in the order of its ``argtypes``); raises on a refused
     launch."""
     lib = tile_raster()
-    err = lib.tile_raster_u8(sorted_pad, spad, starts, counts, nt, table,
-                             nrows, packed_bg, out, ntx, tile_w, tile_h,
-                             int(opaque), int(z_clip), stream)
+    err = getattr(lib, entry)(*args)
     if err:
         raise RuntimeError(
-            f"tile_raster_u8 launch failed: cudaError {err} "
+            f"{entry} launch failed: cudaError {err} "
             f"({lib.tile_raster_error_string(err).decode()})")

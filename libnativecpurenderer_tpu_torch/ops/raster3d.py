@@ -1,12 +1,14 @@
-"""Mesh -> u8 frame path of the z-buffered triangle rasterizer, in PyTorch.
+"""Mesh -> frame paths of the z-buffered triangle rasterizer, in PyTorch.
 
 Counterpart of ``libnativecpurenderer_tpu/ops/raster3d.py``, restricted to
-what the flat u8 Gouraud path runs: projection and 1/256 px snapping
+what the flat binned paths run: projection and 1/256 px snapping
 (``setup_triangles``), edge coefficients (``edge_coeffs``), gatherless tile
-binning (``bin_triangles_flat``) and the two entries
-``render_gouraud_u8`` / ``render_gouraud_u8_loop``.  The per-tile
-visibility and shading runs in ``tile_raster.raster_tiles_flat_u8`` (the
-hand-written CUDA kernel K1, or its plain version for CPU tensors).
+binning (``bin_triangles_flat``), the Gouraud u8 entries
+``render_gouraud_u8[_loop]`` and the textured ones
+``render_textured_u8[_loop|_batch]`` (u8 texels) and ``render_textured``
+(float texture, with depth).  The per-tile visibility and shading runs in
+``tile_raster`` (the hand-written CUDA kernels K1, K3 and K2a, or their
+plain versions for CPU tensors).
 
 Every function runs on the device of the tensors it is given.  The op
 order follows the JAX code op for op, and no step fuses a multiply into an
@@ -273,27 +275,15 @@ def detile_u8_host(tiles, width: int, height: int, tile_w: int,
     return np.ascontiguousarray(a[:height, :width])
 
 
-def prepare_frame(verts, faces, vtx_colors, width: int, height: int,
-                  mvp=None, *, tile_w: int = 128, tile_h: int = 16,
-                  capacity: int = 512, bg=None, span_x: int = 8,
-                  span_y: int = 8, z_clip: bool = True, pre=None):
-    """Per-frame prep of :func:`render_gouraud_u8`, everything before the
-    tile kernel (``raster3d.py:895-934``): returns a dict with the
-    kernel's inputs ``sorted_pad``, ``starts``, ``counts``, ``table``,
-    ``packed_bg`` and the device ``overflow`` flag.  With ``z_clip=False``
-    the flag also carries the check that every valid vertex z lies in
-    [0, 1], the condition under which skipping the per-pixel z test is
-    sound (``raster3d.py:917-925``)."""
-    from . import tile_raster
-    dtype = verts.dtype
-    if mvp is None:
-        mvp = torch.eye(4, dtype=dtype, device=verts.device)
-    if bg is None:
-        bg = torch.zeros(4, dtype=dtype, device=verts.device)
-    if pre is not None:
-        v4f, attrs = pre
-    else:
-        v4f, attrs = None, vtx_colors[faces]
+def _prep_geometry(verts, faces, mvp, width: int, height: int, *,
+                   tile_w: int, tile_h: int, capacity: int, span_x: int,
+                   span_y: int, z_clip: bool, v4f=None):
+    """What the Gouraud and textured per-frame preps share: projection,
+    edges and binning, with ``z_clip=False``'s check that every valid
+    vertex z lies in [0, 1] (the condition under which skipping the
+    per-pixel z test is sound, ``raster3d.py:917-925,1225-1233``) folded
+    into the overflow flag.  Returns (tri, (A, B, C, zsc, inv_area, sign,
+    valid), {sorted_pad, starts, counts, overflow})."""
     tri = setup_triangles(verts, faces, mvp, width, height, v4f=v4f)
     A, B, C, inv_area, sign, valid = edge_coeffs(tri["sxy"], tri["z"],
                                                  tri["valid"])
@@ -306,11 +296,75 @@ def prepare_frame(verts, faces, vtx_colors, width: int, height: int,
         z_ok = torch.where(tri["valid"][:, None], (z >= 0.0) & (z <= 1.0),
                            True).all()
         overflow = overflow | ~z_ok
-    table = tile_raster.build_table(A, B, C, zsc, inv_area, sign, valid,
-                                    attrs)
-    return {"sorted_pad": sorted_pad, "starts": starts, "counts": counts,
-            "table": table, "packed_bg": tile_raster.pack_bg(bg),
-            "overflow": overflow}
+    return tri, (A, B, C, zsc, inv_area, sign, valid), {
+        "sorted_pad": sorted_pad, "starts": starts, "counts": counts,
+        "overflow": overflow}
+
+
+def prepare_frame(verts, faces, vtx_colors, width: int, height: int,
+                  mvp=None, *, tile_w: int = 128, tile_h: int = 16,
+                  capacity: int = 512, bg=None, span_x: int = 8,
+                  span_y: int = 8, z_clip: bool = True, pre=None):
+    """Per-frame prep of :func:`render_gouraud_u8`, everything before the
+    tile kernel (``raster3d.py:895-934``): returns a dict with the
+    kernel's inputs ``sorted_pad``, ``starts``, ``counts``, ``table``,
+    ``packed_bg`` and the device ``overflow`` flag, which with
+    ``z_clip=False`` also carries the vertex-z check (see
+    :func:`_prep_geometry`)."""
+    from . import tile_raster
+    dtype = verts.dtype
+    if mvp is None:
+        mvp = torch.eye(4, dtype=dtype, device=verts.device)
+    if bg is None:
+        bg = torch.zeros(4, dtype=dtype, device=verts.device)
+    if pre is not None:
+        v4f, attrs = pre
+    else:
+        v4f, attrs = None, vtx_colors[faces]
+    _, edges, prep = _prep_geometry(
+        verts, faces, mvp, width, height, tile_w=tile_w, tile_h=tile_h,
+        capacity=capacity, span_x=span_x, span_y=span_y, z_clip=z_clip,
+        v4f=v4f)
+    prep["table"] = tile_raster.build_table(*edges, attrs)
+    prep["packed_bg"] = tile_raster.pack_bg(bg)
+    return prep
+
+
+def pack_texture_u8(tex_u8):
+    """(th, tw, 4) uint8 texture -> (th * tw,) int32 packed texels,
+    little-endian: r in the low byte (``raster3d.py:1200-1205``)."""
+    if tex_u8.dtype != torch.uint8 or tex_u8.dim() != 3 \
+            or tex_u8.shape[-1] != 4:
+        raise ValueError(f"texture must be (th, tw, 4) uint8, got "
+                         f"{tuple(tex_u8.shape)} {tex_u8.dtype}")
+    return tex_u8.contiguous().view(torch.int32).reshape(-1)
+
+
+def prepare_textured_frame(verts, faces, fuv, width: int, height: int,
+                           mvp, *, tile_w: int, tile_h: int, capacity: int,
+                           span_x: int, span_y: int,
+                           perspective_correct: bool, z_clip: bool,
+                           v4f=None):
+    """Per-frame prep of the textured entries, everything before the tile
+    kernel — counterpart of ``_tex_prep`` (``raster3d.py:1208-1250``,
+    without ``mxu``).  ``fuv`` is ``uvs[faces]``, (F, 3, 2).  The row
+    table carries the attributes [u/w, v/w, 1/w, 1], or [u, v, 1, 1]
+    without ``perspective_correct``.  Returns a dict with ``sorted_pad``,
+    ``starts``, ``counts``, ``table`` and the device ``overflow`` flag
+    (with ``z_clip=False`` also the vertex-z check, see
+    :func:`_prep_geometry`)."""
+    from . import tile_raster
+    tri, edges, prep = _prep_geometry(
+        verts, faces, mvp, width, height, tile_w=tile_w, tile_h=tile_h,
+        capacity=capacity, span_x=span_x, span_y=span_y, z_clip=z_clip,
+        v4f=v4f)
+    if perspective_correct:
+        iw = tri["inv_w"][..., None]
+        attrs = torch.cat([fuv * iw, iw, torch.ones_like(iw)], dim=-1)
+    else:
+        attrs = torch.cat([fuv, torch.ones_like(fuv)], dim=-1)
+    prep["table"] = tile_raster.build_table(*edges, attrs)
+    return prep
 
 
 def render_gouraud_u8(verts, faces, vtx_colors, width: int, height: int,
@@ -386,3 +440,150 @@ def render_gouraud_u8_loop(verts, faces, vtx_colors, width: int,
             z_clip=z_clip, pre=pre, tiled=tiled)
         overflow = overflow | ovf
     return frames, overflow
+
+
+def render_textured_u8(verts, faces, uvs, tex_u8, width: int, height: int,
+                       mvp=None, *, tile_w: int = 32, tile_h: int = 32,
+                       capacity: int = 1024, bg=None, span_x: int = 5,
+                       span_y: int = 3, kcc: int = 32,
+                       perspective_correct: bool = True,
+                       z_clip: bool = True, pre=None, tiled: bool = False):
+    """Binned textured render of one frame to u8 through K3, with the
+    textured loop entry's production defaults (``raster3d.py:1432-1448``).
+
+    verts (V, 3), faces (F, 3), uvs (V, 2), tex_u8 (th, tw, 4) uint8,
+    mvp (4, 4), bg (4,) are tensors on one device; the render runs there.
+    Each covered pixel takes the texel at the winner's clamped-nearest
+    (u, v) — interpolated perspective-correct as [u/w, v/w, 1/w] unless
+    ``perspective_correct=False`` — and each other pixel bg quantised as
+    ``clip(v * 255, 0, 255)`` truncated.  Returns ``(frame, overflow)``:
+    frame (H, W, 4) uint8, or with ``tiled=True`` the kernel's per-tile
+    (NT, P, 4) layout (see :func:`detile_u8_host`); overflow a device
+    bool, True when the frame cannot be trusted (see
+    :func:`render_gouraud_u8`).  Tiles must hold P % 128 == 0 and
+    P >= 256 pixels, as in the JAX entries.  ``pre``: optional
+    ``(pregather_mesh(verts, faces), uvs[faces], pack_texture_u8(tex_u8))``
+    hoisted out of frame loops.  ``kcc`` is accepted for signature
+    parity and changes no value; the JAX entries' TPU knobs
+    (``interpret``, ``tex_nw``, ``fb_tile_cap``, ``mxu``, ``tex_split``,
+    ``mega``, ``tex_dyn``, ``out8``, ``ktail``, ``tex_when``,
+    ``tex_skip``, ``fb_subrow``) are not parameters."""
+    from . import tile_raster
+    dev = verts.device
+    if mvp is None:
+        mvp = torch.eye(4, dtype=verts.dtype, device=dev)
+    if bg is None:
+        bg = torch.zeros(4, dtype=torch.float32, device=dev)
+    v4f, fuv, tex_packed = (pre if pre is not None else
+                            (None, uvs[faces], pack_texture_u8(tex_u8)))
+    prep = prepare_textured_frame(
+        verts, faces, fuv, width, height, mvp, tile_w=tile_w, tile_h=tile_h,
+        capacity=capacity, span_x=span_x, span_y=span_y,
+        perspective_correct=perspective_correct, z_clip=z_clip, v4f=v4f)
+    packed = tile_raster.raster_tiles_tex_u8(
+        prep["sorted_pad"], prep["starts"], prep["counts"], prep["table"],
+        tex_packed, tuple(tex_u8.shape[:2]), tile_raster.pack_bg(bg), width,
+        tile_w, tile_h, z_clip=z_clip)
+    if tiled:
+        return tile_raster.tiles_u8(packed), prep["overflow"]
+    return (tile_raster.detile_packed(packed, width, height, tile_w,
+                                      tile_h), prep["overflow"])
+
+
+def render_textured_u8_loop(verts, faces, uvs, tex_u8, width: int,
+                            height: int, mvps, *, tile_w: int = 32,
+                            tile_h: int = 32, capacity: int = 1024,
+                            bg=None, span_x: int = 5, span_y: int = 3,
+                            kcc: int = 32, perspective_correct: bool = True,
+                            z_clip: bool = True, tiled: bool = False):
+    """B frames of :func:`render_textured_u8` (mvps (B, 4, 4)), the
+    per-face gathers and the packed texture made once, outside the frame
+    loop — counterpart of ``render_textured_pallas_loop``
+    (``raster3d.py:1432-1517``) with its production defaults ((32, 32)
+    tiles, span (5, 3), capacity 1024, perspective-correct, z_clip on).
+    Returns (frames (B, H, W, 4) uint8 — or (B, NT, P, 4) when
+    ``tiled`` — , overflow device bool over the batch).  No host sync."""
+    ntx = (width + tile_w - 1) // tile_w
+    nty = (height + tile_h - 1) // tile_h
+    dev = verts.device
+    pre = (pregather_mesh(verts, faces), uvs[faces], pack_texture_u8(tex_u8))
+    n = mvps.shape[0]
+    shape = ((n, ntx * nty, tile_h * tile_w, 4) if tiled
+             else (n, height, width, 4))
+    frames = torch.empty(shape, dtype=torch.uint8, device=dev)
+    overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    for i in range(n):
+        frames[i], ovf = render_textured_u8(
+            verts, faces, uvs, tex_u8, width, height, mvps[i],
+            tile_w=tile_w, tile_h=tile_h, capacity=capacity, bg=bg,
+            span_x=span_x, span_y=span_y, kcc=kcc,
+            perspective_correct=perspective_correct, z_clip=z_clip,
+            pre=pre, tiled=tiled)
+        overflow = overflow | ovf
+    return frames, overflow
+
+
+def render_textured_u8_batch(verts, faces, uvs, tex_u8, width: int,
+                             height: int, mvps, *, tile_w: int = 32,
+                             tile_h: int = 32, capacity: int = 512,
+                             bg=None, span_x: int = 5, span_y: int = 3,
+                             kcc: int = 16, perspective_correct: bool = True,
+                             z_clip: bool = True, tiled: bool = False):
+    """:func:`render_textured_u8_loop` under the defaults of
+    ``render_textured_pallas_batch`` (``raster3d.py:1344-1425``: capacity
+    512, kcc 16) — an alias kept for the JAX entry's name, not a path of
+    its own: the same loop and the same values (the JAX entry's vmapped
+    prep was a TPU program layout)."""
+    return render_textured_u8_loop(
+        verts, faces, uvs, tex_u8, width, height, mvps, tile_w=tile_w,
+        tile_h=tile_h, capacity=capacity, bg=bg, span_x=span_x,
+        span_y=span_y, kcc=kcc, perspective_correct=perspective_correct,
+        z_clip=z_clip, tiled=tiled)
+
+
+def render_textured(verts, faces, uvs, tex, width: int, height: int,
+                    mvp=None, *, tile_w: int = 128, tile_h: int = 8,
+                    capacity: int = 512, bg=None, span_x: int = 2,
+                    span_y: int = 10, kcc: int = 16,
+                    perspective_correct: bool = True):
+    """Textured render of one frame through K2a — counterpart of
+    ``render_textured_pallas`` (``raster3d.py:1141-1197``), with its
+    defaults.  tex (th, tw, 4) is a float texture.  K2a interpolates the
+    attributes and keeps the depth keys; then, per pixel, (u, v) is the
+    winner's first two attributes, divided by the third only when
+    ``perspective_correct``, and the clamped-nearest texel of ``tex`` is
+    fetched.  Returns (rgba (H, W, 4) in verts' dtype, bg where no
+    triangle covers the pixel; zq (H, W) the quantised depth
+    (key >> IDX_BITS) / Z_LEVELS; overflow device bool)."""
+    from . import tile_raster
+    dtype = verts.dtype
+    dev = verts.device
+    if mvp is None:
+        mvp = torch.eye(4, dtype=dtype, device=dev)
+    if bg is None:
+        bg = torch.zeros(4, dtype=dtype, device=dev)
+    prep = prepare_textured_frame(
+        verts, faces, uvs[faces], width, height, mvp, tile_w=tile_w,
+        tile_h=tile_h, capacity=capacity, span_x=span_x, span_y=span_y,
+        perspective_correct=perspective_correct, z_clip=True)
+    keys, uvq = tile_raster.render_binned_pallas_flat(
+        prep["sorted_pad"], prep["starts"], prep["counts"], prep["table"],
+        torch.zeros(4, dtype=dtype, device=dev), width, height, tile_w,
+        tile_h)
+    hit = keys != SKY_KEY
+    if perspective_correct:
+        den = uvq[..., 2:3]
+        uv = uvq[..., :2] / torch.where(den != 0.0, den, 1.0)
+    else:
+        uv = uvq[..., :2]
+    th, tw = tex.shape[0], tex.shape[1]
+    ui = _to_i32(uv[..., 0] * tw).clamp(0, tw - 1)
+    vi = _to_i32(uv[..., 1] * th).clamp(0, th - 1)
+    texel = tex.reshape(-1, 4)[(vi * tw + ui).long()]
+    rgba = torch.where(hit[..., None], texel.to(dtype),
+                       torch.as_tensor(bg, dtype=dtype, device=dev))
+    # the divisor is a tensor: CUDA divides by a Python scalar as a
+    # multiply by its reciprocal
+    zq = (keys >> IDX_BITS).to(dtype) / torch.full(
+        (), Z_LEVELS, dtype=dtype, device=dev)
+    return rgba, zq, prep["overflow"]

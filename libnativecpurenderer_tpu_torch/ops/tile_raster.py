@@ -1,19 +1,28 @@
-"""Per-tile visibility + Gouraud shading to packed u8: kernel K1.
+"""Per-tile visibility and its four epilogues: kernels K1, K3, K2b, K2a.
 
 Counterpart of ``libnativecpurenderer_tpu/ops/pallas_raster.py`` for the
-flat u8 path: the row table (``build_table``, ``pallas_raster.py:1445``),
-the packed background (``_pack_bg``, ``:932``), the detile
-(``_detile_plane``/``_detile_packed``, ``:939-950``) and the tile kernel
-launched by ``raster_tiles_flat(u8=True)`` (``:793``; kernel body
-``_make_kernel_flat`` ``:125-354``, u8 epilogue ``:566-596``) through
-``render_binned_pallas_flat_u8`` (``:953-1007``).
+flat binned paths: the row table (``build_table``, ``pallas_raster.py:1445``),
+the packed background (``_pack_bg``, ``:932``), the detiles
+(``_detile_plane``/``_detile_packed``/``_detile``, ``:939-950,1508``), the
+entries ``render_binned_pallas_flat`` (``:909``) and
+``render_binned_tex_idx_batch`` (``:1048``), and the tile kernel
+``_make_kernel_flat`` (``:125-600``) with the epilogues its launchers pick:
 
-``raster_tiles_flat_u8`` is the wrapper: on CUDA tensors it launches the
-hand-written kernel in ``csrc/tile_raster.cu`` (or raises), on CPU
-tensors it runs ``raster_tiles_flat_u8_reference``, the plain torch
-version in the same operation order.  The two are bit-identical on the
-card.  The wrapper counts its kernel launches in
-``raster_tiles_flat_u8.launches``.
+  * K1, ``raster_tiles_flat_u8``: packed u8 Gouraud RGBA (``u8=True``,
+    ``raster_tiles_flat`` ``:793``, epilogue ``:566-596``);
+  * K3, ``raster_tiles_tex_u8``: the packed u8 texel of the winner's
+    clamped-nearest (u, v) (``raster_tiles_tex`` ``:895``, epilogue
+    ``:375-565``);
+  * K2b, ``raster_tiles_tex_idx``: that texel's index, -1 for sky
+    (``tex_dims``, ``:793``, epilogue ``:356-374``);
+  * K2a, ``raster_tiles_keys_f32``: packed depth keys and the four f32
+    attributes (the f32 branch, ``:805``, epilogue ``:597-599``).
+
+Each wrapper, on CUDA tensors, launches the hand-written kernel in
+``csrc/tile_raster.cu`` (one walk, the epilogue a template parameter) or
+raises; on CPU tensors it runs its ``*_reference``, the plain torch version
+in the same operation order, bit-identical to the kernel on the card.  Each
+wrapper counts its kernel launches in its ``launches`` attribute.
 
 Row table layout (32 floats per triangle, ``pallas_raster.py:18-27``):
   0:9   A0' B0' C0' A1' B1' C1' A2' B2' C2'  (edges, cover sign folded in)
@@ -22,19 +31,20 @@ Row table layout (32 floats per triangle, ``pallas_raster.py:18-27``):
   14:26 vertex attributes * inv_area * sign, vertex-major (14 + 4 i + d)
   26:32 zero padding
 Invalid triangles and the pad row F are NaN rows: every comparison with a
-NaN edge is false, so they never cover a pixel.
+NaN edge is false, so they never cover a pixel.  The textured tables carry
+the attributes [u/w, v/w, 1/w, 1] (affine: [u, v, 1, 1]).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .raster3d import IDX_BITS, IDX_MASK, SKY_KEY, Z_LEVELS
+from .raster3d import IDX_BITS, IDX_MASK, SKY_KEY, Z_LEVELS, _to_i32
 
 ROW_W = 32      # padded row width
-D = 4           # RGBA
+D = 4           # attributes per vertex
 MAX_P = 4096    # pixels per tile the kernel takes (16 per thread)
-REF_CHUNK = 16  # run slots the plain version evaluates per pass
+REF_CHUNK = 16  # run slots the plain versions evaluate per pass
 _ALPHA_255 = -(1 << 24)   # 255 << 24 as an int32
 
 
@@ -77,25 +87,49 @@ def tiles_u8(packed):
     return packed.view(torch.uint8).reshape(packed.shape[0], -1, 4)
 
 
+def _detile_plane(plane, width: int, height: int, tile_w: int,
+                  tile_h: int):
+    """(NT, P, *rest) per-tile planes -> (H, W, *rest) raster order,
+    cropping padded slots (``pallas_raster.py:939-943``)."""
+    ntx = (width + tile_w - 1) // tile_w
+    nty = (height + tile_h - 1) // tile_h
+    rest = plane.shape[2:]
+    p2 = plane.reshape(nty, ntx, tile_h, tile_w, *rest).transpose(1, 2)
+    return p2.reshape(nty * tile_h, ntx * tile_w, *rest)[:height, :width]
+
+
 def detile_packed(packed, width: int, height: int, tile_w: int,
                   tile_h: int):
     """(NT, P) packed int32 tiles -> (H, W, 4) uint8 raster order,
-    cropping padded slots (``pallas_raster.py:939-950``)."""
-    ntx = (width + tile_w - 1) // tile_w
-    nty = (height + tile_h - 1) // tile_h
-    p2 = packed.reshape(nty, ntx, tile_h, tile_w).permute(0, 2, 1, 3)
-    p2 = p2.reshape(nty * tile_h, ntx * tile_w)[:height, :width]
+    cropping padded slots (``pallas_raster.py:946-950``)."""
+    p2 = _detile_plane(packed, width, height, tile_w, tile_h)
     return p2.contiguous().view(torch.uint8).reshape(height, width, 4)
 
 
-def _check_inputs(sorted_pad, starts, counts, table, packed_bg, tile_w,
-                  tile_h):
+def detile_keys_rgba(keys, rgba, width: int, height: int, tile_w: int,
+                     tile_h: int, bg, dtype):
+    """K2a's (NT, P) keys and (NT, D, P) rgba -> (keys (H, W) int32,
+    rgba (H, W, D) in ``dtype``), bg cast to ``dtype`` where the key is
+    SKY_KEY (``pallas_raster._detile``, ``:1508-1523``)."""
+    keys2d = _detile_plane(keys, width, height, tile_w, tile_h)
+    rgba2d = _detile_plane(rgba.transpose(1, 2), width, height, tile_w,
+                           tile_h)
+    bgv = torch.as_tensor(bg, dtype=dtype, device=rgba.device)
+    sky = (keys2d == SKY_KEY)[..., None]
+    return keys2d, torch.where(sky, bgv, rgba2d.to(dtype))
+
+
+def _check_inputs(sorted_pad, starts, counts, table, tile_w, tile_h,
+                  packed_bg=None, tex_packed=None, tex_dims=None):
     dev = table.device
     for name, t, dtype in (("sorted_pad", sorted_pad, torch.int32),
                            ("starts", starts, torch.int32),
                            ("counts", counts, torch.int32),
                            ("table", table, torch.float32),
-                           ("packed_bg", packed_bg, torch.int32)):
+                           ("packed_bg", packed_bg, torch.int32),
+                           ("tex_packed", tex_packed, torch.int32)):
+        if t is None:
+            continue
         if t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if t.device != dev:
@@ -111,12 +145,47 @@ def _check_inputs(sorted_pad, starts, counts, table, packed_bg, tile_w,
     if table.dim() != 2 or table.shape[1] != ROW_W or table.shape[0] < 1:
         raise ValueError(f"table must be (F + 1, {ROW_W}), got "
                          f"{tuple(table.shape)}")
-    if packed_bg.shape != (1,):
+    if packed_bg is not None and packed_bg.shape != (1,):
         raise ValueError(f"packed_bg must be (1,), got "
                          f"{tuple(packed_bg.shape)}")
     if not 0 < tile_w * tile_h <= MAX_P:
         raise ValueError(f"tile {tile_w}x{tile_h} must hold 1..{MAX_P} "
                          f"pixels")
+    if tex_dims is not None:
+        th, tw = tex_dims
+        if th < 1 or tw < 1:
+            raise ValueError(f"texture dims {tex_dims} must be positive")
+        if tex_packed is not None and tex_packed.shape != (th * tw,):
+            raise ValueError(f"tex_packed must be ({th} * {tw},), got "
+                             f"{tuple(tex_packed.shape)}")
+
+
+def _on_cpu(table, kernel: str) -> bool:
+    """True for CPU tensors (run the plain version), False for CUDA ones
+    (launch the kernel); raises for any other device."""
+    if table.device.type == "cpu":
+        return True
+    if table.device.type != "cuda":
+        raise ValueError(f"no {kernel} kernel for device {table.device}")
+    return False
+
+
+def _launch(entry: str, sorted_pad, starts, counts, table, width: int,
+            tile_w: int, tile_h: int, z_clip: bool, *epilogue) -> None:
+    """Launch ``entry`` of csrc/tile_raster.cu on the current stream: the
+    walk's arguments, then the epilogue's (ints and tensors)."""
+    from . import _kernels
+    dev = table.device
+    ntx = (width + tile_w - 1) // tile_w
+    epi = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a)
+           for a in epilogue]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _kernels.launch_tile_raster(
+            entry, sorted_pad.data_ptr(), sorted_pad.shape[0],
+            starts.data_ptr(), counts.data_ptr(), starts.shape[0],
+            table.data_ptr(), table.shape[0], ntx, tile_w, tile_h,
+            int(z_clip), *epi, stream)
 
 
 def raster_tiles_flat_u8(sorted_pad, starts, counts, table, packed_bg,
@@ -140,31 +209,119 @@ def raster_tiles_flat_u8(sorted_pad, starts, counts, table, packed_bg,
 
     CUDA tensors launch the kernel on the current stream (no sync);
     CPU tensors run :func:`raster_tiles_flat_u8_reference`."""
-    _check_inputs(sorted_pad, starts, counts, table, packed_bg, tile_w,
-                  tile_h)
-    dev = table.device
-    if dev.type == "cpu":
+    _check_inputs(sorted_pad, starts, counts, table, tile_w, tile_h,
+                  packed_bg=packed_bg)
+    if _on_cpu(table, "K1"):
         return raster_tiles_flat_u8_reference(
             sorted_pad, starts, counts, table, packed_bg, width, tile_w,
             tile_h, opaque=opaque, z_clip=z_clip)
-    if dev.type != "cuda":
-        raise ValueError(f"no K1 kernel for device {dev}")
-    from . import _kernels
-    nt = starts.shape[0]
-    ntx = (width + tile_w - 1) // tile_w
-    out = torch.empty((nt, tile_w * tile_h), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _kernels.launch_tile_raster_u8(
-            sorted_pad.data_ptr(), sorted_pad.shape[0], starts.data_ptr(),
-            counts.data_ptr(), nt, table.data_ptr(), table.shape[0],
-            packed_bg.data_ptr(), out.data_ptr(), ntx, tile_w, tile_h,
-            opaque, z_clip, stream)
+    out = torch.empty((starts.shape[0], tile_w * tile_h), dtype=torch.int32,
+                      device=table.device)
+    _launch("tile_raster_u8", sorted_pad, starts, counts, table, width,
+            tile_w, tile_h, z_clip, packed_bg, int(opaque), out)
     raster_tiles_flat_u8.launches += 1
     return out
 
 
 raster_tiles_flat_u8.launches = 0
+
+
+def raster_tiles_tex_u8(sorted_pad, starts, counts, table, tex_packed,
+                        tex_dims, packed_bg, width: int, tile_w: int,
+                        tile_h: int, *, z_clip: bool):
+    """Kernel K3: K1's walk over a textured table, each pixel the packed
+    u8 texel ``tex_packed[vi * tw + ui]`` of the winner's clamped-nearest
+    texel (see :func:`raster_tiles_tex_idx`), ``packed_bg[0]`` where no
+    triangle covers it; (NT, P) int32.  ``tex_packed`` is
+    :func:`raster3d.pack_texture_u8` of a (th, tw, 4) texture,
+    ``tex_dims`` = (th, tw).
+
+    Counterpart of ``raster_tiles_tex`` (``pallas_raster.py:821-906``)
+    followed by ``raster3d._tex_resolve_finish``: the TPU kernel fetches
+    texels through per-tile footprint windows and leaves the pixels they
+    miss to an XLA gather; both fetch the same texel, which this kernel
+    loads directly.  Like the JAX launcher it takes only tiles of
+    P % 128 == 0 and P >= 256 pixels.
+
+    CUDA tensors launch the kernel on the current stream (no sync);
+    CPU tensors run :func:`raster_tiles_tex_u8_reference`."""
+    P = tile_w * tile_h
+    if P % 128 or P < 256:
+        raise ValueError(f"textured tiles need P % 128 == 0 and P >= 256, "
+                         f"got {tile_w}x{tile_h} (the JAX launcher's "
+                         f"Mosaic lane constraint, kept for parity)")
+    _check_inputs(sorted_pad, starts, counts, table, tile_w, tile_h,
+                  packed_bg=packed_bg, tex_packed=tex_packed,
+                  tex_dims=tex_dims)
+    if _on_cpu(table, "K3"):
+        return raster_tiles_tex_u8_reference(
+            sorted_pad, starts, counts, table, tex_packed, tex_dims,
+            packed_bg, width, tile_w, tile_h, z_clip=z_clip)
+    th, tw = tex_dims
+    out = torch.empty((starts.shape[0], P), dtype=torch.int32,
+                      device=table.device)
+    _launch("tile_raster_tex_u8", sorted_pad, starts, counts, table, width,
+            tile_w, tile_h, z_clip, tex_packed, tw, th, packed_bg, out)
+    raster_tiles_tex_u8.launches += 1
+    return out
+
+
+raster_tiles_tex_u8.launches = 0
+
+
+def raster_tiles_tex_idx(sorted_pad, starts, counts, table, tex_dims,
+                         width: int, tile_w: int, tile_h: int, *,
+                         z_clip: bool):
+    """Kernel K2b: K1's walk over a textured table, each pixel the index
+    vi * tw + ui of the winner's clamped-nearest texel, -1 where no
+    triangle covers it; (NT, P) int32, ``tex_dims`` = (th, tw).  With the
+    winner's interpolated attributes r0..r2, safe = r2 if r2 != 0 else 1,
+    ui = clip(int(r0 / safe * tw), 0, tw - 1) and vi the same with r1 and
+    th, the conversion truncating, saturating and sending NaN to 0
+    (``pallas_raster.py:356-374``)."""
+    _check_inputs(sorted_pad, starts, counts, table, tile_w, tile_h,
+                  tex_dims=tex_dims)
+    if _on_cpu(table, "K2b"):
+        return raster_tiles_tex_idx_reference(
+            sorted_pad, starts, counts, table, tex_dims, width, tile_w,
+            tile_h, z_clip=z_clip)
+    th, tw = tex_dims
+    out = torch.empty((starts.shape[0], tile_w * tile_h), dtype=torch.int32,
+                      device=table.device)
+    _launch("tile_raster_tex_idx", sorted_pad, starts, counts, table, width,
+            tile_w, tile_h, z_clip, tw, th, out)
+    raster_tiles_tex_idx.launches += 1
+    return out
+
+
+raster_tiles_tex_idx.launches = 0
+
+
+def raster_tiles_keys_f32(sorted_pad, starts, counts, table, width: int,
+                          tile_w: int, tile_h: int, *, z_clip: bool):
+    """Kernel K2a: K1's walk with float32 outputs, (keys (NT, P) int32,
+    rgba (NT, D, P) float32).  A key is the winner's
+    (int(z * Z_LEVELS) << IDX_BITS) | run slot, SKY_KEY where no triangle
+    covers the pixel; channel d is (e0 a0d + e1 a1d) + e2 a2d of the
+    winner, 0 for sky (the JAX accumulators start at zero and a chunk
+    without cover leaves them, ``pallas_raster.py:597-599``)."""
+    _check_inputs(sorted_pad, starts, counts, table, tile_w, tile_h)
+    if _on_cpu(table, "K2a"):
+        return raster_tiles_keys_f32_reference(
+            sorted_pad, starts, counts, table, width, tile_w, tile_h,
+            z_clip=z_clip)
+    P = tile_w * tile_h
+    keys = torch.empty((starts.shape[0], P), dtype=torch.int32,
+                       device=table.device)
+    rgba = torch.empty((starts.shape[0], D, P), dtype=torch.float32,
+                       device=table.device)
+    _launch("tile_raster_keys_f32", sorted_pad, starts, counts, table, width,
+            tile_w, tile_h, z_clip, keys, rgba)
+    raster_tiles_keys_f32.launches += 1
+    return keys, rgba
+
+
+raster_tiles_keys_f32.launches = 0
 
 
 def _edges(r, X, Y):
@@ -174,15 +331,16 @@ def _edges(r, X, Y):
             for i in range(3)]
 
 
-def raster_tiles_flat_u8_reference(sorted_pad, starts, counts, table,
-                                   packed_bg, width: int, tile_w: int,
-                                   tile_h: int, *, opaque: bool,
-                                   z_clip: bool):
-    """Plain torch version of K1, same values bit for bit, vectorised
-    over tiles and pixels: the minimum key over the run is found
-    ``REF_CHUNK`` slots at a time, then the winner's row is fetched again and shaded.
-    Every quantity is the kernel's expression in the kernel's order, so
-    the recomputed edge values equal those of the walk."""
+def _walk(sorted_pad, starts, counts, table, width: int, tile_w: int,
+          tile_h: int, z_clip: bool):
+    """The min-key walk the four plain versions share, vectorised over
+    tiles and pixels: the minimum key over each run, found ``REF_CHUNK``
+    slots at a time; then the winner's row fetched again and its edge
+    values recomputed.  Every quantity is the kernel's expression in the
+    kernel's order, so the recomputed edge values equal those of the
+    walk.  Returns (best keys (NT, P) int32, winner rows (NT, P, ROW_W),
+    winner edge values [e0, e1, e2]); a sky pixel's row and edge values
+    are those of slot 0 and mean nothing."""
     nt = starts.shape[0]
     P = tile_w * tile_h
     ntx = (width + tile_w - 1) // tile_w
@@ -216,13 +374,102 @@ def raster_tiles_flat_u8_reference(sorted_pad, starts, counts, table,
         keys = torch.where(cov, keys, SKY_KEY)
         best = torch.minimum(best, keys.amin(dim=1))
 
-    hit = best != SKY_KEY
-    slot = torch.where(hit, best & IDX_MASK, 0)
+    slot = torch.where(best != SKY_KEY, best & IDX_MASK, 0)
     r = rows_at(slot)                                    # (NT, P, 32)
-    e0, e1, e2 = _edges(r, X, Y)                         # (NT, P)
-    q = [_quant_u8(e0 * r[..., 14 + d] + e1 * r[..., 14 + D + d]
-                   + e2 * r[..., 14 + 2 * D + d])
-         for d in range(3 if opaque else 4)]
+    return best, r, _edges(r, X, Y)
+
+
+def _channel(r, e, d: int):
+    """The winner's attribute d: (e0 a0d + e1 a1d) + e2 a2d
+    (``pallas_raster.py:329-330``)."""
+    e0, e1, e2 = e
+    return (e0 * r[..., 14 + d] + e1 * r[..., 14 + D + d]
+            + e2 * r[..., 14 + 2 * D + d])
+
+
+def _texel_index(r, e, tex_dims):
+    """vi * tw + ui of the winner's clamped-nearest texel (K2b's and K3's
+    epilogue, ``pallas_raster.py:361-366``).  The divisor is a tensor:
+    CUDA torch divides by a Python scalar as a reciprocal multiply."""
+    th, tw = tex_dims
+    den = _channel(r, e, 2)
+    safe = torch.where(den != 0.0, den, 1.0)
+    ui = _to_i32(_channel(r, e, 0) / safe * tw).clamp(0, tw - 1)
+    vi = _to_i32(_channel(r, e, 1) / safe * th).clamp(0, th - 1)
+    return vi * tw + ui
+
+
+def raster_tiles_flat_u8_reference(sorted_pad, starts, counts, table,
+                                   packed_bg, width: int, tile_w: int,
+                                   tile_h: int, *, opaque: bool,
+                                   z_clip: bool):
+    """Plain torch version of K1, same values bit for bit."""
+    best, r, e = _walk(sorted_pad, starts, counts, table, width, tile_w,
+                       tile_h, z_clip)
+    q = [_quant_u8(_channel(r, e, d)) for d in range(3 if opaque else 4)]
     a8 = _ALPHA_255 if opaque else q[3] << 24
     packed = q[0] | (q[1] << 8) | (q[2] << 16) | a8
-    return torch.where(hit, packed, packed_bg)
+    return torch.where(best != SKY_KEY, packed, packed_bg)
+
+
+def raster_tiles_tex_u8_reference(sorted_pad, starts, counts, table,
+                                  tex_packed, tex_dims, packed_bg,
+                                  width: int, tile_w: int, tile_h: int, *,
+                                  z_clip: bool):
+    """Plain torch version of K3, same values bit for bit."""
+    best, r, e = _walk(sorted_pad, starts, counts, table, width, tile_w,
+                       tile_h, z_clip)
+    texel = tex_packed[_texel_index(r, e, tex_dims).long()]
+    return torch.where(best != SKY_KEY, texel, packed_bg)
+
+
+def raster_tiles_tex_idx_reference(sorted_pad, starts, counts, table,
+                                   tex_dims, width: int, tile_w: int,
+                                   tile_h: int, *, z_clip: bool):
+    """Plain torch version of K2b, same values bit for bit."""
+    best, r, e = _walk(sorted_pad, starts, counts, table, width, tile_w,
+                       tile_h, z_clip)
+    return torch.where(best != SKY_KEY, _texel_index(r, e, tex_dims), -1)
+
+
+def raster_tiles_keys_f32_reference(sorted_pad, starts, counts, table,
+                                    width: int, tile_w: int, tile_h: int,
+                                    *, z_clip: bool):
+    """Plain torch version of K2a, same values bit for bit."""
+    best, r, e = _walk(sorted_pad, starts, counts, table, width, tile_w,
+                       tile_h, z_clip)
+    hit = best != SKY_KEY
+    rgba = torch.stack([torch.where(hit, _channel(r, e, d), 0.0)
+                        for d in range(D)], dim=1)
+    return best, rgba
+
+
+def render_binned_pallas_flat(sorted_pad, starts, counts, table, bg,
+                              width: int, height: int, tile_w: int,
+                              tile_h: int):
+    """Binned raster through K2a, detiled: (keys (H, W) int32 whose low
+    IDX_BITS are the winner's run slot, rgba (H, W, D) float32 with bg
+    where no triangle covers the pixel) — counterpart of
+    ``pallas_raster.render_binned_pallas_flat`` (``:909-929``).  The JAX
+    entry's ``Kb`` and ``kcc`` sized the TPU kernel's id window and
+    triangle chunk and are not parameters: the run is walked in full."""
+    keys, rgba = raster_tiles_keys_f32(sorted_pad, starts, counts, table,
+                                       width, tile_w, tile_h, z_clip=True)
+    return detile_keys_rgba(keys, rgba, width, height, tile_w, tile_h, bg,
+                            table.dtype)
+
+
+def render_binned_tex_idx_batch(sorted_pads, starts, counts, tables,
+                                width: int, height: int, tile_w: int,
+                                tile_h: int, tex_dims):
+    """B frames through K2b, detiled: (B, H, W) int32 texel indices,
+    -1 for sky — counterpart of ``pallas_raster.
+    render_binned_tex_idx_batch`` (``:1048-1078``), one launch a frame.
+    sorted_pads (B, Spad), starts and counts (B, NT), tables
+    (B, F + 1, ROW_W); the JAX entry's ``Kb`` and ``kcc`` are not
+    parameters (see :func:`render_binned_pallas_flat`)."""
+    return torch.stack([
+        _detile_plane(raster_tiles_tex_idx(sp, st, cn, tb, tex_dims, width,
+                                           tile_w, tile_h, z_clip=True),
+                      width, height, tile_w, tile_h)
+        for sp, st, cn, tb in zip(sorted_pads, starts, counts, tables)])

@@ -1,10 +1,11 @@
-"""Mesh -> video frame pipeline (Gouraud), in PyTorch.
+"""Mesh -> video frame pipeline (Gouraud and textured), in PyTorch.
 
 Counterpart of ``MeshVideoPipeline`` in
 ``libnativecpurenderer_tpu/pipeline.py:219-320``: MVPs are submitted per
-frame, rendered in device batches by ``raster3d.render_gouraud_u8_loop``,
-and handed to a frame sink.  The MP4 encoder of the JAX package
-(``VideoCap``, ROADMAP M4) is not ported yet; a sink is any object with
+frame, rendered in device batches by ``raster3d.render_gouraud_u8_loop``
+or ``raster3d.render_textured_u8_loop``, and handed to a frame sink.  The
+MP4 encoder of the JAX package (``VideoCap``, ROADMAP M4) is not ported
+yet; a sink is any object with
 ``put_frame_u8(frame (H, W, 4) uint8)`` or, for the kernel's per-tile
 layout, ``put_frame_tiled_u8(tiles (NT, P, 4) uint8, w, h, tw, th)``.
 """
@@ -22,10 +23,12 @@ from .ops import raster3d
 
 class MeshVideoPipeline:
     """Render submitted MVPs in batches of ``batch`` frames on ``device``
-    and feed them to ``cap``.
+    (the card unless the caller asks for ``"cpu"``) and feed them to
+    ``cap``.  Gouraud when ``colors`` is given, textured when ``uvs`` and
+    ``tex_u8`` are (exactly one of the two).
 
-        pipe = MeshVideoPipeline(sink, W, H, verts, faces, colors=cols,
-                                 device="cuda")
+        pipe = MeshVideoPipeline(sink, W, H, verts, faces, colors=cols)
+        # or uvs=uvs, tex_u8=tex ((th, tw, 4) uint8)
         for mvp in mvps: pipe.submit(mvp)
         pipe.finish()
 
@@ -37,28 +40,32 @@ class MeshVideoPipeline:
     Each batch's
     overflow flag stays on the device until :meth:`finish`, which raises
     ``ValueError`` if any frame overflowed.  ``render_kw`` are the
-    keyword arguments of ``render_gouraud_u8_loop`` (tile shape,
-    capacity, spans, bg, opaque, z_clip); others raise ``TypeError``
-    here."""
+    keyword arguments of ``render_gouraud_u8_loop`` or
+    ``render_textured_u8_loop`` (tile shape, capacity, spans, bg, and
+    opaque or perspective_correct, z_clip); others raise ``TypeError``
+    here.  Without a card the default ``device="cuda"`` raises."""
 
     def __init__(self, cap, width: int, height: int, verts, faces,
                  colors=None, uvs=None, tex_u8=None, batch: int = 16,
-                 tiled=None, *, device, **render_kw):
-        if uvs is not None or tex_u8 is not None:
-            raise NotImplementedError(
-                "textured mesh video (uvs=/tex_u8=) is not ported yet "
-                "(ROADMAP M3)")
-        if colors is None:
-            raise ValueError("colors= is required")
-        inspect.signature(raster3d.render_gouraud_u8_loop).bind_partial(
-            **render_kw)
+                 tiled=None, *, device="cuda", **render_kw):
+        textured = uvs is not None or tex_u8 is not None
+        if (colors is not None) == textured or \
+                (uvs is None) != (tex_u8 is None):
+            raise ValueError("exactly one of colors= and (uvs=, tex_u8=)")
+        self._render = (raster3d.render_textured_u8_loop if textured
+                        else raster3d.render_gouraud_u8_loop)
+        inspect.signature(self._render).bind_partial(**render_kw)
         self.cap = cap
         self.width = width
         self.height = height
         self.batch = batch
         self.device = interop.as_device(device)
-        self._verts, self._faces, self._colors = interop.mesh_to_torch(
-            verts, faces, colors, self.device)
+        if textured:
+            self._mesh = interop.textured_mesh_to_torch(verts, faces, uvs,
+                                                        tex_u8, self.device)
+        else:
+            self._mesh = interop.mesh_to_torch(verts, faces, colors,
+                                               self.device)
         has_tiled = hasattr(cap, "put_frame_tiled_u8")
         self._tiled = has_tiled if tiled is None else (bool(tiled)
                                                        and has_tiled)
@@ -88,9 +95,8 @@ class MeshVideoPipeline:
         if cuda:
             # from pinned memory the upload is queued without a host sync
             mvps = mvps.pin_memory().to(self.device, non_blocking=True)
-        frames, ovf = raster3d.render_gouraud_u8_loop(
-            self._verts, self._faces, self._colors, self.width,
-            self.height, mvps, tiled=self._tiled, **self._kw)
+        frames, ovf = self._render(*self._mesh, self.width, self.height,
+                                   mvps, tiled=self._tiled, **self._kw)
         self._ovf.append(ovf)
         done = None
         if cuda:

@@ -84,12 +84,24 @@ def test_tpu_knobs_raise_type_error(knob, value):
 
 
 def test_textured_pipeline_not_ported_yet():
-    verts, faces, _ = _tri()
-    with pytest.raises(NotImplementedError, match="M3"):
-        port.MeshVideoPipeline(object(), 16, 16, verts, faces,
-                               uvs=np.zeros((3, 2)),
-                               tex_u8=np.zeros((4, 4, 4), np.uint8),
-                               device="cpu")
+    # named when the textured half raised NotImplementedError; it is
+    # ported now, and this checks the arguments it takes: exactly one of
+    # colors and (uvs, tex_u8), the textured loop's keywords
+    verts, faces, colors = _tri()
+    uvs, tex = np.zeros((3, 2)), np.zeros((4, 4, 4), np.uint8)
+    pipe = port.MeshVideoPipeline(object(), 16, 16, verts, faces, uvs=uvs,
+                                  tex_u8=tex, device="cpu",
+                                  perspective_correct=False)
+    assert pipe._render is tr.render_textured_u8_loop
+    for bad in (dict(), dict(colors=colors, uvs=uvs, tex_u8=tex),
+                dict(uvs=uvs), dict(tex_u8=tex), dict(colors=colors,
+                                                      tex_u8=tex)):
+        with pytest.raises(ValueError, match="exactly one"):
+            port.MeshVideoPipeline(object(), 16, 16, verts, faces,
+                                   device="cpu", **bad)
+    with pytest.raises(TypeError):
+        port.MeshVideoPipeline(object(), 16, 16, verts, faces, uvs=uvs,
+                               tex_u8=tex, device="cpu", opaque=True)
 
 
 def test_default_dtype_feeds_mesh_tensors():
