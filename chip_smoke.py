@@ -1,5 +1,6 @@
 """On-card smoke run of the PyTorch port: the mesh -> u8 frame path, the
-2D canvas and the textured mesh -> u8 frame path.
+2D canvas, the textured mesh -> u8 frame path and the float/depth
+Gouraud rasterizer.
 
     python3 chip_smoke.py
 
@@ -7,7 +8,7 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and nvcc;
 imports nothing of JAX.  Phases, one line each (or a few), any failure
 raising:
   1. device: the card, and its name and power limit from nvidia-smi;
-  2. build: K1, K3, K2b, K2a (csrc/tile_raster.cu) and K4
+  2. build: K1, K3, K2b, K2a, K5, K6 (csrc/tile_raster.cu) and K4
      (csrc/canvas_span.cu) compiled from the checkout, one nvcc each,
      started together; ptxas registers and spills for each
      instantiation;
@@ -71,7 +72,34 @@ raising:
      (CUDA events; K3 and K2b at 32x32 tiles, K2a at render_textured's
      shapes) beside each bound, the device time by kernel, host
      launches and syncs a frame and the busy share (profiler, 16
-     frames), pipeline frames/s, peak device memory.
+     frames), pipeline frames/s, peak device memory;
+ 13. k5 / k6 vs plain: at 1920x1080 on mesh_10k for 4 cameras, K5 on
+     render_gouraud_pallas's default prep (128x16 tiles, capacity 512,
+     span (8, 8), box-culled bins) one frame a launch, on the 4 frames in
+     one launch at the batch defaults (128x32, span (8, 4)) and on one
+     frame at 32x8, against its plain version: keys and float bits equal,
+     no overflow; K2a's batched launch on the 4 frames' pair preps at the
+     batch defaults against its plain version, the same; K6 on the 4
+     frames' rows gathered in pair order (32x32,
+     span (5, 3), capacity 1024, opaque, no z test) against its plain
+     version and K1's batched launch, and render_gouraud_pallas_batch
+     (dynrows=g) for g in 1, 2, 4 against the u8 route: bit-equal;
+ 14. gouraud main path: render_gouraud_pallas at its defaults on the 4
+     frames, K5 launched once a frame, no overflow, frame 0 equal to the
+     CPU's; render_gouraud_pallas_batch over the 4 frames on each route
+     (K5, K2a, K1, K6), one launch each, each frame equal to
+     render_gouraud_pallas's at the same shapes; render_gouraud_binned,
+     render_gouraud (naive), near clipping (the eye inside the ring of
+     quads) on the K5, flat f32 (K2a), flat u8 (K1) and binned routes,
+     render_gouraud_binned(perspective_correct=True),
+     render_binned_pallas(return_ids=True), render_textured_binned on the
+     textured scene and render_blended on BASELINE config 2's scene, card
+     against CPU at 480x270 or 240x135, equal;
+ 15. gouraud times: K5 (one frame a launch and batched), K6, K1's batched
+     launch and the plain versions, ms/frame (CUDA events) beside each
+     bound; render_gouraud_pallas frames/s (host clock), the device time
+     by kernel, host launches a frame and the busy share (profiler, 16
+     frames), peak device memory.
 The line before the last is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}.
 """
@@ -125,6 +153,11 @@ K1_OPS_PER_PAIR = 26
 # load's address), K2a 25 (four attributes of 5, the sky test and 4
 # selects)
 K2B_EPI_OPS, K3_EPI_OPS, K2A_EPI_OPS = 31, 32, 25
+# K1's opaque u8 epilogue a pixel slot, counted from csrc/tile_raster.cu:
+# three channels of 5 (the attribute) and 4 (x255, two clamps, the
+# conversion), the packing 6, the sky select 2.  K6 and K1's batched launch
+# are held to bounds with it (K1's table row keeps its walk-only bound)
+U8_EPI_OPS = 35
 # K4's operations per pixel of a command's box, counted from
 # csrc/canvas_span.cu: ~14 for the snapped inverse point, 4-8 compares,
 # 10 for the blend (RECT 28, LINE ~60, FILL 10): ~25 on a typical frame
@@ -242,22 +275,16 @@ def profile_frames(run, n: int):
     return per_frame, busy, prof
 
 
-def walk_bound(preps, epi_ops: int, out_bytes_px: int, extra_bytes: int = 0,
-               tile=PROD):
+def pairs_bound(frames, p: int, epi_ops: int, out_bytes_px: int):
     """(bound ms, 'bytes'|'operations', bytes ms, operations ms, pairs) of
-    the tile walk on these frames' preps, made at ``tile``'s tile shape,
-    the mean over frames: the table, the pairs walked, starts and counts,
-    ``extra_bytes`` of other inputs and ``out_bytes_px`` a pixel slot of
-    output, each once; K1_OPS_PER_PAIR operations per (pair, pixel) and
-    ``epi_ops`` per pixel slot."""
+    a tile walk, the mean over ``frames``, each (pairs walked, tiles,
+    input bytes): the inputs once and ``out_bytes_px`` a pixel slot of
+    output; K1_OPS_PER_PAIR operations per (pair, pixel) and ``epi_ops``
+    per pixel slot, ``p`` pixels a tile."""
     byte_s, op_s, pairs = [], [], []
-    p = tile["tile_w"] * tile["tile_h"]
-    for sorted_pad, starts, counts, table, *_ in preps:
-        n_pairs = int(counts.sum())
-        slots = starts.numel() * p
-        nbytes = (4 * (table.numel() + n_pairs + 2 * starts.numel())
-                  + extra_bytes + out_bytes_px * slots)
-        byte_s.append(nbytes / MEM_BYTES_S)
+    for n_pairs, tiles, in_bytes in frames:
+        slots = tiles * p
+        byte_s.append((in_bytes + out_bytes_px * slots) / MEM_BYTES_S)
         op_s.append((n_pairs * p * K1_OPS_PER_PAIR + slots * epi_ops)
                     / PEAK_OPS_S[torch.float32])
         pairs.append(n_pairs)
@@ -265,6 +292,21 @@ def walk_bound(preps, epi_ops: int, out_bytes_px: int, extra_bytes: int = 0,
     ops_ms = 1e3 * float(np.mean(op_s))
     by = "bytes" if bytes_ms >= ops_ms else "operations"
     return max(bytes_ms, ops_ms), by, bytes_ms, ops_ms, pairs
+
+
+def walk_bound(preps, epi_ops: int, out_bytes_px: int, extra_bytes: int = 0,
+               tile=PROD):
+    """:func:`pairs_bound` of the walk over the sorted pairs on these
+    frames' preps, made at ``tile``'s tile shape: the table, the pairs
+    walked, starts and counts and ``extra_bytes`` of other inputs."""
+    frames = []
+    for sorted_pad, starts, counts, table, *_ in preps:
+        n_pairs = int(counts.sum())
+        frames.append((n_pairs, starts.numel(),
+                       4 * (table.numel() + n_pairs + 2 * starts.numel())
+                       + extra_bytes))
+    return pairs_bound(frames, tile["tile_w"] * tile["tile_h"], epi_ops,
+                       out_bytes_px)
 
 
 def build_kernels(_kernels) -> float:
@@ -755,6 +797,464 @@ def textured_phases(dev, card: str) -> list:
     return rows
 
 
+def defaults(fn, names=("tile_w", "tile_h", "capacity", "span_x",
+                         "span_y")) -> dict:
+    """The tile configuration an entry takes by default."""
+    sig = inspect.signature(fn).parameters
+    return {n: sig[n].default for n in names}
+
+
+def same_bits(a, b) -> int:
+    """How many elements of two int or float tensors differ in their bits."""
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return int((a != b).sum())
+
+
+def gouraud_phases(dev, card: str) -> list:
+    """Phases 13-15: K5 and K6 against their plain versions (K6 also
+    against K1's batched launch), the float and depth Gouraud main path
+    (render_gouraud_pallas, render_gouraud_pallas_batch on every route,
+    the tensor-op routes and near clipping, card against CPU) and its
+    times; returns K5's and K6's entries of the kernel table."""
+    from libnativecpurenderer_tpu_torch import interop
+    from libnativecpurenderer_tpu_torch.models import mesh
+    from libnativecpurenderer_tpu_torch.ops import raster3d, tile_raster
+
+    verts_np, faces_np, colors_np = mesh.mesh_10k()
+    verts, faces, colors = interop.mesh_to_torch(verts_np, faces_np,
+                                                 colors_np, dev)
+    cpu = interop.mesh_to_torch(verts_np, faces_np, colors_np, "cpu")
+    pre = (raster3d.pregather_mesh(verts, faces), colors[faces])
+    F = faces.shape[0]
+    k5, k6, k1 = (tile_raster.raster_tiles_bins_f32,
+                  tile_raster.raster_tiles_rows_u8,
+                  tile_raster.raster_tiles_flat_u8)
+    single = defaults(raster3d.render_gouraud_pallas)
+    batch = defaults(raster3d.render_gouraud_pallas_batch)
+    dyn = dict(PROD)       # K6's and K1's batched launch: opaque, no z test
+    rows_cap = 49152       # render_gouraud_pallas_batch's default
+    bgp = tile_raster.pack_bg(torch.zeros(4, device=dev))
+    cams = [camera(mesh, k, 0.45) for k in range(4)]
+    mvps = torch.from_numpy(np.stack(cams)).to(dev)
+
+    def bins_prep(mvp, cfg):
+        """render_gouraud_pallas's default prep of one frame at ``cfg``:
+        (bins with NO_TRI sent to the pad row, counts, table, overflow)."""
+        tri, attrs, edges = raster3d._setup_edges(
+            verts, faces, mvp, WIDTH, HEIGHT, v4f=pre[0], attrs=pre[1])
+        bins, counts, ovf = raster3d.bin_triangles(
+            tri["sxy"], edges[-1], WIDTH, HEIGHT, cfg["tile_w"],
+            cfg["tile_h"], cfg["capacity"], cfg["span_x"], cfg["span_y"])
+        return (torch.where(bins == raster3d.NO_TRI, F, bins), counts,
+                tile_raster.build_table(*edges, attrs), ovf)
+
+    # 13. K5 and K6 against their plain versions, bit for bit
+    saved = [k.launches for k in (k5, k6, k1)]
+    errs = [0.0, 0]
+
+    def k5_vs_plain(label, bins, counts, table, cfg):
+        args = (bins, counts, table, WIDTH, cfg["tile_w"], cfg["tile_h"])
+        (gk, gr), (wk, wr) = k5(*args), \
+            tile_raster.raster_tiles_bins_f32_reference(*args)
+        torch.cuda.synchronize()
+        bad = same_bits(gk, wk) + same_bits(gr, wr)
+        err = float((gr - wr).abs().max())
+        errs[0] = max(errs[0], err)
+        cts = counts.clamp(max=bins.shape[-1])
+        print(f"[k5 vs plain] {label}, tiles {cfg['tile_w']}x{cfg['tile_h']}"
+              f", capacity {cfg['capacity']}, span ({cfg['span_x']}, "
+              f"{cfg['span_y']}): {bad} of {gk.numel()} keys and "
+              f"{gr.numel()} attribute values differ (max |delta| {err}); "
+              f"{float((gk != raster3d.SKY_KEY).float().mean()):.3f} of the "
+              f"slots covered; pairs walked {int(cts.sum())}, longest run "
+              f"{int(cts.max())}", flush=True)
+        if bad:
+            raise AssertionError(f"K5 and its plain version disagree: "
+                                 f"{label}")
+
+    k5_preps = []
+    for k, mvp in enumerate(mvps):
+        b, c, t, ovf = bins_prep(mvp, single)
+        if bool(ovf):
+            raise AssertionError(f"bins overflow at camera {k}")
+        k5_vs_plain(f"camera {k}", b, c, t, single)
+        k5_preps.append((b, c, t))
+    bp = [bins_prep(mvp, batch) for mvp in mvps]
+    if any(bool(p[3]) for p in bp):
+        raise AssertionError("bins overflow at the batch defaults")
+    k5_batch = tuple(torch.stack([p[n] for p in bp]) for n in range(3))
+    k5_vs_plain(f"{len(bp)} cameras in one launch", *k5_batch, batch)
+    small = dict(tile_w=32, tile_h=8, capacity=512, span_x=8, span_y=8)
+    b, c, t, ovf = bins_prep(mvps[0], small)
+    if bool(ovf):
+        raise AssertionError("bins overflow at 32x8")
+    k5_vs_plain("camera 0", b, c, t, small)
+
+    # K2a's batched launch (the batch entry's flat f32 route) against its
+    # plain version at the batch defaults
+    k2a = tile_raster.raster_tiles_keys_f32
+    saved.append(k2a.launches)
+    fb = [raster3d.prepare_frame(verts, faces, colors, WIDTH, HEIGHT, mvp,
+                                 pre=pre, **batch) for mvp in mvps]
+    if any(bool(p["overflow"]) for p in fb):
+        raise AssertionError("the K2a batch preps overflow")
+    k2a_args = tuple(torch.stack([p[n] for p in fb])
+                     for n in ("sorted_pad", "starts", "counts", "table"))
+    k2a_args += (WIDTH, batch["tile_w"], batch["tile_h"])
+    (gk, gr), (wk, wr) = (k2a(*k2a_args, z_clip=True),
+                          tile_raster.raster_tiles_keys_f32_reference(
+                              *k2a_args, z_clip=True))
+    torch.cuda.synchronize()
+    bad = same_bits(gk, wk) + same_bits(gr, wr)
+    print(f"[k2a vs plain] {len(fb)} cameras in one launch, tiles "
+          f"{batch['tile_w']}x{batch['tile_h']}, capacity {batch['capacity']}"
+          f", span ({batch['span_x']}, {batch['span_y']}): {bad} of "
+          f"{gk.numel()} keys and {gr.numel()} attribute values differ (max "
+          f"|delta| {float((gr - wr).abs().max())}); pairs walked "
+          f"{k2a_args[2].sum(1).tolist()}", flush=True)
+    if bad:
+        raise AssertionError("K2a's batched launch and its plain version "
+                             "disagree")
+
+    fp = [raster3d.prepare_frame(verts, faces, colors, WIDTH, HEIGHT, mvp,
+                                 z_clip=False, pre=pre, **dyn)
+          for mvp in mvps]
+    sps, starts, counts, tables = (torch.stack([p[n] for p in fp])
+                                   for n in ("sorted_pad", "starts",
+                                             "counts", "table"))
+    rows = torch.stack([p["table"][(p["sorted_pad"][:rows_cap]
+                                    & raster3d.IDX_MASK).long()] for p in fp])
+    ends = starts[:, -1] + counts[:, -1]
+    if any(bool(p["overflow"]) for p in fp) or bool(
+            (ends > rows_cap - dyn["capacity"]).any()):
+        raise AssertionError("the K6 preps overflow")
+    k6_args = (rows, starts, counts, bgp, WIDTH, dyn["tile_w"], dyn["tile_h"])
+    k1_args = (sps, starts, counts, tables, bgp, WIDTH, dyn["tile_w"],
+               dyn["tile_h"])
+    got6 = k6(*k6_args)
+    want6 = tile_raster.raster_tiles_rows_u8_reference(*k6_args)
+    got1 = k1(*k1_args, opaque=True, z_clip=False)
+    torch.cuda.synchronize()
+    bad = [same_bits(got6, want6), same_bits(got6, got1)]
+    errs[1] = int((tile_raster.tiles_u8(got6).int()
+                   - tile_raster.tiles_u8(want6).int()).abs().max())
+    print(f"[k6 vs plain] {len(fp)} cameras in one launch, tiles "
+          f"{dyn['tile_w']}x{dyn['tile_h']}, span ({dyn['span_x']}, "
+          f"{dyn['span_y']}), opaque, z_clip off, rows_cap {rows_cap}: "
+          f"{bad[0]} of {got6.numel()} packed pixels differ from the plain "
+          f"version, {bad[1]} from K1's batched launch; pairs "
+          f"{counts.sum(1).tolist()}, pair runs end at {ends.tolist()}",
+          flush=True)
+    if any(bad):
+        raise AssertionError("K6 disagrees with its plain version or K1")
+    u8_kw = dict(flat=True, u8=True, opaque=True, z_clip=False, **dyn)
+    ref_u8, _, ovf_u8 = raster3d.render_gouraud_pallas_batch(
+        verts, faces, colors, WIDTH, HEIGHT, mvps, **u8_kw)
+    for g in (1, 2, 4):
+        fr, _, ovf = raster3d.render_gouraud_pallas_batch(
+            verts, faces, colors, WIDTH, HEIGHT, mvps, dynrows=g, **u8_kw)
+        d = int((fr != ref_u8).any(-1).sum())
+        print(f"[k6 vs plain] render_gouraud_pallas_batch(dynrows={g}) over "
+              f"{len(fp)} frames: {d} pixels differ from the flat u8 route "
+              f"(K1); overflow {bool(ovf)}", flush=True)
+        if d or bool(ovf) or bool(ovf_u8):
+            raise AssertionError(f"dynrows={g} differs from the u8 route")
+    for k, n in zip((k5, k6, k1, k2a), saved):
+        k.launches = n
+
+    # 14. the main path, each kernel's launches counted from zero
+    kernels = {"K5": k5, "K6": k6, "K1": k1,
+               "K2a": tile_raster.raster_tiles_keys_f32}
+
+    def counted(fn):
+        for kk in kernels.values():
+            kk.launches = 0
+        out = fn()
+        return out, {n: kk.launches for n, kk in kernels.items()}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mib = torch.cuda.memory_allocated() / 2 ** 20
+    frames, n_single = counted(lambda: [
+        raster3d.render_gouraud_pallas(verts, faces, colors, WIDTH, HEIGHT,
+                                       mvp) for mvp in mvps])
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    if n_single != {"K5": len(cams), "K6": 0, "K1": 0, "K2a": 0}:
+        raise AssertionError(f"render_gouraud_pallas launched {n_single} "
+                             f"for {len(cams)} frames")
+    for rgba, zq, ovf in frames:
+        if (bool(ovf) or rgba.shape != (HEIGHT, WIDTH, 4)
+                or not bool(torch.isfinite(rgba).all())):
+            raise AssertionError("a render_gouraud_pallas frame is wrong")
+    lit = [float((zq < 1.0).float().mean()) for _, zq, _ in frames]
+    t0 = time.perf_counter()
+    rgba_c, zq_c, ovf_c = raster3d.render_gouraud_pallas(
+        *cpu, WIDTH, HEIGHT, mvps[0].cpu())
+    cpu_s = time.perf_counter() - t0
+    d_rgba = int((frames[0][0].cpu() != rgba_c).any(-1).sum())
+    d_z = int((frames[0][1].cpu() != zq_c).sum())
+    print(f"[gouraud main path] render_gouraud_pallas (defaults {single}) "
+          f"on {len(cams)} frames at {WIDTH}x{HEIGHT}: launches {n_single}, "
+          f"no overflow, {min(lit):.3f}..{max(lit):.3f} of each frame "
+          f"covered; frame 0 vs the CPU ({cpu_s:.1f} s): {d_rgba} rgba "
+          f"pixels and {d_z} depths differ", flush=True)
+    if d_rgba or d_z or bool(ovf_c):
+        raise AssertionError("render_gouraud_pallas on the card differs from "
+                             "the CPU")
+    routes = {"non-flat (K5)": (dict(), "K5"),
+              "flat f32 (K2a)": (dict(flat=True), "K2a"),
+              "flat u8 (K1)": (u8_kw, "K1"),
+              "dynrows=2 (K6)": (dict(u8_kw, dynrows=2), "K6")}
+    batch_launches = {}
+    for label, (kw, kern) in routes.items():
+        (fb, zq, ovf), n = counted(
+            lambda: raster3d.render_gouraud_pallas_batch(
+                verts, faces, colors, WIDTH, HEIGHT, mvps, **kw))
+        want = {kk: int(kk == kern) for kk in kernels}
+        batch_launches[kern] = n[kern]
+        # each frame against the single-frame entry at the same shapes
+        one = {k: kw.get(k, batch[k]) for k in batch}
+        single_kw = dict(one, **{k: v for k, v in kw.items()
+                                 if k in ("flat", "u8", "opaque", "z_clip")})
+        diff = 0
+        for i, mvp in enumerate(mvps):
+            r1, z1, _ = raster3d.render_gouraud_pallas(
+                verts, faces, colors, WIDTH, HEIGHT, mvp, **single_kw)
+            diff += int((fb[i] != r1).any(-1).sum())
+            if z1 is not None:
+                diff += int((zq[i] != z1).sum())
+        print(f"[gouraud main path] render_gouraud_pallas_batch {label} over "
+              f"{len(cams)} frames: launches {n}, (B, H, W, 4) "
+              f"{tuple(fb.shape)} {str(fb.dtype)[6:]}, overflow {bool(ovf)}; "
+              f"{diff} pixels and depths differ from render_gouraud_pallas "
+              f"frame by frame", flush=True)
+        if n != want or bool(ovf) or diff:
+            raise AssertionError(f"the batch route {label} is wrong")
+
+    # the tensor-op routes and near clipping at reduced frames, card vs
+    # CPU (their CPU side is slow at 1080p)
+    def card_vs_cpu(label, fn, w, h):
+        t0 = time.perf_counter()
+        got = fn(dev, w, h)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = fn("cpu", w, h)
+        t_cpu = time.perf_counter() - t0
+        # the u8 routes return no depth (None)
+        got = tuple(x for x in (got if isinstance(got, tuple) else (got,))
+                    if x is not None)
+        want = tuple(x for x in (want if isinstance(want, tuple)
+                                 else (want,)) if x is not None)
+        bad = [int((g.cpu() != x).sum()) for g, x in zip(got, want)
+               if g.dim()]
+        flags = [bool(x) for x in got + want if not x.dim()]
+        print(f"[gouraud main path] {label} at {w}x{h}, card vs CPU: "
+              f"{bad} values differ; overflow {flags}; card {t_card:.2f} s, "
+              f"CPU {t_cpu:.2f} s", flush=True)
+        if any(bad) or any(flags):
+            raise AssertionError(f"{label}: card differs from the CPU")
+
+    def on(d, w, h, eye=(0.0, 0.6, 3.2)):
+        v, f, c = (verts, faces, colors) if d == dev else cpu
+        m = (mesh.perspective(1.0, w / h, 0.1, 10.0)
+             @ mesh.look_at(list(eye), [0, 0, 0], [0, 1, 0])
+             @ mesh.rotation_y(0.3))
+        return v, f, c, w, h, torch.from_numpy(m.astype(np.float32)).to(d)
+
+    fine = dict(tile_w=16, tile_h=8, capacity=512, batch_tiles=32)
+    # whole-frame spans for the clipped triangles, which project large
+    wide = dict(span_x=8, span_y=9, capacity=512)
+    card_vs_cpu("render_gouraud_binned", lambda d, w, h: (
+        raster3d.render_gouraud_binned(*on(d, w, h), **fine)), 480, 270)
+    card_vs_cpu("render_gouraud (naive)", lambda d, w, h: (
+        raster3d.render_gouraud(*on(d, w, h))), 240, 135)
+    # near clipping: the eye inside the ring of quads, some of whose
+    # triangles cross the camera plane
+    near_eye = (1.45, 0.05, 0.0)
+    v_, f_, _, _, _, m_ = on(dev, 480, 270, near_eye)
+    w4 = raster3d._clip_rows(raster3d.pregather_mesh(v_, f_), m_)[..., 3]
+    n_in = (w4 > raster3d.NEAR_EPS).sum(1)
+    crossing = int(((n_in == 1) | (n_in == 2)).sum())
+    print(f"[gouraud main path] near clip camera: {crossing} triangles "
+          f"cross the near plane, {int((n_in == 0).sum())} lie behind it",
+          flush=True)
+    if not crossing:
+        raise AssertionError("the near clip camera clips nothing")
+    card_vs_cpu("render_gouraud_pallas(near_clip=True) (K5)", lambda d, w, h: (
+        raster3d.render_gouraud_pallas(*on(d, w, h, near_eye),
+                                       near_clip=True, tile_w=64, tile_h=32,
+                                       **wide)), 480, 270)
+    for label, kw in (("flat f32 (K2a)", dict(flat=True)),
+                      ("flat u8 (K1)", dict(flat=True, u8=True))):
+        card_vs_cpu(f"render_gouraud_pallas(near_clip=True) {label}",
+                    lambda d, w, h, kw=kw: raster3d.render_gouraud_pallas(
+                        *on(d, w, h, near_eye), near_clip=True, tile_w=64,
+                        tile_h=32, **wide, **kw), 480, 270)
+    card_vs_cpu("render_gouraud_binned(near_clip=True)", lambda d, w, h: (
+        raster3d.render_gouraud_binned(*on(d, w, h, near_eye),
+                                       near_clip=True, tile_w=32, tile_h=16,
+                                       **wide)), 240, 135)
+    card_vs_cpu("render_gouraud_binned(perspective_correct=True)",
+                lambda d, w, h: raster3d.render_gouraud_binned(
+                    *on(d, w, h), perspective_correct=True, **fine), 480, 270)
+
+    def return_ids(d, w, h):
+        # render_binned_pallas with the global triangle ids in the keys
+        v, f, c, _, _, m = on(d, w, h)
+        tri, attrs, edges = raster3d._setup_edges(v, f, m, w, h,
+                                                  attrs=c[f])
+        bins, counts, ovf = raster3d.bin_triangles(
+            tri["sxy"], edges[-1], w, h, 16, 8, 512, 8, 8)
+        return tile_raster.render_binned_pallas(
+            bins, counts, *edges, attrs, torch.zeros(4, device=d), w, h, 16,
+            8, return_ids=True) + (ovf,)
+
+    card_vs_cpu("render_binned_pallas(return_ids=True) (K5)", return_ids,
+                480, 270)
+    t_verts, t_faces, t_uvs, t_tex = textured_scene()
+    # the texels as floats, made on the host so both sides read the same
+    t_texf = torch.from_numpy(t_tex.astype(np.float32) / np.float32(255.0))
+
+    def textured_binned(d, w, h):
+        v, f, u, _ = interop.textured_mesh_to_torch(t_verts, t_faces, t_uvs,
+                                                    t_tex, d)
+        return raster3d.render_textured_binned(v, f, u, t_texf.to(d), w, h,
+                                               on(d, w, h)[-1], **fine)
+
+    card_vs_cpu("render_textured_binned", textured_binned, 480, 270)
+    q_verts, q_faces, q_uvs = mesh.quad_batch(6, seed=3)
+    q_faces = q_faces[np.argsort(-q_verts[q_faces[:, 0], 2], kind="stable")]
+    q_tex = np.random.default_rng(3).uniform(0, 1, (64, 64, 4))
+
+    def blended(d, w, h):
+        v, f, u, t = (torch.tensor(a, dtype=torch.float32 if i != 1
+                                   else torch.int64, device=d)
+                      for i, a in enumerate((q_verts, q_faces, q_uvs,
+                                             q_tex)))
+        return raster3d.render_blended(v, f, u, t, w, h)
+
+    card_vs_cpu("render_blended (BASELINE config 2's scene)", blended, 480,
+                270)
+
+    # 15. times
+    def k5_all():
+        for p in k5_preps:
+            k5(*p, WIDTH, single["tile_w"], single["tile_h"])
+
+    def k5_plain_all():
+        for p in k5_preps:
+            tile_raster.raster_tiles_bins_f32_reference(
+                *p, WIDTH, single["tile_w"], single["tile_h"])
+
+    saved = [k.launches for k in (k5, k6, k1)]
+    n4 = len(cams)
+    ms = {"K5": (cuda_ms(k5_all, 10) / n4, cuda_ms(k5_plain_all, 2) / n4),
+          "K5 batch": (cuda_ms(lambda: k5(*k5_batch, WIDTH, batch["tile_w"],
+                                          batch["tile_h"]), 10) / n4,
+                       cuda_ms(lambda: tile_raster.
+                               raster_tiles_bins_f32_reference(
+                                   *k5_batch, WIDTH, batch["tile_w"],
+                                   batch["tile_h"]), 2) / n4),
+          "K6": (cuda_ms(lambda: k6(*k6_args), 10) / n4,
+                 cuda_ms(lambda: tile_raster.raster_tiles_rows_u8_reference(
+                     *k6_args), 2) / n4),
+          "K1 batch": (cuda_ms(lambda: k1(*k1_args, opaque=True,
+                                          z_clip=False), 10) / n4, None)}
+    for k, n in zip((k5, k6, k1), saved):
+        k.launches = n
+
+    def k5_frames(preps, cfg):
+        # per frame: the walked bins, the counts and the table read once
+        walked = [int(c.clamp(max=b.shape[1]).sum()) for b, c, _ in preps]
+        return [(n, c.numel(), 4 * (n + c.numel() + t.numel()))
+                for n, (_, c, t) in zip(walked, preps)]
+
+    bounds = {
+        "K5": pairs_bound(k5_frames(k5_preps, single),
+                          single["tile_w"] * single["tile_h"], K2A_EPI_OPS,
+                          4 + 4 * 4),
+        "K5 batch": pairs_bound(
+            k5_frames([(p[0], p[1], p[2]) for p in bp], batch),
+            batch["tile_w"] * batch["tile_h"], K2A_EPI_OPS, 4 + 4 * 4),
+        # K6 reads each walked row once (32 floats), starts and counts
+        "K6": pairs_bound([(int(counts[i].sum()), counts.shape[1],
+                            4 * (32 * int(counts[i].sum())
+                                 + 2 * counts.shape[1]))
+                           for i in range(n4)],
+                          dyn["tile_w"] * dyn["tile_h"], U8_EPI_OPS, 4),
+        # K1 reads the pairs and the table
+        "K1 batch": pairs_bound([(int(counts[i].sum()), counts.shape[1],
+                                  4 * (int(counts[i].sum())
+                                       + tables[i].numel()
+                                       + 2 * counts.shape[1]))
+                                 for i in range(n4)],
+                                dyn["tile_w"] * dyn["tile_h"], U8_EPI_OPS,
+                                4)}
+    shapes = {"K5": single, "K5 batch": batch, "K6": dyn, "K1 batch": dyn}
+    for name, (k_ms, p_ms) in ms.items():
+        b_ms, b_by, bb, bo, pairs = bounds[name]
+        cfg = shapes[name]
+        plain = (f"plain version {p_ms} ms/frame" if p_ms is not None
+                 else "plain version not timed (K6's computes the same)")
+        print(f"[gouraud times] {card}: {name} {k_ms} ms/frame, {plain} "
+              f"(1080p mesh_10k, {cfg['tile_w']}x{cfg['tile_h']} tiles, "
+              f"span ({cfg['span_x']}, {cfg['span_y']}), CUDA events, mean "
+              f"of {n4} cameras); bound {b_ms} ms/frame by {b_by} (bytes "
+              f"{bb} ms, operations {bo} ms; pairs walked {pairs}), {name} "
+              f"at {b_ms / k_ms:.4f} of it", flush=True)
+
+    def frames_n(n):
+        for k in range(n):
+            raster3d.render_gouraud_pallas(
+                verts, faces, colors, WIDTH, HEIGHT,
+                torch.from_numpy(camera(mesh, k, 0.03)).to(dev))
+
+    frames_n(4)   # warm
+    fps = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames_n(PROFILE_FRAMES * 2)
+        torch.cuda.synchronize()
+        fps.append(PROFILE_FRAMES * 2 / (time.perf_counter() - t0))
+    per_frame, busy, prof = profile_frames(lambda: frames_n(PROFILE_FRAMES),
+                                           PROFILE_FRAMES)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print(f"[gouraud times] device ms per frame by kernel (profiler): "
+          + "; ".join(f"{name[:60]} {1e-3 * us / PROFILE_FRAMES:.4f}"
+                      for name, us in top), flush=True)
+    print(f"[gouraud times] {card}: render_gouraud_pallas (defaults) "
+          f"frames/s, 3 runs of {PROFILE_FRAMES * 2} frames each ended by a "
+          f"sync, host clock: {sorted(fps)}; per frame over "
+          f"{PROFILE_FRAMES} profiled frames: "
+          f"{per_frame['cudaLaunchKernel']} cudaLaunchKernel, "
+          f"{per_frame['cudaStreamSynchronize']} cudaStreamSynchronize, "
+          f"{per_frame['cudaMemcpyAsync']} cudaMemcpyAsync; device {busy}; "
+          f"peak device memory {peak_mib} MiB over {n4} frames, "
+          f"{peak_mib - base_mib} MiB above the {base_mib} MiB held before "
+          f"them", flush=True)
+    tpu = "libnativecpurenderer_tpu/ops/pallas_raster.py"
+    src = "libnativecpurenderer_tpu_torch/csrc/tile_raster.cu"
+    return [{"name": "raster_tiles_bins_f32", "route": "cuda", "source": src,
+             "replaces": f"{tpu}:1433",
+             "launches": n_single["K5"] + batch_launches["K5"],
+             "max_abs_err": errs[0], "ms": ms["K5"][0],
+             "plain_ms": ms["K5"][1], "bound_ms": bounds["K5"][0],
+             "bound_by": bounds["K5"][1], "library_ms": None},
+            {"name": "raster_tiles_rows_u8", "route": "cuda", "source": src,
+             "replaces": f"{tpu}:1294", "launches": batch_launches["K6"],
+             "max_abs_err": errs[1], "ms": ms["K6"][0],
+             "plain_ms": ms["K6"][1], "bound_ms": bounds["K6"][0],
+             "bound_by": bounds["K6"][1], "library_ms": None}]
+
+
 def bench_draw(ctx, texs, t):
     """bench.py:488-508's draw(t): the ~60-command canvas frame at
     1920x1080 (a dim full-frame fill, a gradient, 8 lines, 30 split blits,
@@ -1159,7 +1659,8 @@ def main() -> None:
     k4 = canvas_phases(dev, card)
     blit_phase(dev)
     tex_rows = textured_phases(dev, card)
-    print(json.dumps({"kernels": [k1, k4, *tex_rows]}))
+    gouraud_rows = gouraud_phases(dev, card)
+    print(json.dumps({"kernels": [k1, k4, *tex_rows, *gouraud_rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -14,19 +14,28 @@ reference it is tested against.  Slices so far:
     the JAX batch entry's defaults, not a path of its own);
   * the 2D canvas: ``RenderContext`` records draw calls on the host and
     its flush runs arithmetic command runs through a hand-written CUDA
-    kernel (``csrc/canvas_span.cu``) and texture blits as torch ops.
+    kernel (``csrc/canvas_span.cu``) and texture blits as torch ops;
+  * the float and depth Gouraud rasterizer: ``render_gouraud_pallas``
+    and ``render_gouraud_pallas_batch`` (the gridded kernel over
+    materialised bins, the flat f32 and u8 kernels, the kernel over rows
+    gathered in pair order), ``near_clip`` on the binned entries, and the
+    tensor-op paths ``render_gouraud`` (naive), ``render_gouraud_binned``,
+    ``render_textured_binned`` and ``render_blended``.
 Nothing here imports JAX.
 """
 
 from . import config
 from .context import RenderContext
 from .helpers import Helpers
-from .interop import (canvas_to_torch, commands_to_torch, mesh_to_torch,
-                      prep_to_torch, textured_mesh_to_torch)
-from .ops.raster3d import (pack_texture_u8, render_gouraud_u8,
+from .interop import (canvas_to_torch, commands_to_torch,
+                      kernel_inputs_to_torch, mesh_to_torch, prep_to_torch,
+                      textured_mesh_to_torch)
+from .ops.raster3d import (pack_texture_u8, render_blended, render_gouraud,
+                           render_gouraud_binned, render_gouraud_pallas,
+                           render_gouraud_pallas_batch, render_gouraud_u8,
                            render_gouraud_u8_loop, render_textured,
-                           render_textured_u8, render_textured_u8_batch,
-                           render_textured_u8_loop)
+                           render_textured_binned, render_textured_u8,
+                           render_textured_u8_batch, render_textured_u8_loop)
 from .pipeline import MeshVideoPipeline
 from .texture import HitEffectTexture, PtrCreatedTexture, Texture
 
@@ -48,12 +57,19 @@ __all__ = [
     "commands_to_torch",
     "config",
     "get_version",
+    "kernel_inputs_to_torch",
     "mesh_to_torch",
     "pack_texture_u8",
     "prep_to_torch",
+    "render_blended",
+    "render_gouraud",
+    "render_gouraud_binned",
+    "render_gouraud_pallas",
+    "render_gouraud_pallas_batch",
     "render_gouraud_u8",
     "render_gouraud_u8_loop",
     "render_textured",
+    "render_textured_binned",
     "render_textured_u8",
     "render_textured_u8_batch",
     "render_textured_u8_loop",

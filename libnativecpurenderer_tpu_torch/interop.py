@@ -63,14 +63,25 @@ def prep_to_torch(sorted_pad, starts, counts, table, device):
     sorted pair array, starts and counts, ``build_table``'s row table) ->
     int32 / float32 tensors on ``device``, the types the tile
     kernel takes."""
+    return kernel_inputs_to_torch(device, np.asarray(sorted_pad, np.int32),
+                                  np.asarray(starts, np.int32),
+                                  np.asarray(counts, np.int32),
+                                  np.asarray(table, np.float32))
+
+
+def kernel_inputs_to_torch(device, *arrays):
+    """Arrays the tile kernels take (a JAX prep's ``bins``, ``counts`` and
+    row table for the gridded kernel, or its dynrows ``rows``, ``starts``
+    and ``counts``) -> tensors on ``device``: integer arrays as int32,
+    float arrays as float32, shapes kept."""
     dev = as_device(device)
-
-    def i32(a):
-        return torch.tensor(np.asarray(a), dtype=torch.int32, device=dev)
-
-    return (i32(sorted_pad), i32(starts), i32(counts),
-            torch.tensor(np.asarray(table), dtype=torch.float32,
-                         device=dev))
+    out = []
+    for a in arrays:
+        a = np.asarray(a)
+        dtype = (torch.int32 if np.issubdtype(a.dtype, np.integer)
+                 else torch.float32)
+        out.append(torch.tensor(a, dtype=dtype, device=dev))
+    return tuple(out)
 
 
 def commands_to_torch(kinds, params, dtype, device):

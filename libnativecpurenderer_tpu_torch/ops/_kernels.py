@@ -72,19 +72,22 @@ def build_log(name: str) -> str:
 
 
 def tile_raster() -> ctypes.CDLL:
-    """The loaded ``tile_raster`` library (K1, K3, K2b, K2a), built if
-    needed."""
+    """The loaded ``tile_raster`` library (K1, K3, K2b, K2a, K5, K6),
+    built if needed."""
     lib = _libs.get("tile_raster")
     if lib is None:
         lib = ctypes.CDLL(str(build("tile_raster")))
         p, i = ctypes.c_void_p, ctypes.c_int
-        # sorted_pad, spad, starts, counts, nt, table, nrows, ntx, tile_w,
-        # tile_h, z_clip; then each entry's epilogue; then the stream
-        walk = [p, i, p, p, i, p, i, i, i, i, i]
+        # ids, ids_len, starts, counts, nblocks, nt, table, nrows, ntx,
+        # tile_w, tile_h, z_clip; then each entry's epilogue; then the
+        # stream
+        walk = [p, i, p, p, i, i, p, i, i, i, i, i]
         for entry, epilogue in (("tile_raster_u8", [p, i, p]),
                                 ("tile_raster_tex_u8", [p, i, i, p, p]),
                                 ("tile_raster_tex_idx", [i, i, p]),
-                                ("tile_raster_keys_f32", [p, p])):
+                                ("tile_raster_keys_f32", [p, p]),
+                                ("tile_raster_bins_f32", [p, p]),
+                                ("tile_raster_rows_u8", [p, i, p])):
             fn = getattr(lib, entry)
             fn.argtypes = walk + epilogue + [p]
             fn.restype = ctypes.c_int

@@ -1,14 +1,19 @@
 """Mesh -> frame paths of the z-buffered triangle rasterizer, in PyTorch.
 
-Counterpart of ``libnativecpurenderer_tpu/ops/raster3d.py``, restricted to
-what the flat binned paths run: projection and 1/256 px snapping
-(``setup_triangles``), edge coefficients (``edge_coeffs``), gatherless tile
-binning (``bin_triangles_flat``), the Gouraud u8 entries
-``render_gouraud_u8[_loop]`` and the textured ones
-``render_textured_u8[_loop|_batch]`` (u8 texels) and ``render_textured``
-(float texture, with depth).  The per-tile visibility and shading runs in
-``tile_raster`` (the hand-written CUDA kernels K1, K3 and K2a, or their
-plain versions for CPU tensors).
+Counterpart of ``libnativecpurenderer_tpu/ops/raster3d.py``: projection and
+1/256 px snapping (``setup_triangles``), near-plane clipping
+(``setup_triangles_clipped``), edge coefficients (``edge_coeffs``), tile
+binning (``bin_triangles``, materialised bins; ``bin_triangles_flat``,
+gatherless), the naive reference (``render_gouraud``), the fused binned
+path (``raster_binned_fused``, ``render_gouraud_binned``,
+``render_textured_binned``), the Gouraud entries ``render_gouraud_pallas``,
+``render_gouraud_pallas_batch`` and ``render_gouraud_u8[_loop]``, the
+textured ones ``render_textured_u8[_loop|_batch]`` (u8 texels) and
+``render_textured`` (float texture, with depth), and the painter's-order
+``render_blended``.  The per-tile visibility and shading of the binned
+entries runs in ``tile_raster`` (the hand-written CUDA kernels K1, K3,
+K2b, K2a, K5 and K6, or their plain versions for CPU tensors); the naive,
+fused and blended paths are torch ops, as they were XLA ops.
 
 Every function runs on the device of the tensors it is given.  The op
 order follows the JAX code op for op, and no step fuses a multiply into an
@@ -29,7 +34,9 @@ IDX_MASK = (1 << IDX_BITS) - 1
 Z_LEVELS = (1 << (31 - IDX_BITS)) - 1   # 13 bits of depth quantisation
 NO_TRI = IDX_MASK      # sentinel triangle id (background)
 SKY_KEY = (Z_LEVELS << IDX_BITS) | NO_TRI
+NEAR_EPS = 1e-6        # w <= NEAR_EPS is "behind the near plane"
 SUBPIXEL = 256.0       # screen coords snap to 1/256 px
+NAIVE_PAIRS = 1 << 22  # pixel-triangle pairs the naive path holds at once
 
 
 def _snap(c):
@@ -98,6 +105,95 @@ def setup_triangles(verts, faces, mvp, width: int, height: int, v4f=None):
     return {"sxy": sxy, "z": fz, "valid": valid, "inv_w": inv_w}
 
 
+def clip_near_triangles(clip, attrs, eps: float = NEAR_EPS):
+    """Clip clip-space triangles against the near plane w = eps
+    (``raster3d.py:117-178``).
+
+    A triangle with 1 or 2 vertices behind the plane is cut into 1 or 2
+    sub-triangles whose new vertices sit on the plane (positions and
+    attributes interpolated with the same parameter t); a triangle wholly
+    behind it becomes invalid.  Every input triangle owns two output
+    slots, i and F + i.  clip (F, 3, 4), attrs (F, 3, D) -> (clip2
+    (2F, 3, 4), attrs2 (2F, 3, D), valid (2F,) bool)."""
+    dtype = clip.dtype
+    i32 = torch.int32
+    w = clip[..., 3]
+    inside = w > eps
+    n_in = inside.to(i32).sum(dim=1, dtype=i32)
+    # rotate each triangle (keeping its winding) so that the one inside
+    # vertex of n_in == 1 lands at 0 and the one outside vertex of
+    # n_in == 2 at 2.  jnp.argmax of a bool is its first True; torch's
+    # argmax also returns the first maximum, taken here of the ints
+    out_idx = torch.argmax((~inside).to(i32), dim=1).to(i32)
+    in_idx = torch.argmax(inside.to(i32), dim=1).to(i32)
+    r = torch.where(n_in == 1, in_idx,
+                    torch.where(n_in == 2, (out_idx + 1) % 3, 0))
+    perm = ((r[:, None] + torch.arange(3, dtype=i32, device=clip.device))
+            % 3).long()[..., None]
+    vr = torch.gather(clip, 1, perm.expand(-1, -1, clip.shape[-1]))
+    ar = torch.gather(attrs, 1, perm.expand(-1, -1, attrs.shape[-1]))
+    v0, v1, v2 = vr[:, 0], vr[:, 1], vr[:, 2]
+    a0, a1, a2 = ar[:, 0], ar[:, 1], ar[:, 2]
+    w0, w1, w2 = vr[:, 0, 3], vr[:, 1, 3], vr[:, 2, 3]
+
+    def isect(av, aa, bv, ba, wa, wb):
+        denom = wb - wa
+        t = ((eps - wa) / torch.where(denom == 0.0, 1.0, denom))[:, None]
+        return av + t * (bv - av), aa + t * (ba - aa)
+
+    i01v, i01a = isect(v0, a0, v1, a1, w0, w1)
+    i02v, i02a = isect(v0, a0, v2, a2, w0, w2)
+    i12v, i12a = isect(v1, a1, v2, a2, w1, w2)
+    c3 = (n_in == 3)[:, None, None]
+    c2 = (n_in == 2)[:, None, None]
+
+    def pick(full, two, one):
+        return torch.where(c3, full, torch.where(c2, two, one))
+
+    # slot A: 3 in -> (v0, v1, v2); 2 in -> (v0, v1, i12); 1 in ->
+    # (v0, i01, i02); slot B, only for the 2-in quad: (v0, i12, i02)
+    tri_a_v = pick(torch.stack([v0, v1, v2], 1),
+                   torch.stack([v0, v1, i12v], 1),
+                   torch.stack([v0, i01v, i02v], 1))
+    tri_a_a = pick(torch.stack([a0, a1, a2], 1),
+                   torch.stack([a0, a1, i12a], 1),
+                   torch.stack([a0, i01a, i02a], 1))
+    tri_b_v = torch.stack([v0, i12v, i02v], 1)
+    tri_b_a = torch.stack([a0, i12a, i02a], 1)
+    clip2 = torch.cat([tri_a_v, tri_b_v]).to(dtype)
+    attrs2 = torch.cat([tri_a_a, tri_b_a])
+    valid = torch.cat([n_in >= 1, n_in == 2])
+    return clip2, attrs2, valid
+
+
+def setup_triangles_clipped(verts, faces, mvp, attrs, width: int,
+                            height: int, eps: float = NEAR_EPS, v4f=None):
+    """:func:`setup_triangles` with near-plane clipping
+    (``raster3d.py:181-212``, see :func:`clip_near_triangles`).  attrs
+    (F, 3, D) are clipped alongside the positions.  Returns (the per-face
+    dict with 2F entries, clipped attrs (2F, 3, D))."""
+    if 2 * faces.shape[0] >= NO_TRI:
+        raise ValueError(f"clipped draw has {2 * faces.shape[0]} slots; "
+                         f"packed keys support < {NO_TRI}")
+    if v4f is None:
+        v4f = pregather_mesh(verts, faces)
+    clip2, attrs2, valid = clip_near_triangles(_clip_rows(v4f, mvp), attrs,
+                                               eps)
+    w = clip2[..., 3:4]
+    # clipping pinned the new vertices to w ~= eps (up to an ulp), so the
+    # per-vertex safety test is w > 0, not w > eps
+    w_ok = w[..., 0] > 0.0
+    valid = valid & w_ok.all(dim=1)
+    wsafe = torch.where(w_ok[..., None], w, 1.0)
+    ndc = clip2[..., :3] / wsafe
+    fsx = _snap((ndc[..., 0] * 0.5 + 0.5) * width)
+    fsy = _snap((0.5 - ndc[..., 1] * 0.5) * height)
+    fz = ndc[..., 2] * 0.5 + 0.5
+    sxy = torch.stack([fsx, fsy], dim=-1)
+    inv_w = (1.0 / wsafe)[..., 0]
+    return ({"sxy": sxy, "z": fz, "valid": valid, "inv_w": inv_w}, attrs2)
+
+
 def edge_coeffs(sxy, z, valid):
     """Edge-function coefficients (``raster3d.py:215-237``).
 
@@ -119,6 +215,182 @@ def edge_coeffs(sxy, z, valid):
     inv_area = torch.where(nz, 1.0 / torch.where(nz, area2, 1.0), 0.0)
     sign = torch.sign(area2)
     return A, B, C, inv_area, sign, valid
+
+
+def _z_levels(dtype, dev):
+    """Z_LEVELS as a device tensor: CUDA torch divides by a Python scalar
+    as a multiply by its reciprocal."""
+    return torch.full((), Z_LEVELS, dtype=dtype, device=dev)
+
+
+def _pack_keys(e, z, sign, valid, tri_ids):
+    """Coverage and packed (z << IDX_BITS | id) keys, SKY_KEY where not
+    covered (``raster3d.py:240-251``); e (..., 3) edge values, z (...)
+    interpolated depth, the rest broadcasting against z."""
+    covered = (e * sign[..., None] >= 0.0).all(dim=-1) & valid
+    covered = covered & (z >= 0.0) & (z <= 1.0)
+    zq = torch.clamp(z * Z_LEVELS, 0, Z_LEVELS).to(torch.int32)
+    return torch.where(covered, (zq << IDX_BITS) | tri_ids, SKY_KEY)
+
+
+def visibility_naive(A, B, C, zplane, sign, valid, X, Y,
+                     block: int = 16384):
+    """The packed-key minimum over ALL triangles for every pixel
+    (``raster3d.py:254-283``); X, Y (P,) pixel coordinates, zplane (F, 3)
+    the vertex z scaled by inv_area.  Pixels go ``block`` at a time, as in
+    JAX, and within a block the triangles go in chunks of at most
+    NAIVE_PAIRS pixel-triangle pairs: the minimum is exact in any order,
+    and one f32 block of 16384 pixels x 10k triangles would be ~2 GB.
+    The depth is the explicit sum (e0 z0 + e1 z1) + e2 z2 (JAX's einsum
+    leaves the order to the library)."""
+    F = A.shape[0]
+    dev = A.device
+    tri_ids = torch.arange(F, dtype=torch.int32, device=dev)
+    P = X.shape[0]
+    keys = torch.full((P,), SKY_KEY, dtype=torch.int32, device=dev)
+    for p0 in range(0, P, block):
+        x = X[p0:p0 + block]
+        y = Y[p0:p0 + block]
+        fc = max(1, NAIVE_PAIRS // x.shape[0])
+        for f0 in range(0, F, fc):
+            f = slice(f0, f0 + fc)
+            e = (A[f, :, None] * x + B[f, :, None] * y
+                 + C[f, :, None])                        # (fc, 3, block)
+            z = (e[:, 0] * zplane[f, 0, None] + e[:, 1] * zplane[f, 1, None]
+                 + e[:, 2] * zplane[f, 2, None])         # (fc, block)
+            k = _pack_keys(e.transpose(1, 2), z, sign[f, None],
+                           valid[f, None], tri_ids[f, None])
+            keys[p0:p0 + block] = torch.minimum(keys[p0:p0 + block],
+                                                k.amin(dim=0))
+    return keys
+
+
+def shade(keys, A, B, C, inv_area, attrs, X, Y, bg):
+    """The winner's attributes per pixel (``raster3d.py:286-305``): one
+    row gather of [A B C inv_area attrs] per pixel, barycentric weights
+    w = e * inv_area, out = (w0 a0 + w1 a1) + w2 a2; bg where no triangle
+    covers.  attrs (F, 3, D); returns (P, D)."""
+    D = attrs.shape[-1]
+    F = A.shape[0]
+    table = torch.cat([A, B, C, inv_area[:, None],
+                       attrs.reshape(F, 3 * D)], dim=1)
+    idx = keys & IDX_MASK
+    hit = idx != NO_TRI
+    row = table[torch.where(hit, idx, 0).long()]
+    e = row[:, 0:3] * X[:, None] + row[:, 3:6] * Y[:, None] + row[:, 6:9]
+    w = e * row[:, 9:10]
+    out = (w[:, 0:1] * row[:, 10:10 + D]
+           + w[:, 1:2] * row[:, 10 + D:10 + 2 * D]
+           + w[:, 2:3] * row[:, 10 + 2 * D:10 + 3 * D])
+    return torch.where(hit[:, None], out, bg[None, :])
+
+
+def render_gouraud(verts, faces, vtx_colors, width: int, height: int,
+                   mvp=None, bg=None, band_height: int = None,
+                   full_height: int = None, y0=None):
+    """Naive full-screen Gouraud render, every triangle against every
+    pixel — counterpart of ``raster3d.render_gouraud``
+    (``raster3d.py:308-339``), the correctness reference.  Returns (rgba
+    (H, W, 4) in verts' dtype, bg where sky; zq (H, W) the quantised
+    depth (key >> IDX_BITS) / Z_LEVELS, 1 for sky).
+
+    For a band of rows of a taller frame (the JAX package's y-band
+    sharding) pass ``band_height`` (rows rendered), ``full_height`` (the
+    viewport height of the projection) and ``y0`` (the band's first
+    row)."""
+    dtype = verts.dtype
+    dev = verts.device
+    if mvp is None:
+        mvp = torch.eye(4, dtype=dtype, device=dev)
+    if bg is None:
+        bg = torch.zeros(4, dtype=dtype, device=dev)
+    out_h = band_height if band_height is not None else height
+    tri = setup_triangles(verts, faces, mvp, width,
+                          full_height if full_height is not None else height)
+    A, B, C, inv_area, sign, valid = edge_coeffs(tri["sxy"], tri["z"],
+                                                 tri["valid"])
+    zsc = tri["z"] * inv_area[:, None]
+    X = torch.arange(width, dtype=dtype, device=dev).repeat(out_h)
+    Y = torch.arange(out_h, dtype=dtype, device=dev).repeat_interleave(width)
+    if y0 is not None:
+        Y = Y + torch.as_tensor(y0, dtype=dtype, device=dev)
+    keys = visibility_naive(A, B, C, zsc, sign, valid, X, Y)
+    rgba = shade(keys, A, B, C, inv_area, vtx_colors[faces], X, Y,
+                 torch.as_tensor(bg, dtype=dtype, device=dev))
+    zq = (keys >> IDX_BITS).to(dtype) / _z_levels(dtype, dev)
+    return rgba.reshape(out_h, width, 4), zq.reshape(out_h, width)
+
+
+def _tile_box(sxy, valid, width: int, height: int, tile_w: int,
+              tile_h: int, span_x: int, span_y: int):
+    """Each triangle's tile AABB clamped to the grid, and the span
+    overflow flag (what both binnings share, ``raster3d.py:360-377``):
+    (x0c, y0c, x1c, y1c, nonempty, span_overflow)."""
+    ntx = (width + tile_w - 1) // tile_w
+    nty = (height + tile_h - 1) // tile_h
+    dev = sxy.device
+    xs = sxy[..., 0]
+    ys = sxy[..., 1]
+    # divisors as device tensors: CUDA torch divides by a Python scalar
+    # as a multiply by its reciprocal, inexact for a tile size not a power
+    # of 2 (torch.full fills on the device: no copy, no host sync)
+    tw = torch.full((), float(tile_w), dtype=sxy.dtype, device=dev)
+    th = torch.full((), float(tile_h), dtype=sxy.dtype, device=dev)
+    x0c = _to_i32(torch.floor(xs.amin(dim=1) / tw)).clamp(min=0)
+    x1c = _to_i32(torch.floor(xs.amax(dim=1) / tw)).clamp(max=ntx - 1)
+    y0c = _to_i32(torch.floor(ys.amin(dim=1) / th)).clamp(min=0)
+    y1c = _to_i32(torch.floor(ys.amax(dim=1) / th)).clamp(max=nty - 1)
+    nonempty = valid & (x0c <= x1c) & (y0c <= y1c)
+    span_overflow = (nonempty & ((x1c - x0c >= span_x)
+                                 | (y1c - y0c >= span_y))).any()
+    return x0c, y0c, x1c, y1c, nonempty, span_overflow
+
+
+def _check_tiles(nt: int):
+    if nt >= (1 << (31 - IDX_BITS)):
+        raise ValueError(f"{nt} tiles is too many for packed binning")
+
+
+def bin_triangles(sxy, valid, width: int, height: int, tile_w: int,
+                  tile_h: int, capacity: int, span_x: int = 8,
+                  span_y: int = 8):
+    """Triangle ids bucketed per tile, materialised (``raster3d.py:346-408``).
+
+    Each triangle emits one packed ``(tile << IDX_BITS) | tri`` pair per
+    tile of its (span-capped) tile AABB, culled by the box only; one sort
+    makes every tile's run contiguous, a left searchsorted of the tile ids
+    finds each run, and a window of ``capacity`` slots from each run's
+    start (reads clamped to the array) becomes the tile's bins row.
+    Returns (bins (NT, capacity) int32, NO_TRI past the run; counts (NT,)
+    int32, not clipped; overflow () bool: a box wider than the span window
+    or a run longer than ``capacity``)."""
+    ntx = (width + tile_w - 1) // tile_w
+    nty = (height + tile_h - 1) // tile_h
+    nt = ntx * nty
+    _check_tiles(nt)
+    F = sxy.shape[0]
+    dev = sxy.device
+    i32 = torch.int32
+    x0c, y0c, x1c, y1c, nonempty, span_overflow = _tile_box(
+        sxy, valid, width, height, tile_w, tile_h, span_x, span_y)
+    txs = x0c[:, None] + torch.arange(span_x, dtype=i32, device=dev)
+    tys = y0c[:, None] + torch.arange(span_y, dtype=i32, device=dev)
+    ok = (nonempty[:, None, None]
+          & (txs[:, None, :] <= x1c[:, None, None])
+          & (tys[:, :, None] <= y1c[:, None, None]))  # (F, span_y, span_x)
+    tid = torch.where(ok, tys[:, :, None] * ntx + txs[:, None, :], nt)
+    tri = torch.arange(F, dtype=i32, device=dev)[:, None, None]
+    packed = torch.sort(((tid << IDX_BITS) | tri).reshape(-1)).values
+    tid_sorted = packed >> IDX_BITS
+    tri_sorted = packed & IDX_MASK
+    starts = torch.searchsorted(
+        tid_sorted, torch.arange(nt + 1, dtype=i32, device=dev),
+        out_int32=True)
+    counts = starts[1:] - starts[:-1]
+    slot = torch.arange(capacity, dtype=i32, device=dev)
+    win = (starts[:-1, None] + slot).clamp(max=packed.shape[0] - 1)
+    bins = torch.where(slot < counts[:, None], tri_sorted[win.long()], NO_TRI)
+    return bins, counts, span_overflow | (counts > capacity).any()
 
 
 def bin_triangles_flat(sxy, valid, width: int, height: int, tile_w: int,
@@ -149,30 +421,12 @@ def bin_triangles_flat(sxy, valid, width: int, height: int, tile_w: int,
     ntx = (width + tile_w - 1) // tile_w
     nty = (height + tile_h - 1) // tile_h
     nt = ntx * nty
+    _check_tiles(nt)
     F = sxy.shape[0]
     dev = sxy.device
     i32 = torch.int32
-    xs = sxy[..., 0]
-    ys = sxy[..., 1]
-    # divisors as device tensors: CUDA torch divides by a Python scalar
-    # as a multiply by its reciprocal, inexact for a tile size not a power
-    # of 2 (torch.full fills on the device: no copy, no host sync)
-    tw = torch.full((), float(tile_w), dtype=sxy.dtype, device=dev)
-    th = torch.full((), float(tile_h), dtype=sxy.dtype, device=dev)
-    x0 = _to_i32(torch.floor(xs.amin(dim=1) / tw))
-    x1 = _to_i32(torch.floor(xs.amax(dim=1) / tw))
-    y0 = _to_i32(torch.floor(ys.amin(dim=1) / th))
-    y1 = _to_i32(torch.floor(ys.amax(dim=1) / th))
-    x0c = x0.clamp(min=0)
-    y0c = y0.clamp(min=0)
-    x1c = x1.clamp(max=ntx - 1)
-    y1c = y1.clamp(max=nty - 1)
-    nonempty = valid & (x0c <= x1c) & (y0c <= y1c)
-    span_overflow = (nonempty & ((x1c - x0c >= span_x)
-                                 | (y1c - y0c >= span_y))).any()
-
-    if nt >= (1 << (31 - IDX_BITS)):
-        raise ValueError(f"{nt} tiles is too many for packed binning")
+    x0c, y0c, x1c, y1c, nonempty, span_overflow = _tile_box(
+        sxy, valid, width, height, tile_w, tile_h, span_x, span_y)
 
     def emit(y0c_, x0c_, x1c_, y1c_, ne_, tri_ids, dy0: int, sy_n: int,
              edges_):
@@ -275,19 +529,38 @@ def detile_u8_host(tiles, width: int, height: int, tile_w: int,
     return np.ascontiguousarray(a[:height, :width])
 
 
-def _prep_geometry(verts, faces, mvp, width: int, height: int, *,
-                   tile_w: int, tile_h: int, capacity: int, span_x: int,
-                   span_y: int, z_clip: bool, v4f=None):
-    """What the Gouraud and textured per-frame preps share: projection,
-    edges and binning, with ``z_clip=False``'s check that every valid
-    vertex z lies in [0, 1] (the condition under which skipping the
-    per-pixel z test is sound, ``raster3d.py:917-925,1225-1233``) folded
-    into the overflow flag.  Returns (tri, (A, B, C, zsc, inv_area, sign,
-    valid), {sorted_pad, starts, counts, overflow})."""
-    tri = setup_triangles(verts, faces, mvp, width, height, v4f=v4f)
+def _setup_edges(verts, faces, mvp, width: int, height: int, *, v4f=None,
+                 attrs=None, near_clip: bool = False):
+    """Projection (with ``near_clip``, :func:`setup_triangles_clipped`,
+    which clips the (F, 3, D) ``attrs`` alongside) and edge setup:
+    (tri, attrs, (A, B, C, zsc, inv_area, sign, valid)), zsc the vertex z
+    scaled by inv_area."""
+    if near_clip:
+        tri, attrs = setup_triangles_clipped(verts, faces, mvp, attrs, width,
+                                             height, v4f=v4f)
+    else:
+        tri = setup_triangles(verts, faces, mvp, width, height, v4f=v4f)
     A, B, C, inv_area, sign, valid = edge_coeffs(tri["sxy"], tri["z"],
                                                  tri["valid"])
-    zsc = tri["z"] * inv_area[:, None]
+    return tri, attrs, (A, B, C, tri["z"] * inv_area[:, None], inv_area,
+                        sign, valid)
+
+
+def _prep_geometry(verts, faces, mvp, width: int, height: int, *,
+                   tile_w: int, tile_h: int, capacity: int, span_x: int,
+                   span_y: int, z_clip: bool, v4f=None, attrs=None,
+                   near_clip: bool = False):
+    """What the Gouraud and textured per-frame preps share: projection
+    (near-clipped with ``near_clip``), edges and gatherless binning, with
+    ``z_clip=False``'s check that every valid vertex z lies in [0, 1]
+    (the condition under which skipping the per-pixel z test is sound,
+    ``raster3d.py:917-925,1225-1233``) folded into the overflow flag.
+    Returns (tri, attrs, (A, B, C, zsc, inv_area, sign, valid),
+    {sorted_pad, starts, counts, overflow})."""
+    tri, attrs, edges = _setup_edges(verts, faces, mvp, width, height,
+                                     v4f=v4f, attrs=attrs,
+                                     near_clip=near_clip)
+    A, B, C, _, _, sign, valid = edges
     sorted_pad, starts, counts, overflow = bin_triangles_flat(
         tri["sxy"], valid, width, height, tile_w, tile_h, capacity,
         span_x, span_y, edges=(A, B, C, sign))
@@ -296,7 +569,7 @@ def _prep_geometry(verts, faces, mvp, width: int, height: int, *,
         z_ok = torch.where(tri["valid"][:, None], (z >= 0.0) & (z <= 1.0),
                            True).all()
         overflow = overflow | ~z_ok
-    return tri, (A, B, C, zsc, inv_area, sign, valid), {
+    return tri, attrs, edges, {
         "sorted_pad": sorted_pad, "starts": starts, "counts": counts,
         "overflow": overflow}
 
@@ -304,13 +577,15 @@ def _prep_geometry(verts, faces, mvp, width: int, height: int, *,
 def prepare_frame(verts, faces, vtx_colors, width: int, height: int,
                   mvp=None, *, tile_w: int = 128, tile_h: int = 16,
                   capacity: int = 512, bg=None, span_x: int = 8,
-                  span_y: int = 8, z_clip: bool = True, pre=None):
+                  span_y: int = 8, z_clip: bool = True, pre=None,
+                  near_clip: bool = False):
     """Per-frame prep of :func:`render_gouraud_u8`, everything before the
     tile kernel (``raster3d.py:895-934``): returns a dict with the
     kernel's inputs ``sorted_pad``, ``starts``, ``counts``, ``table``,
     ``packed_bg`` and the device ``overflow`` flag, which with
     ``z_clip=False`` also carries the vertex-z check (see
-    :func:`_prep_geometry`)."""
+    :func:`_prep_geometry`).  ``near_clip`` clips at the near plane (two
+    table rows a face)."""
     from . import tile_raster
     dtype = verts.dtype
     if mvp is None:
@@ -321,10 +596,10 @@ def prepare_frame(verts, faces, vtx_colors, width: int, height: int,
         v4f, attrs = pre
     else:
         v4f, attrs = None, vtx_colors[faces]
-    _, edges, prep = _prep_geometry(
+    _, attrs, edges, prep = _prep_geometry(
         verts, faces, mvp, width, height, tile_w=tile_w, tile_h=tile_h,
         capacity=capacity, span_x=span_x, span_y=span_y, z_clip=z_clip,
-        v4f=v4f)
+        v4f=v4f, attrs=attrs, near_clip=near_clip)
     prep["table"] = tile_raster.build_table(*edges, attrs)
     prep["packed_bg"] = tile_raster.pack_bg(bg)
     return prep
@@ -354,7 +629,7 @@ def prepare_textured_frame(verts, faces, fuv, width: int, height: int,
     (with ``z_clip=False`` also the vertex-z check, see
     :func:`_prep_geometry`)."""
     from . import tile_raster
-    tri, edges, prep = _prep_geometry(
+    tri, _, edges, prep = _prep_geometry(
         verts, faces, mvp, width, height, tile_w=tile_w, tile_h=tile_h,
         capacity=capacity, span_x=span_x, span_y=span_y, z_clip=z_clip,
         v4f=v4f)
@@ -371,7 +646,8 @@ def render_gouraud_u8(verts, faces, vtx_colors, width: int, height: int,
                       mvp=None, *, tile_w: int = 128, tile_h: int = 16,
                       capacity: int = 512, bg=None, span_x: int = 8,
                       span_y: int = 8, kcc: int = 32, opaque: bool = False,
-                      z_clip: bool = True, pre=None, tiled: bool = False):
+                      z_clip: bool = True, pre=None, tiled: bool = False,
+                      near_clip: bool = False):
     """Binned Gouraud render to u8 — counterpart of
     ``render_gouraud_pallas(flat=True, u8=True, ...)``
     (``raster3d.py:844-952``).
@@ -391,15 +667,18 @@ def render_gouraud_u8(verts, faces, vtx_colors, width: int, height: int,
     (for meshes whose vertex alpha is 1).  ``z_clip=False`` drops the
     per-pixel 0 <= z <= 1 test (see :func:`prepare_frame`).  ``pre``:
     optional ``(pregather_mesh(verts, faces), vtx_colors[faces])`` hoisted
-    out of frame loops.  ``kcc`` is accepted for signature parity: it
-    sized the TPU kernel's triangle chunk and changes no value.  The
-    TPU layout knobs of the JAX entry (``interpret``, ``resident_out``,
-    ``mega``, ``wf``, ``out8``, ``ktail``, ``mxu``) are not parameters."""
+    out of frame loops.  ``near_clip`` cuts triangles crossing the near
+    plane w = NEAR_EPS into sub-triangles (see
+    :func:`clip_near_triangles`) instead of culling them whole.  ``kcc``
+    is accepted for signature parity: it sized the TPU kernel's triangle
+    chunk and changes no value.  The TPU layout knobs of the JAX entry
+    (``interpret``, ``resident_out``, ``mega``, ``wf``, ``out8``,
+    ``ktail``, ``wide_split``, ``mxu``) are not parameters."""
     from . import tile_raster
     prep = prepare_frame(verts, faces, vtx_colors, width, height, mvp,
                          tile_w=tile_w, tile_h=tile_h, capacity=capacity,
                          bg=bg, span_x=span_x, span_y=span_y,
-                         z_clip=z_clip, pre=pre)
+                         z_clip=z_clip, pre=pre, near_clip=near_clip)
     packed = tile_raster.raster_tiles_flat_u8(
         prep["sorted_pad"], prep["starts"], prep["counts"], prep["table"],
         prep["packed_bg"], width, tile_w, tile_h, opaque=opaque,
@@ -582,8 +861,363 @@ def render_textured(verts, faces, uvs, tex, width: int, height: int,
     texel = tex.reshape(-1, 4)[(vi * tw + ui).long()]
     rgba = torch.where(hit[..., None], texel.to(dtype),
                        torch.as_tensor(bg, dtype=dtype, device=dev))
-    # the divisor is a tensor: CUDA divides by a Python scalar as a
-    # multiply by its reciprocal
-    zq = (keys >> IDX_BITS).to(dtype) / torch.full(
-        (), Z_LEVELS, dtype=dtype, device=dev)
+    zq = (keys >> IDX_BITS).to(dtype) / _z_levels(dtype, dev)
     return rgba, zq, prep["overflow"]
+
+
+def raster_binned_fused(bins, A, B, C, zplane_scaled, inv_area, sign, valid,
+                        attrs, bg, width: int, height: int, tile_w: int,
+                        tile_h: int, batch_tiles: int = 128):
+    """Per-tile visibility and shading over materialised bins as tensor
+    ops — counterpart of ``raster3d.raster_binned_fused``
+    (``raster3d.py:704-787``), the XLA path of the binned render.
+
+    The row table [A B C zsc sign inv_area attrs*inv_area] stays in A's
+    dtype (the kernels' ``build_table`` casts to float32), NaN rows for
+    invalid triangles and the pad row F that NO_TRI slots read.  Per tile:
+    the minimum packed key over its K bins (triangle ids, not slots), then
+    each attribute as the sum over K of the winner's (e0 a0 + e1 a1) +
+    e2 a2 and zeros: keys are unique within a tile, so the sum has one
+    nonzero term and its order does not matter.  ``batch_tiles`` tiles go
+    at a time (all with 0), which bounds only the temporaries' size
+    (batch_tiles x K x P each).  attrs (F, 3, D); returns (keys (H, W)
+    int32, rgba (H, W, D), bg where sky)."""
+    from . import tile_raster
+    ntx = (width + tile_w - 1) // tile_w
+    nt, K = bins.shape
+    dtype = A.dtype
+    dev = A.device
+    F = A.shape[0]
+    D = attrs.shape[-1]
+    P = tile_w * tile_h
+    attrs_sc = attrs * inv_area[:, None, None]
+    table = torch.cat([A, B, C, zplane_scaled, sign[:, None],
+                       inv_area[:, None], attrs_sc.reshape(F, 3 * D)], dim=1)
+    table = torch.where(valid[:, None], table, float("nan")).to(dtype)
+    table = torch.cat([table, table.new_full((1, table.shape[1]),
+                                             float("nan"))])
+    safe = torch.where(bins == NO_TRI, F, bins)
+    t = torch.arange(nt, dtype=torch.int32, device=dev)
+    p = torch.arange(P, dtype=torch.int32, device=dev)
+    X = (t % ntx * tile_w).to(dtype)[:, None] + (p % tile_w).to(dtype)
+    Y = (t // ntx * tile_h).to(dtype)[:, None] + (p // tile_w).to(dtype)
+    bgv = torch.as_tensor(bg, dtype=dtype, device=dev)
+    keys = torch.empty((nt, P), dtype=torch.int32, device=dev)
+    rgba = torch.empty((nt, P, D), dtype=dtype, device=dev)
+    step = batch_tiles if 0 < batch_tiles < nt else nt
+    for t0 in range(0, nt, step):
+        tiles = slice(t0, t0 + step)
+        ids = safe[tiles]
+        r = table[ids.long()][..., None]                 # (bt, K, cols, 1)
+        x, y = X[tiles, None, :], Y[tiles, None, :]      # (bt, 1, P)
+        e0 = r[:, :, 0] * x + r[:, :, 3] * y + r[:, :, 6]   # (bt, K, P)
+        e1 = r[:, :, 1] * x + r[:, :, 4] * y + r[:, :, 7]
+        e2 = r[:, :, 2] * x + r[:, :, 5] * y + r[:, :, 8]
+        sg = r[:, :, 12]
+        m = torch.minimum(torch.minimum(e0 * sg, e1 * sg), e2 * sg)
+        zz = e0 * r[:, :, 9] + e1 * r[:, :, 10] + e2 * r[:, :, 11]
+        covered = (m >= 0.0) & (zz >= 0.0) & (zz <= 1.0)
+        zq = torch.clamp(zz * Z_LEVELS, 0, Z_LEVELS).to(torch.int32)
+        k = torch.where(covered, (zq << IDX_BITS) | ids[:, :, None], SKY_KEY)
+        winner = k.amin(dim=1)                           # (bt, P)
+        win = (k == winner[:, None, :]) & covered
+        for d in range(D):
+            cd = (e0 * r[:, :, 14 + d] + e1 * r[:, :, 14 + D + d]
+                  + e2 * r[:, :, 14 + 2 * D + d])
+            acc = torch.where(win, cd, 0.0).sum(dim=1)
+            rgba[tiles, :, d] = torch.where(winner != SKY_KEY, acc, bgv[d])
+        keys[tiles] = winner
+    return (tile_raster._detile_plane(keys, width, height, tile_w, tile_h),
+            tile_raster._detile_plane(rgba, width, height, tile_w, tile_h))
+
+
+def render_gouraud_binned(verts, faces, vtx_colors, width: int, height: int,
+                          mvp=None, *, tile_w: int = 128, tile_h: int = 16,
+                          capacity: int = 64, bg=None, span_x: int = 8,
+                          span_y: int = 8, batch_tiles: int = 128,
+                          perspective_correct: bool = False,
+                          near_clip: bool = False):
+    """Binned Gouraud render through :func:`bin_triangles` and
+    :func:`raster_binned_fused` — counterpart of
+    ``raster3d.render_gouraud_binned`` (``raster3d.py:790-837``).
+    ``perspective_correct`` interpolates the attributes hyperbolically
+    (attr/w and 1/w planes, divided per pixel); ``near_clip`` cuts
+    triangles crossing the near plane instead of culling them.  Returns
+    (rgba (H, W, 4) in verts' dtype, bg where sky; zq (H, W); overflow
+    device bool)."""
+    dtype = verts.dtype
+    dev = verts.device
+    if mvp is None:
+        mvp = torch.eye(4, dtype=dtype, device=dev)
+    if bg is None:
+        bg = torch.zeros(4, dtype=dtype, device=dev)
+    tri, attrs, edges = _setup_edges(verts, faces, mvp, width, height,
+                                     attrs=vtx_colors[faces],
+                                     near_clip=near_clip)
+    bins, counts, overflow = bin_triangles(tri["sxy"], edges[-1], width,
+                                           height, tile_w, tile_h, capacity,
+                                           span_x, span_y)
+    bg_eff = torch.as_tensor(bg, dtype=dtype, device=dev)
+    if perspective_correct:
+        iw = tri["inv_w"][..., None]
+        attrs = torch.cat([attrs * iw, iw], dim=-1)       # (F, 3, D + 1)
+        bg_eff = torch.cat([bg_eff, bg_eff.new_ones(1)])
+    keys, rgba = raster_binned_fused(bins, *edges, attrs, bg_eff, width,
+                                     height, tile_w, tile_h, batch_tiles)
+    if perspective_correct:
+        den = rgba[..., -1:]
+        rgba = torch.where((keys != SKY_KEY)[..., None],
+                           rgba[..., :-1] / torch.where(den != 0.0, den, 1.0),
+                           rgba[..., :-1])
+    zq = (keys >> IDX_BITS).to(dtype) / _z_levels(dtype, dev)
+    return rgba, zq, overflow
+
+
+def render_gouraud_pallas(verts, faces, vtx_colors, width: int, height: int,
+                          mvp=None, *, tile_w: int = 128, tile_h: int = 16,
+                          capacity: int = 512, bg=None, span_x: int = 8,
+                          span_y: int = 8, kcc: int = 32, flat: bool = False,
+                          near_clip: bool = False, u8: bool = False,
+                          opaque: bool = False, z_clip: bool = True,
+                          pre=None, tiled: bool = False):
+    """Binned Gouraud render through the tile kernels — counterpart of
+    ``raster3d.render_gouraud_pallas`` (``raster3d.py:844-966``), with its
+    defaults.  Routes:
+      * default: :func:`bin_triangles` (box-culled, ``capacity`` bins a
+        tile) and one K5 launch (``tile_raster.render_binned_pallas``);
+        rgba in verts' dtype;
+      * ``flat=True``: the gatherless binning (``capacity`` bounds a run)
+        and one K2a launch (``render_binned_pallas_flat``); rgba float32;
+      * ``flat=True, u8=True``: :func:`render_gouraud_u8` (K1), returning
+        (frame (H, W, 4) uint8 — or with ``tiled`` the (NT, P, 4) tiles —,
+        None, overflow), with ``opaque`` and ``z_clip``.
+    Otherwise returns (rgba (H, W, 4), bg where sky; zq (H, W) the
+    quantised depth (key >> IDX_BITS) / Z_LEVELS; overflow device bool).
+    ``z_clip=False`` skips the per-pixel z test only on the u8 route (the
+    f32 kernels keep it), and folds the vertex-z check into the flat
+    routes' flag.  ``near_clip`` and ``pre`` = ``(pregather_mesh(verts,
+    faces), vtx_colors[faces])`` apply on every route.  ``kcc`` is
+    accepted and changes no value; the TPU layout knobs (``interpret``,
+    ``resident_out``, ``mega``, ``wf``, ``out8``, ``ktail``,
+    ``wide_split``, ``mxu``) are not parameters."""
+    from . import tile_raster
+    if u8 and not flat:
+        raise ValueError("u8 output requires flat=True")
+    if tiled and not u8:
+        raise ValueError("tiled output is wired for the u8 path")
+    if u8:
+        frame, overflow = render_gouraud_u8(
+            verts, faces, vtx_colors, width, height, mvp, tile_w=tile_w,
+            tile_h=tile_h, capacity=capacity, bg=bg, span_x=span_x,
+            span_y=span_y, opaque=opaque, z_clip=z_clip, pre=pre,
+            tiled=tiled, near_clip=near_clip)
+        return frame, None, overflow
+    dtype = verts.dtype
+    dev = verts.device
+    if mvp is None:
+        mvp = torch.eye(4, dtype=dtype, device=dev)
+    if bg is None:
+        bg = torch.zeros(4, dtype=dtype, device=dev)
+    if flat:
+        prep = prepare_frame(verts, faces, vtx_colors, width, height, mvp,
+                             tile_w=tile_w, tile_h=tile_h, capacity=capacity,
+                             bg=bg, span_x=span_x, span_y=span_y,
+                             z_clip=z_clip, pre=pre, near_clip=near_clip)
+        keys, rgba = tile_raster.render_binned_pallas_flat(
+            prep["sorted_pad"], prep["starts"], prep["counts"],
+            prep["table"], bg, width, height, tile_w, tile_h)
+        overflow = prep["overflow"]
+    else:
+        v4f, attrs = pre if pre is not None else (None, vtx_colors[faces])
+        tri, attrs, edges = _setup_edges(verts, faces, mvp, width, height,
+                                         v4f=v4f, attrs=attrs,
+                                         near_clip=near_clip)
+        bins, counts, overflow = bin_triangles(
+            tri["sxy"], edges[-1], width, height, tile_w, tile_h, capacity,
+            span_x, span_y)
+        keys, rgba = tile_raster.render_binned_pallas(
+            bins, counts, *edges, attrs, bg, width, height, tile_w, tile_h)
+    zq = (keys >> IDX_BITS).to(dtype) / _z_levels(dtype, dev)
+    return rgba, zq, overflow
+
+
+def render_gouraud_pallas_batch(verts, faces, vtx_colors, width: int,
+                                height: int, mvps, *, tile_w: int = 128,
+                                tile_h: int = 32, capacity: int = 512,
+                                bg=None, span_x: int = 8, span_y: int = 4,
+                                flat: bool = False, kcc: int = 32,
+                                u8: bool = False, opaque: bool = False,
+                                z_clip: bool = True, dynrows: int = 0,
+                                rows_cap: int = 0):
+    """B frames (mvps (B, 4, 4)) of :func:`render_gouraud_pallas`, the
+    tiles of all frames in one kernel launch — counterpart of
+    ``raster3d.render_gouraud_pallas_batch`` (``raster3d.py:973-1076``),
+    with its defaults.  The per-frame prep loops over the frames; then:
+      * default: K5 over the B frames' bins (``render_binned_pallas_batch``);
+      * ``flat=True``: K2a (``render_binned_pallas_flat_batch``);
+      * ``flat=True, u8=True``: K1
+        (``render_binned_pallas_flat_batch_u8``), with ``opaque``, ``z_clip``;
+      * ``dynrows=g`` (flat, u8, opaque, z_clip off): each frame's table
+        rows gathered in pair order, ``rows_cap`` rows a frame (default
+        49152), and K6 (``render_binned_dynrows_batch_u8``), bit-equal to
+        the u8 route; a frame whose pairs end past rows_cap - capacity
+        raises the overflow flag.  g, the TPU kernel's frames a program,
+        changes no value.
+    Returns (rgba (B, H, W, 4) — float32, or uint8 on the u8 routes —,
+    zq (B, H, W) or None on the u8 routes, overflow device bool over the
+    batch).  ``kcc`` is accepted and changes no value; ``interpret`` and
+    ``mxu`` are not parameters."""
+    from . import tile_raster
+    if u8 and not flat:
+        raise ValueError("u8 output requires flat=True")
+    if dynrows and not (flat and u8 and opaque and not z_clip):
+        raise ValueError("the dynrows kernel is the opaque u8 path: flat, "
+                         "u8, opaque, z_clip=False")
+    dtype = verts.dtype
+    dev = verts.device
+    if bg is None:
+        bg = torch.zeros(4, dtype=dtype, device=dev)
+    pre = (pregather_mesh(verts, faces), vtx_colors[faces])
+    cfg = dict(tile_w=tile_w, tile_h=tile_h, capacity=capacity,
+               span_x=span_x, span_y=span_y)
+    if flat:
+        preps = [prepare_frame(verts, faces, vtx_colors, width, height, m,
+                               bg=bg, z_clip=z_clip, pre=pre, **cfg)
+                 for m in mvps]
+        sps, starts, counts, tables = (
+            torch.stack([p[k] for p in preps])
+            for k in ("sorted_pad", "starts", "counts", "table"))
+        overflow = torch.stack([p["overflow"] for p in preps]).any()
+        if dynrows:
+            cap = rows_cap or 49152
+            rows = torch.stack([p["table"][(p["sorted_pad"][:cap]
+                                            & IDX_MASK).long()]
+                                for p in preps])
+            # the pairs end at the last tile's run end
+            overflow = overflow | (starts[:, -1] + counts[:, -1]
+                                   > cap - capacity).any()
+            frames = tile_raster.render_binned_dynrows_batch_u8(
+                rows, starts, counts, bg, width, height, tile_w, tile_h,
+                g=dynrows)
+            return frames, None, overflow
+        if u8:
+            frames = tile_raster.render_binned_pallas_flat_batch_u8(
+                sps, starts, counts, tables, bg, width, height, tile_w,
+                tile_h, opaque=opaque, z_clip=z_clip)
+            return frames, None, overflow
+        keys, rgba = tile_raster.render_binned_pallas_flat_batch(
+            sps, starts, counts, tables, bg, width, height, tile_w, tile_h)
+    else:
+        bins, counts, tables, ovfs = [], [], [], []
+        for m in mvps:
+            tri, attrs, edges = _setup_edges(verts, faces, m, width, height,
+                                             v4f=pre[0], attrs=pre[1])
+            b, c, o = bin_triangles(tri["sxy"], edges[-1], width, height,
+                                    tile_w, tile_h, capacity, span_x, span_y)
+            bins.append(torch.where(b == NO_TRI, faces.shape[0], b))
+            counts.append(c)
+            tables.append(tile_raster.build_table(*edges, attrs))
+            ovfs.append(o)
+        keys, rgba = tile_raster.render_binned_pallas_batch(
+            torch.stack(bins), torch.stack(counts), torch.stack(tables), bg,
+            width, height, tile_w, tile_h)
+        overflow = torch.stack(ovfs).any()
+    zq = (keys >> IDX_BITS).to(dtype) / _z_levels(dtype, dev)
+    return rgba, zq, overflow
+
+
+def render_textured_binned(verts, faces, uvs, tex, width: int, height: int,
+                           mvp=None, *, tile_w: int = 128, tile_h: int = 16,
+                           capacity: int = 64, bg=None, span_x: int = 8,
+                           span_y: int = 8, batch_tiles: int = 128,
+                           perspective_correct: bool = True):
+    """Binned textured render through :func:`raster_binned_fused` —
+    counterpart of ``raster3d.render_textured_binned``
+    (``raster3d.py:1522-1568``): the (u, v) ride the fused pass as
+    attributes ([u/w, v/w, 1/w] when ``perspective_correct``, divided per
+    pixel), then each covered pixel takes the clamped-nearest texel of
+    ``tex`` (th, tw, 4).  Returns (rgba (H, W, 4), bg where sky; zq
+    (H, W); overflow device bool)."""
+    dtype = verts.dtype
+    dev = verts.device
+    if mvp is None:
+        mvp = torch.eye(4, dtype=dtype, device=dev)
+    if bg is None:
+        bg = torch.zeros(4, dtype=dtype, device=dev)
+    tri, attrs, edges = _setup_edges(verts, faces, mvp, width, height,
+                                     attrs=uvs[faces])
+    bins, counts, overflow = bin_triangles(tri["sxy"], edges[-1], width,
+                                           height, tile_w, tile_h, capacity,
+                                           span_x, span_y)
+    if perspective_correct:
+        iw = tri["inv_w"][..., None]
+        attrs = torch.cat([attrs * iw, iw], dim=-1)       # (F, 3, 3)
+    keys, uvq = raster_binned_fused(
+        bins, *edges, attrs, torch.zeros(attrs.shape[-1], dtype=dtype,
+                                         device=dev),
+        width, height, tile_w, tile_h, batch_tiles)
+    hit = keys != SKY_KEY
+    if perspective_correct:
+        den = uvq[..., 2:3]
+        uvq = uvq[..., :2] / torch.where(den != 0.0, den, 1.0)
+    th, tw = tex.shape[0], tex.shape[1]
+    ui = _to_i32(uvq[..., 0] * tw).clamp(0, tw - 1)
+    vi = _to_i32(uvq[..., 1] * th).clamp(0, th - 1)
+    texel = tex.reshape(-1, 4)[(vi * tw + ui).long()]
+    rgba = torch.where(hit[..., None], texel,
+                       torch.as_tensor(bg, dtype=tex.dtype, device=dev))
+    zq = (keys >> IDX_BITS).to(dtype) / _z_levels(dtype, dev)
+    return rgba, zq, overflow
+
+
+def render_blended(verts, faces, uvs, tex, width: int, height: int,
+                   mvp=None, opaque_depth=None, bg=None):
+    """Painter's-order alpha blending with a z test against an opaque
+    depth — counterpart of ``raster3d.render_blended``
+    (``raster3d.py:1575-1623``), BASELINE config 2.  Triangles are drawn
+    in face order (callers sort them back to front); each samples ``tex``
+    (th, tw, 4) at its barycentric (u, v), nearest, and blends src-over
+    where it covers the pixel and 0 <= z <= opaque_depth (default 1).
+    One pass a triangle, for quad batches, not meshes.  The barycentric
+    sums of z, u and v are (w0 q0 + w1 q1) + w2 q2 (JAX's einsum leaves
+    their order to the library).  Returns the (H, W, 4) frame in verts'
+    dtype."""
+    dtype = verts.dtype
+    dev = verts.device
+    H, W = height, width
+    if mvp is None:
+        mvp = torch.eye(4, dtype=dtype, device=dev)
+    if bg is None:
+        bg = torch.zeros(4, dtype=dtype, device=dev)
+    tri = setup_triangles(verts, faces, mvp, width, height)
+    A, B, C, inv_area, sign, valid = edge_coeffs(tri["sxy"], tri["z"],
+                                                 tri["valid"])
+    if opaque_depth is None:
+        opaque_depth = torch.ones((H, W), dtype=dtype, device=dev)
+    fuv = uvs[faces]                                      # (F, 3, 2)
+    X = torch.arange(W, dtype=dtype, device=dev).expand(H, W)
+    Y = torch.arange(H, dtype=dtype, device=dev)[:, None].expand(H, W)
+    fb = torch.as_tensor(bg, device=dev).to(dtype).expand(H, W, 4)
+    th, tw = tex.shape[0], tex.shape[1]
+    tex_flat = tex.reshape(-1, 4)
+
+    def bary(wgt, q):
+        return wgt[0] * q[0] + wgt[1] * q[1] + wgt[2] * q[2]
+
+    for i in range(faces.shape[0]):
+        e = (A[i, :, None, None] * X + B[i, :, None, None] * Y
+             + C[i, :, None, None])                       # (3, H, W)
+        wgt = e * inv_area[i]
+        z = bary(wgt, tri["z"][i])
+        covered = (e * sign[i] >= 0.0).all(dim=0) & valid[i]
+        covered = covered & (z >= 0.0) & (z <= opaque_depth)
+        u = bary(wgt, fuv[i, :, 0])
+        v = bary(wgt, fuv[i, :, 1])
+        ui = _to_i32(u * tw).clamp(0, tw - 1)
+        vi = _to_i32(v * th).clamp(0, th - 1)
+        texel = tex_flat[(vi * tw + ui).long()]           # (H, W, 4)
+        alpha = texel[..., 3:4]
+        blended = fb[..., :3] * (1 - alpha) + texel[..., :3] * alpha
+        new = torch.cat([blended, torch.maximum(fb[..., 3:], alpha)], -1)
+        fb = torch.where(covered[..., None], new, fb)
+    return fb

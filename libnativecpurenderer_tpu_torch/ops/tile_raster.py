@@ -1,12 +1,15 @@
-"""Per-tile visibility and its four epilogues: kernels K1, K3, K2b, K2a.
+"""Per-tile visibility and its epilogues: kernels K1, K3, K2b, K2a, K5, K6.
 
-Counterpart of ``libnativecpurenderer_tpu/ops/pallas_raster.py`` for the
-flat binned paths: the row table (``build_table``, ``pallas_raster.py:1445``),
-the packed background (``_pack_bg``, ``:932``), the detiles
-(``_detile_plane``/``_detile_packed``/``_detile``, ``:939-950,1508``), the
-entries ``render_binned_pallas_flat`` (``:909``) and
-``render_binned_tex_idx_batch`` (``:1048``), and the tile kernel
-``_make_kernel_flat`` (``:125-600``) with the epilogues its launchers pick:
+Counterpart of ``libnativecpurenderer_tpu/ops/pallas_raster.py``: the row
+table (``build_table``, ``pallas_raster.py:1445``), the packed background
+(``_pack_bg``, ``:932``), the detiles (``_detile_plane``/``_detile_packed``/
+``_detile``, ``:939-950,1508``), the entries ``render_binned_pallas_flat``
+(``:909``), ``render_binned_pallas_flat_batch`` (``:1354``),
+``render_binned_pallas_flat_batch_u8`` (``:1010``),
+``render_binned_tex_idx_batch`` (``:1048``), ``render_binned_pallas``
+(``:1559``), ``render_binned_pallas_batch`` (``:1526``) and
+``render_binned_dynrows_batch_u8`` (``:1302``), and the three TPU tile
+kernels, as the kernels their launchers pick:
 
   * K1, ``raster_tiles_flat_u8``: packed u8 Gouraud RGBA (``u8=True``,
     ``raster_tiles_flat`` ``:793``, epilogue ``:566-596``);
@@ -16,13 +19,20 @@ entries ``render_binned_pallas_flat`` (``:909``) and
   * K2b, ``raster_tiles_tex_idx``: that texel's index, -1 for sky
     (``tex_dims``, ``:793``, epilogue ``:356-374``);
   * K2a, ``raster_tiles_keys_f32``: packed depth keys and the four f32
-    attributes (the f32 branch, ``:805``, epilogue ``:597-599``).
+    attributes (the f32 branch, ``:805``, epilogue ``:597-599``);
+  * K5, ``raster_tiles_bins_f32``: K2a's outputs over a materialised bins
+    row (``raster_tiles`` ``:1396-1442``, body ``_make_kernel`` ``:51-122``);
+  * K6, ``raster_tiles_rows_u8``: K1's opaque values over rows gathered in
+    pair order (``raster_tiles_dynrows`` ``:1271-1299``, body
+    ``_make_kernel_dynrows`` ``:1176-1267``).
 
 Each wrapper, on CUDA tensors, launches the hand-written kernel in
-``csrc/tile_raster.cu`` (one walk, the epilogue a template parameter) or
-raises; on CPU tensors it runs its ``*_reference``, the plain torch version
-in the same operation order, bit-identical to the kernel on the card.  Each
-wrapper counts its kernel launches in its ``launches`` attribute.
+``csrc/tile_raster.cu`` (one walk; the epilogue and the row source are
+template parameters) or raises; on CPU tensors it runs its
+``*_reference``, the plain torch version in the same operation order,
+bit-identical to the kernel on the card.  Each wrapper counts its kernel
+launches in its ``launches`` attribute.  The walks over pairs and rows
+take one frame or B frames (a leading B on each input) in one launch.
 
 Row table layout (32 floats per triangle, ``pallas_raster.py:18-27``):
   0:9   A0' B0' C0' A1' B1' C1' A2' B2' C2'  (edges, cover sign folded in)
@@ -39,7 +49,7 @@ from __future__ import annotations
 
 import torch
 
-from .raster3d import IDX_BITS, IDX_MASK, SKY_KEY, Z_LEVELS, _to_i32
+from .raster3d import IDX_BITS, IDX_MASK, NO_TRI, SKY_KEY, Z_LEVELS, _to_i32
 
 ROW_W = 32      # padded row width
 D = 4           # attributes per vertex
@@ -83,74 +93,117 @@ def pack_bg(bg):
 
 
 def tiles_u8(packed):
-    """(NT, P) packed int32 -> (NT, P, 4) uint8 (little-endian: r first)."""
-    return packed.view(torch.uint8).reshape(packed.shape[0], -1, 4)
+    """(..., NT, P) packed int32 -> (..., NT, P, 4) uint8 (little-endian:
+    r first)."""
+    return packed.view(torch.uint8).reshape(*packed.shape, 4)
+
+
+def _detile_frames(planes, width: int, height: int, tile_w: int,
+                   tile_h: int):
+    """(B, NT, P, *rest) per-tile planes of B frames -> (B, H, W, *rest)
+    raster order, cropping padded slots."""
+    ntx = (width + tile_w - 1) // tile_w
+    nty = (height + tile_h - 1) // tile_h
+    n, rest = planes.shape[0], planes.shape[3:]
+    p2 = planes.reshape(n, nty, ntx, tile_h, tile_w, *rest).transpose(2, 3)
+    return p2.reshape(n, nty * tile_h, ntx * tile_w,
+                      *rest)[:, :height, :width]
 
 
 def _detile_plane(plane, width: int, height: int, tile_w: int,
                   tile_h: int):
     """(NT, P, *rest) per-tile planes -> (H, W, *rest) raster order,
     cropping padded slots (``pallas_raster.py:939-943``)."""
-    ntx = (width + tile_w - 1) // tile_w
-    nty = (height + tile_h - 1) // tile_h
-    rest = plane.shape[2:]
-    p2 = plane.reshape(nty, ntx, tile_h, tile_w, *rest).transpose(1, 2)
-    return p2.reshape(nty * tile_h, ntx * tile_w, *rest)[:height, :width]
+    return _detile_frames(plane[None], width, height, tile_w, tile_h)[0]
 
 
 def detile_packed(packed, width: int, height: int, tile_w: int,
                   tile_h: int):
     """(NT, P) packed int32 tiles -> (H, W, 4) uint8 raster order,
-    cropping padded slots (``pallas_raster.py:946-950``)."""
-    p2 = _detile_plane(packed, width, height, tile_w, tile_h)
-    return p2.contiguous().view(torch.uint8).reshape(height, width, 4)
+    cropping padded slots (``pallas_raster.py:946-950``); (B, NT, P) ->
+    (B, H, W, 4)."""
+    one = packed.dim() == 2
+    p2 = _detile_frames(packed[None] if one else packed, width, height,
+                        tile_w, tile_h)
+    u8 = p2.contiguous().view(torch.uint8).reshape(*p2.shape, 4)
+    return u8[0] if one else u8
 
 
 def detile_keys_rgba(keys, rgba, width: int, height: int, tile_w: int,
                      tile_h: int, bg, dtype):
-    """K2a's (NT, P) keys and (NT, D, P) rgba -> (keys (H, W) int32,
-    rgba (H, W, D) in ``dtype``), bg cast to ``dtype`` where the key is
-    SKY_KEY (``pallas_raster._detile``, ``:1508-1523``)."""
-    keys2d = _detile_plane(keys, width, height, tile_w, tile_h)
-    rgba2d = _detile_plane(rgba.transpose(1, 2), width, height, tile_w,
-                           tile_h)
+    """K2a's or K5's (NT, P) keys and (NT, D, P) rgba -> (keys (H, W)
+    int32, rgba (H, W, D) in ``dtype``), bg cast to ``dtype`` where the
+    key is SKY_KEY (``pallas_raster._detile``, ``:1508-1523``); with a
+    leading B on both, (B, H, W) and (B, H, W, D)."""
+    one = keys.dim() == 2
+    if one:
+        keys, rgba = keys[None], rgba[None]
+    keys2d = _detile_frames(keys, width, height, tile_w, tile_h)
+    rgba2d = _detile_frames(rgba.transpose(2, 3), width, height, tile_w,
+                            tile_h)
     bgv = torch.as_tensor(bg, dtype=dtype, device=rgba.device)
     sky = (keys2d == SKY_KEY)[..., None]
-    return keys2d, torch.where(sky, bgv, rgba2d.to(dtype))
+    out = keys2d, torch.where(sky, bgv, rgba2d.to(dtype))
+    return tuple(a[0] for a in out) if one else out
 
 
-def _check_inputs(sorted_pad, starts, counts, table, tile_w, tile_h,
-                  packed_bg=None, tex_packed=None, tex_dims=None):
-    dev = table.device
-    for name, t, dtype in (("sorted_pad", sorted_pad, torch.int32),
-                           ("starts", starts, torch.int32),
-                           ("counts", counts, torch.int32),
-                           ("table", table, torch.float32),
-                           ("packed_bg", packed_bg, torch.int32),
-                           ("tex_packed", tex_packed, torch.int32)):
+def _check_tensors(dev, **named):
+    """Each named (tensor, dtype) pair, None tensors skipped: of that
+    dtype, on ``dev``, contiguous."""
+    for name, (t, dtype) in named.items():
         if t is None:
             continue
         if t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, table on {dev}")
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if sorted_pad.dim() != 1 or sorted_pad.shape[0] == 0:
-        raise ValueError(f"sorted_pad must be a non-empty 1-D array, got "
-                         f"{tuple(sorted_pad.shape)}")
-    if starts.dim() != 1 or counts.shape != starts.shape:
-        raise ValueError(f"starts {tuple(starts.shape)} and counts "
-                         f"{tuple(counts.shape)} must be the same (NT,)")
-    if table.dim() != 2 or table.shape[1] != ROW_W or table.shape[0] < 1:
-        raise ValueError(f"table must be (F + 1, {ROW_W}), got "
-                         f"{tuple(table.shape)}")
-    if packed_bg is not None and packed_bg.shape != (1,):
-        raise ValueError(f"packed_bg must be (1,), got "
-                         f"{tuple(packed_bg.shape)}")
+
+
+def _check_tile(tile_w: int, tile_h: int):
     if not 0 < tile_w * tile_h <= MAX_P:
         raise ValueError(f"tile {tile_w}x{tile_h} must hold 1..{MAX_P} "
                          f"pixels")
+
+
+def _check_runs(ids, starts, counts, rows, ids_name, rows_name):
+    """One frame: ids (S,), starts and counts (NT,), rows (N, ROW_W); or
+    B frames, each with a leading B (None tensors skipped)."""
+    lead = tuple(counts.shape[:-1])
+    if counts.dim() not in (1, 2):
+        raise ValueError(f"counts must be (NT,) or (B, NT), got "
+                         f"{tuple(counts.shape)}")
+    if starts is not None and starts.shape != counts.shape:
+        raise ValueError(f"starts {tuple(starts.shape)} and counts "
+                         f"{tuple(counts.shape)} must be the same shape")
+    if ids is not None and (ids.dim() != len(lead) + 1
+                            or tuple(ids.shape[:-1]) != lead
+                            or ids.shape[-1] == 0):
+        raise ValueError(f"{ids_name} must be a non-empty (S,) or (B, S) "
+                         f"array matching counts {tuple(counts.shape)}, "
+                         f"got {tuple(ids.shape)}")
+    if (rows.dim() != len(lead) + 2 or tuple(rows.shape[:-2]) != lead
+            or rows.shape[-1] != ROW_W or rows.shape[-2] < 1):
+        raise ValueError(f"{rows_name} must be (N, {ROW_W}) or "
+                         f"(B, N, {ROW_W}) matching counts "
+                         f"{tuple(counts.shape)}, got {tuple(rows.shape)}")
+
+
+def _check_inputs(sorted_pad, starts, counts, table, tile_w, tile_h,
+                  packed_bg=None, tex_packed=None, tex_dims=None):
+    """The pair walk's inputs (one frame or B frames) and an epilogue's."""
+    _check_tensors(table.device, sorted_pad=(sorted_pad, torch.int32),
+                   starts=(starts, torch.int32),
+                   counts=(counts, torch.int32),
+                   table=(table, torch.float32),
+                   packed_bg=(packed_bg, torch.int32),
+                   tex_packed=(tex_packed, torch.int32))
+    _check_runs(sorted_pad, starts, counts, table, "sorted_pad", "table")
+    if packed_bg is not None and packed_bg.shape != (1,):
+        raise ValueError(f"packed_bg must be (1,), got "
+                         f"{tuple(packed_bg.shape)}")
+    _check_tile(tile_w, tile_h)
     if tex_dims is not None:
         th, tw = tex_dims
         if th < 1 or tw < 1:
@@ -170,10 +223,11 @@ def _on_cpu(table, kernel: str) -> bool:
     return False
 
 
-def _launch(entry: str, sorted_pad, starts, counts, table, width: int,
+def _launch(entry: str, ids, starts, counts, nt: int, table, width: int,
             tile_w: int, tile_h: int, z_clip: bool, *epilogue) -> None:
-    """Launch ``entry`` of csrc/tile_raster.cu on the current stream: the
-    walk's arguments, then the epilogue's (ints and tensors)."""
+    """Launch ``entry`` of csrc/tile_raster.cu on the current stream over
+    ``counts.numel()`` tiles, ``nt`` a frame: the walk's arguments (ids
+    or starts may be None), then the epilogue's (ints and tensors)."""
     from . import _kernels
     dev = table.device
     ntx = (width + tile_w - 1) // tile_w
@@ -182,10 +236,11 @@ def _launch(entry: str, sorted_pad, starts, counts, table, width: int,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _kernels.launch_tile_raster(
-            entry, sorted_pad.data_ptr(), sorted_pad.shape[0],
-            starts.data_ptr(), counts.data_ptr(), starts.shape[0],
-            table.data_ptr(), table.shape[0], ntx, tile_w, tile_h,
-            int(z_clip), *epi, stream)
+            entry, 0 if ids is None else ids.data_ptr(),
+            0 if ids is None else ids.shape[-1],
+            0 if starts is None else starts.data_ptr(), counts.data_ptr(),
+            counts.numel(), nt, table.data_ptr(), table.shape[-2], ntx,
+            tile_w, tile_h, int(z_clip), *epi, stream)
 
 
 def raster_tiles_flat_u8(sorted_pad, starts, counts, table, packed_bg,
@@ -195,7 +250,8 @@ def raster_tiles_flat_u8(sorted_pad, starts, counts, table, packed_bg,
     (NT, P) with P = tile_w * tile_h.  Counterpart of
     ``render_binned_pallas_flat_u8`` (``pallas_raster.py:953-1007``) up to
     the detile, taking ``starts``/``counts`` directly (no TPU block
-    windows).
+    windows).  B frames at once (sorted_pad (B, Spad), starts and counts
+    (B, NT), table (B, F + 1, ROW_W)) give (B, NT, P) in one launch.
 
     For tile t and slot p at pixel (ox + p % tile_w, oy + p // tile_w),
     walk the run ``sorted_pad[starts[t] : starts[t] + counts[t]]`` in
@@ -215,10 +271,11 @@ def raster_tiles_flat_u8(sorted_pad, starts, counts, table, packed_bg,
         return raster_tiles_flat_u8_reference(
             sorted_pad, starts, counts, table, packed_bg, width, tile_w,
             tile_h, opaque=opaque, z_clip=z_clip)
-    out = torch.empty((starts.shape[0], tile_w * tile_h), dtype=torch.int32,
+    out = torch.empty(counts.shape + (tile_w * tile_h,), dtype=torch.int32,
                       device=table.device)
-    _launch("tile_raster_u8", sorted_pad, starts, counts, table, width,
-            tile_w, tile_h, z_clip, packed_bg, int(opaque), out)
+    _launch("tile_raster_u8", sorted_pad, starts, counts, counts.shape[-1],
+            table, width, tile_w, tile_h, z_clip, packed_bg, int(opaque),
+            out)
     raster_tiles_flat_u8.launches += 1
     return out
 
@@ -258,10 +315,11 @@ def raster_tiles_tex_u8(sorted_pad, starts, counts, table, tex_packed,
             sorted_pad, starts, counts, table, tex_packed, tex_dims,
             packed_bg, width, tile_w, tile_h, z_clip=z_clip)
     th, tw = tex_dims
-    out = torch.empty((starts.shape[0], P), dtype=torch.int32,
+    out = torch.empty(counts.shape + (P,), dtype=torch.int32,
                       device=table.device)
-    _launch("tile_raster_tex_u8", sorted_pad, starts, counts, table, width,
-            tile_w, tile_h, z_clip, tex_packed, tw, th, packed_bg, out)
+    _launch("tile_raster_tex_u8", sorted_pad, starts, counts,
+            counts.shape[-1], table, width, tile_w, tile_h, z_clip,
+            tex_packed, tw, th, packed_bg, out)
     raster_tiles_tex_u8.launches += 1
     return out
 
@@ -286,10 +344,11 @@ def raster_tiles_tex_idx(sorted_pad, starts, counts, table, tex_dims,
             sorted_pad, starts, counts, table, tex_dims, width, tile_w,
             tile_h, z_clip=z_clip)
     th, tw = tex_dims
-    out = torch.empty((starts.shape[0], tile_w * tile_h), dtype=torch.int32,
+    out = torch.empty(counts.shape + (tile_w * tile_h,), dtype=torch.int32,
                       device=table.device)
-    _launch("tile_raster_tex_idx", sorted_pad, starts, counts, table, width,
-            tile_w, tile_h, z_clip, tw, th, out)
+    _launch("tile_raster_tex_idx", sorted_pad, starts, counts,
+            counts.shape[-1], table, width, tile_w, tile_h, z_clip, tw, th,
+            out)
     raster_tiles_tex_idx.launches += 1
     return out
 
@@ -304,24 +363,111 @@ def raster_tiles_keys_f32(sorted_pad, starts, counts, table, width: int,
     (int(z * Z_LEVELS) << IDX_BITS) | run slot, SKY_KEY where no triangle
     covers the pixel; channel d is (e0 a0d + e1 a1d) + e2 a2d of the
     winner, 0 for sky (the JAX accumulators start at zero and a chunk
-    without cover leaves them, ``pallas_raster.py:597-599``)."""
+    without cover leaves them, ``pallas_raster.py:597-599``).  B frames
+    (a leading B on each input) give (B, NT, P) and (B, NT, D, P) in one
+    launch."""
     _check_inputs(sorted_pad, starts, counts, table, tile_w, tile_h)
     if _on_cpu(table, "K2a"):
         return raster_tiles_keys_f32_reference(
             sorted_pad, starts, counts, table, width, tile_w, tile_h,
             z_clip=z_clip)
-    P = tile_w * tile_h
-    keys = torch.empty((starts.shape[0], P), dtype=torch.int32,
-                       device=table.device)
-    rgba = torch.empty((starts.shape[0], D, P), dtype=torch.float32,
-                       device=table.device)
-    _launch("tile_raster_keys_f32", sorted_pad, starts, counts, table, width,
-            tile_w, tile_h, z_clip, keys, rgba)
+    keys, rgba = _keys_rgba_out(counts, tile_w * tile_h, table.device)
+    _launch("tile_raster_keys_f32", sorted_pad, starts, counts,
+            counts.shape[-1], table, width, tile_w, tile_h, z_clip, keys,
+            rgba)
     raster_tiles_keys_f32.launches += 1
     return keys, rgba
 
 
 raster_tiles_keys_f32.launches = 0
+
+
+def _keys_rgba_out(counts, P: int, dev):
+    return (torch.empty(counts.shape + (P,), dtype=torch.int32, device=dev),
+            torch.empty(counts.shape + (D, P), dtype=torch.float32,
+                        device=dev))
+
+
+def raster_tiles_bins_f32(bins, counts, table, width: int, tile_w: int,
+                          tile_h: int):
+    """Kernel K5: K2a's outputs (keys (NT, P) int32, rgba (NT, D, P)
+    float32) with each tile's rows named by its bins row — counterpart of
+    ``raster_tiles`` (``pallas_raster.py:1396-1442``).
+
+    bins (NT, K) int32 triangle ids, NO_TRI slots already remapped to the
+    table's NaN pad row; counts (NT,) int32; table (F + 1, ROW_W).  Tile t
+    walks its slots j < min(counts[t], K) with the z test on: a run longer
+    than K (a tile the binning flagged) walks its K slots and reads
+    nothing past them.  A key's low IDX_BITS are the BIN SLOT j, as in
+    the JAX kernel.  B frames at once (bins (B, NT, K), counts (B, NT),
+    table (B, F + 1, ROW_W)) give (B, NT, P) and (B, NT, D, P) in one
+    launch.
+
+    CUDA tensors launch the kernel on the current stream (no sync);
+    CPU tensors run :func:`raster_tiles_bins_f32_reference`."""
+    _check_tensors(table.device, bins=(bins, torch.int32),
+                   counts=(counts, torch.int32),
+                   table=(table, torch.float32))
+    if bins.shape[:-1] != counts.shape or bins.shape[-1] == 0:
+        raise ValueError(f"bins must be counts' shape {tuple(counts.shape)} "
+                         f"plus K > 0 slots, got {tuple(bins.shape)}")
+    _check_runs(None, None, counts, table, "bins", "table")
+    _check_tile(tile_w, tile_h)
+    if _on_cpu(table, "K5"):
+        return raster_tiles_bins_f32_reference(bins, counts, table, width,
+                                               tile_w, tile_h)
+    keys, rgba = _keys_rgba_out(counts, tile_w * tile_h, table.device)
+    _launch("tile_raster_bins_f32", bins, None, counts, counts.shape[-1],
+            table, width, tile_w, tile_h, True, keys, rgba)
+    raster_tiles_bins_f32.launches += 1
+    return keys, rgba
+
+
+raster_tiles_bins_f32.launches = 0
+
+
+def raster_tiles_rows_u8(rows, starts, counts, packed_bg, width: int,
+                         tile_w: int, tile_h: int):
+    """Kernel K6: K1's opaque packed u8 values, without the z test, for
+    B frames, (B, NT, P) int32 — counterpart of ``raster_tiles_dynrows``
+    (``pallas_raster.py:1271-1299``).
+
+    rows (B, CAP, ROW_W) float32 are each frame's table rows gathered in
+    pair order, ``table[sorted_pad[:CAP] & IDX_MASK]``; starts and counts
+    (B, NT) int32.  Tile t of frame b walks rows[b, starts[b, t] + j] for
+    j < counts[b, t], reads clamped below CAP (a run past CAP is flagged
+    by the caller).  The same rows in the same order as K1's walk over
+    the pair array, so the same bits as K1 (opaque, z_clip off).  The TPU
+    kernel's g frames a program and 24 MiB operand groups were its grid
+    and compile limits: one launch covers the batch, one block a tile.
+
+    CUDA tensors launch the kernel on the current stream (no sync);
+    CPU tensors run :func:`raster_tiles_rows_u8_reference`."""
+    _check_tensors(rows.device, rows=(rows, torch.float32),
+                   starts=(starts, torch.int32),
+                   counts=(counts, torch.int32),
+                   packed_bg=(packed_bg, torch.int32))
+    if counts.dim() != 2:
+        raise ValueError(f"rows, starts and counts must carry a batch: "
+                         f"(B, CAP, {ROW_W}), (B, NT), (B, NT)")
+    _check_runs(None, starts, counts, rows, "", "rows")
+    if packed_bg.shape != (1,):
+        raise ValueError(f"packed_bg must be (1,), got "
+                         f"{tuple(packed_bg.shape)}")
+    _check_tile(tile_w, tile_h)
+    if _on_cpu(rows, "K6"):
+        return raster_tiles_rows_u8_reference(rows, starts, counts,
+                                              packed_bg, width, tile_w,
+                                              tile_h)
+    out = torch.empty(counts.shape + (tile_w * tile_h,), dtype=torch.int32,
+                      device=rows.device)
+    _launch("tile_raster_rows_u8", None, starts, counts, counts.shape[-1],
+            rows, width, tile_w, tile_h, False, packed_bg, 1, out)
+    raster_tiles_rows_u8.launches += 1
+    return out
+
+
+raster_tiles_rows_u8.launches = 0
 
 
 def _edges(r, X, Y):
@@ -331,52 +477,75 @@ def _edges(r, X, Y):
             for i in range(3)]
 
 
-def _walk(sorted_pad, starts, counts, table, width: int, tile_w: int,
-          tile_h: int, z_clip: bool):
-    """The min-key walk the four plain versions share, vectorised over
-    tiles and pixels: the minimum key over each run, found ``REF_CHUNK``
-    slots at a time; then the winner's row fetched again and its edge
-    values recomputed.  Every quantity is the kernel's expression in the
-    kernel's order, so the recomputed edge values equal those of the
-    walk.  Returns (best keys (NT, P) int32, winner rows (NT, P, ROW_W),
-    winner edge values [e0, e1, e2]); a sky pixel's row and edge values
-    are those of slot 0 and mean nothing."""
-    nt = starts.shape[0]
+def _walk(n_walk, rows_at, nt: int, width: int, tile_w: int, tile_h: int,
+          z_clip: bool):
+    """The min-key walk the plain versions share, vectorised over tiles
+    and pixels: ``n_walk`` (NB,) slots of each of NB = B * nt tiles (tile
+    b is tile b % nt of frame b // nt), ``rows_at(tiles, slots)`` the
+    rows (n, ..., ROW_W) of those slots of those tiles — the row source.
+    The minimum key over each run is found ``REF_CHUNK`` slots at a time,
+    over the tiles whose run reaches the chunk; then the winner's row is
+    fetched again and its edge values recomputed.  Every quantity is the
+    kernel's expression in the kernel's order, so the recomputed edge
+    values equal those of the walk.  Returns (best keys (NB, P) int32,
+    winner rows (NB, P, ROW_W), winner edge values [e0, e1, e2]); a sky
+    pixel's row and edge values are those of slot 0 and mean nothing."""
+    nb = n_walk.shape[0]
     P = tile_w * tile_h
     ntx = (width + tile_w - 1) // tile_w
-    dev = table.device
+    dev = n_walk.device
     i32 = torch.int32
-    last_slot = sorted_pad.shape[0] - 1
-    last_row = table.shape[0] - 1
-    t = torch.arange(nt, dtype=i32, device=dev)
+    b = torch.arange(nb, device=dev)
+    t = (b % nt).to(i32)
     p = torch.arange(P, dtype=i32, device=dev)
     X = ((t % ntx * tile_w)[:, None] + p % tile_w).to(torch.float32)
     Y = ((t // ntx * tile_h)[:, None] + p // tile_w).to(torch.float32)
 
-    def rows_at(slots):
-        idx = (starts.reshape((nt,) + (1,) * (slots.dim() - 1))
-               + slots).clamp(max=last_slot).long()
-        tri = (sorted_pad[idx] & IDX_MASK).clamp(max=last_row)
-        return table[tri.long()]
-
-    best = torch.full((nt, P), SKY_KEY, dtype=i32, device=dev)
-    kmax = int(counts.max()) if nt else 0
+    best = torch.full((nb, P), SKY_KEY, dtype=i32, device=dev)
+    kmax = int(n_walk.max()) if nb else 0
     for base in range(0, kmax, REF_CHUNK):
+        act = torch.nonzero(n_walk > base).squeeze(1)
         j = base + torch.arange(REF_CHUNK, dtype=i32, device=dev)  # (ck,)
-        r = rows_at(j[None, :])[:, :, None, :]          # (NT, ck, 1, 32)
-        e0, e1, e2 = _edges(r, X[:, None, :], Y[:, None, :])  # (NT, ck, P)
+        r = rows_at(act, j.expand(act.shape[0], -1))[:, :, None, :]
+        e0, e1, e2 = _edges(r, X[act][:, None, :], Y[act][:, None, :])
         zz = e0 * r[..., 9] + e1 * r[..., 10] + e2 * r[..., 11]
         cov = (e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0)
         if z_clip:
             cov = cov & (zz >= 0.0) & (zz <= 1.0)
-        cov = cov & (j[None, :] < counts[:, None])[..., None]
+        cov = cov & (j[None, :] < n_walk[act, None])[..., None]
         keys = ((zz * Z_LEVELS).to(i32) << IDX_BITS) | j[None, :, None]
         keys = torch.where(cov, keys, SKY_KEY)
-        best = torch.minimum(best, keys.amin(dim=1))
+        best[act] = torch.minimum(best[act], keys.amin(dim=1))
 
     slot = torch.where(best != SKY_KEY, best & IDX_MASK, 0)
-    r = rows_at(slot)                                    # (NT, P, 32)
+    r = rows_at(b, slot)                                 # (NB, P, 32)
     return best, r, _edges(r, X, Y)
+
+
+def _frame_of(tiles, nt: int, slots):
+    """Each tile's frame, shaped to broadcast against ``slots``."""
+    return (tiles // nt).reshape((-1,) + (1,) * (slots.dim() - 1))
+
+
+def _pairs_walk(sorted_pad, starts, counts, table, width, tile_w, tile_h,
+                z_clip):
+    """:func:`_walk` over the sorted pair array (K1, K3, K2b, K2a), one
+    frame or B frames (leading B); outputs keep the leading shape."""
+    nt = counts.shape[-1]
+    spad, nrows = sorted_pad.shape[-1], table.shape[-2]
+    sp = sorted_pad.reshape(-1)
+    st = starts.reshape(-1)
+    tb = table.reshape(-1, ROW_W)
+
+    def rows_at(tiles, slots):
+        f = _frame_of(tiles, nt, slots)
+        idx = (st[tiles].reshape(f.shape) + slots).clamp(max=spad - 1)
+        tri = (sp[f * spad + idx] & IDX_MASK).clamp(max=nrows - 1)
+        return tb[f * nrows + tri]
+
+    best, r, e = _walk(counts.reshape(-1), rows_at, nt, width, tile_w,
+                       tile_h, z_clip)
+    return best.reshape(counts.shape + best.shape[1:]), r, e
 
 
 def _channel(r, e, d: int):
@@ -399,17 +568,32 @@ def _texel_index(r, e, tex_dims):
     return vi * tw + ui
 
 
+def _u8_epilogue(best, r, e, packed_bg, opaque: bool):
+    """K1's and K6's packed u8 RGBA of the winners, packed bg for sky."""
+    q = [_quant_u8(_channel(r, e, d)) for d in range(3 if opaque else 4)]
+    a8 = _ALPHA_255 if opaque else q[3] << 24
+    packed = q[0] | (q[1] << 8) | (q[2] << 16) | a8
+    return torch.where(best != SKY_KEY, packed.reshape(best.shape),
+                       packed_bg)
+
+
+def _keys_f32_epilogue(best, r, e):
+    """K2a's and K5's outputs: the keys, and each attribute of the winner
+    (0 for sky) stacked as (..., D, P)."""
+    hit = best != SKY_KEY
+    rgba = torch.stack([torch.where(hit, _channel(r, e, d).reshape(
+        best.shape), 0.0) for d in range(D)], dim=-2)
+    return best, rgba
+
+
 def raster_tiles_flat_u8_reference(sorted_pad, starts, counts, table,
                                    packed_bg, width: int, tile_w: int,
                                    tile_h: int, *, opaque: bool,
                                    z_clip: bool):
     """Plain torch version of K1, same values bit for bit."""
-    best, r, e = _walk(sorted_pad, starts, counts, table, width, tile_w,
-                       tile_h, z_clip)
-    q = [_quant_u8(_channel(r, e, d)) for d in range(3 if opaque else 4)]
-    a8 = _ALPHA_255 if opaque else q[3] << 24
-    packed = q[0] | (q[1] << 8) | (q[2] << 16) | a8
-    return torch.where(best != SKY_KEY, packed, packed_bg)
+    best, r, e = _pairs_walk(sorted_pad, starts, counts, table, width,
+                             tile_w, tile_h, z_clip)
+    return _u8_epilogue(best, r, e, packed_bg, opaque)
 
 
 def raster_tiles_tex_u8_reference(sorted_pad, starts, counts, table,
@@ -417,31 +601,66 @@ def raster_tiles_tex_u8_reference(sorted_pad, starts, counts, table,
                                   width: int, tile_w: int, tile_h: int, *,
                                   z_clip: bool):
     """Plain torch version of K3, same values bit for bit."""
-    best, r, e = _walk(sorted_pad, starts, counts, table, width, tile_w,
-                       tile_h, z_clip)
+    best, r, e = _pairs_walk(sorted_pad, starts, counts, table, width,
+                             tile_w, tile_h, z_clip)
     texel = tex_packed[_texel_index(r, e, tex_dims).long()]
-    return torch.where(best != SKY_KEY, texel, packed_bg)
+    return torch.where(best != SKY_KEY, texel.reshape(best.shape),
+                       packed_bg)
 
 
 def raster_tiles_tex_idx_reference(sorted_pad, starts, counts, table,
                                    tex_dims, width: int, tile_w: int,
                                    tile_h: int, *, z_clip: bool):
     """Plain torch version of K2b, same values bit for bit."""
-    best, r, e = _walk(sorted_pad, starts, counts, table, width, tile_w,
-                       tile_h, z_clip)
-    return torch.where(best != SKY_KEY, _texel_index(r, e, tex_dims), -1)
+    best, r, e = _pairs_walk(sorted_pad, starts, counts, table, width,
+                             tile_w, tile_h, z_clip)
+    return torch.where(best != SKY_KEY,
+                       _texel_index(r, e, tex_dims).reshape(best.shape), -1)
 
 
 def raster_tiles_keys_f32_reference(sorted_pad, starts, counts, table,
                                     width: int, tile_w: int, tile_h: int,
                                     *, z_clip: bool):
     """Plain torch version of K2a, same values bit for bit."""
-    best, r, e = _walk(sorted_pad, starts, counts, table, width, tile_w,
-                       tile_h, z_clip)
-    hit = best != SKY_KEY
-    rgba = torch.stack([torch.where(hit, _channel(r, e, d), 0.0)
-                        for d in range(D)], dim=1)
-    return best, rgba
+    best, r, e = _pairs_walk(sorted_pad, starts, counts, table, width,
+                             tile_w, tile_h, z_clip)
+    return _keys_f32_epilogue(best, r, e)
+
+
+def raster_tiles_bins_f32_reference(bins, counts, table, width: int,
+                                    tile_w: int, tile_h: int):
+    """Plain torch version of K5, same values bit for bit."""
+    nt, K, nrows = counts.shape[-1], bins.shape[-1], table.shape[-2]
+    bn = bins.reshape(-1, K)
+    tb = table.reshape(-1, ROW_W)
+
+    def rows_at(tiles, slots):
+        f = _frame_of(tiles, nt, slots)
+        tri = bn[tiles.reshape(f.shape), slots.clamp(max=K - 1)]
+        return tb[f * nrows + tri.clamp(0, nrows - 1)]
+
+    best, r, e = _walk(counts.reshape(-1).clamp(max=K), rows_at, nt, width,
+                       tile_w, tile_h, True)
+    return _keys_f32_epilogue(best.reshape(counts.shape + best.shape[1:]), r,
+                              e)
+
+
+def raster_tiles_rows_u8_reference(rows, starts, counts, packed_bg,
+                                   width: int, tile_w: int, tile_h: int):
+    """Plain torch version of K6, same values bit for bit."""
+    nt, cap = counts.shape[-1], rows.shape[-2]
+    st = starts.reshape(-1)
+    rw = rows.reshape(-1, ROW_W)
+
+    def rows_at(tiles, slots):
+        f = _frame_of(tiles, nt, slots)
+        idx = (st[tiles].reshape(f.shape) + slots).clamp(max=cap - 1)
+        return rw[f * cap + idx]
+
+    best, r, e = _walk(counts.reshape(-1), rows_at, nt, width, tile_w,
+                       tile_h, False)
+    return _u8_epilogue(best.reshape(counts.shape + best.shape[1:]), r, e,
+                        packed_bg, True)
 
 
 def render_binned_pallas_flat(sorted_pad, starts, counts, table, bg,
@@ -459,6 +678,34 @@ def render_binned_pallas_flat(sorted_pad, starts, counts, table, bg,
                             table.dtype)
 
 
+def render_binned_pallas_flat_batch(sorted_pads, starts, counts, tables, bg,
+                                    width: int, height: int, tile_w: int,
+                                    tile_h: int):
+    """B frames of :func:`render_binned_pallas_flat` in one K2a launch:
+    sorted_pads (B, Spad), starts and counts (B, NT), tables
+    (B, F + 1, ROW_W) -> (keys (B, H, W), rgba (B, H, W, D)) —
+    counterpart of ``pallas_raster.render_binned_pallas_flat_batch``
+    (``:1354-1392``)."""
+    keys, rgba = raster_tiles_keys_f32(sorted_pads, starts, counts, tables,
+                                       width, tile_w, tile_h, z_clip=True)
+    return detile_keys_rgba(keys, rgba, width, height, tile_w, tile_h, bg,
+                            tables.dtype)
+
+
+def render_binned_pallas_flat_batch_u8(sorted_pads, starts, counts, tables,
+                                       bg, width: int, height: int,
+                                       tile_w: int, tile_h: int, *,
+                                       opaque: bool = False,
+                                       z_clip: bool = True):
+    """B frames through K1 in one launch, detiled: (B, H, W, 4) uint8 —
+    counterpart of ``pallas_raster.render_binned_pallas_flat_batch_u8``
+    (``:1010-1045``); inputs as :func:`render_binned_pallas_flat_batch`."""
+    packed = raster_tiles_flat_u8(sorted_pads, starts, counts, tables,
+                                  pack_bg(bg), width, tile_w, tile_h,
+                                  opaque=opaque, z_clip=z_clip)
+    return detile_packed(packed, width, height, tile_w, tile_h)
+
+
 def render_binned_tex_idx_batch(sorted_pads, starts, counts, tables,
                                 width: int, height: int, tile_w: int,
                                 tile_h: int, tex_dims):
@@ -473,3 +720,61 @@ def render_binned_tex_idx_batch(sorted_pads, starts, counts, tables,
                                            tile_w, tile_h, z_clip=True),
                       width, height, tile_w, tile_h)
         for sp, st, cn, tb in zip(sorted_pads, starts, counts, tables)])
+
+
+def render_binned_pallas(bins, counts, A, B, C, zplane_scaled, inv_area,
+                         sign, valid, attrs, bg, width: int, height: int,
+                         tile_w: int, tile_h: int, return_ids: bool = False):
+    """Binned raster through K5 — counterpart of
+    ``pallas_raster.render_binned_pallas`` (``:1559-1610``): the row table
+    of the triangles, bins (NT, K) from ``raster3d.bin_triangles`` with
+    NO_TRI slots sent to its pad row, one K5 launch, the detile.  Returns
+    (keys (H, W) int32, rgba (H, W, D) in A's dtype, bg where sky).  The
+    key's id bits are the tile's BIN SLOT, or with ``return_ids`` the
+    global triangle id.  The JAX entry's ``kcc`` sized the TPU kernel's
+    triangle chunk and is not a parameter."""
+    K = bins.shape[1]
+    table = build_table(A, B, C, zplane_scaled, inv_area, sign, valid, attrs)
+    safe = torch.where(bins == NO_TRI, A.shape[0], bins)
+    keys, rgba = raster_tiles_bins_f32(safe, counts, table, width, tile_w,
+                                       tile_h)
+    if return_ids:
+        # bin slots -> global triangle ids (pallas_raster.py:1588-1595)
+        slot = keys & IDX_MASK
+        gid = torch.gather(safe, 1, slot.clamp(max=K - 1).long())
+        keys = torch.where(slot != NO_TRI, (keys & ~IDX_MASK) | gid,
+                           SKY_KEY)
+    return detile_keys_rgba(keys, rgba, width, height, tile_w, tile_h, bg,
+                            A.dtype)
+
+
+def render_binned_pallas_batch(bins, counts, tables, bg, width: int,
+                               height: int, tile_w: int, tile_h: int):
+    """B frames through K5 in one launch — counterpart of
+    ``pallas_raster.render_binned_pallas_batch`` (``:1526-1556``).  bins
+    (B, NT, K) with NO_TRI already sent to the pad row, counts (B, NT),
+    tables (B, F + 1, ROW_W); each frame's tiles read its own table.
+    Returns (keys (B, H, W) int32, rgba (B, H, W, D) in the tables'
+    dtype, bg where sky)."""
+    keys, rgba = raster_tiles_bins_f32(bins, counts, tables, width, tile_w,
+                                       tile_h)
+    return detile_keys_rgba(keys, rgba, width, height, tile_w, tile_h, bg,
+                            tables.dtype)
+
+
+def render_binned_dynrows_batch_u8(rows, starts, counts, bg, width: int,
+                                   height: int, tile_w: int, tile_h: int,
+                                   g: int = 1):
+    """B frames through K6 in one launch, detiled: (B, H, W, 4) uint8 —
+    counterpart of ``pallas_raster.render_binned_dynrows_batch_u8``
+    (``:1302-1351``), bit-equal to
+    :func:`render_binned_pallas_flat_batch_u8` (opaque, z_clip off) on
+    the same frames.  rows (B, CAP, ROW_W) from
+    ``table[sorted_pad[:CAP] & IDX_MASK]``, starts and counts (B, NT).
+    ``g``, the TPU kernel's frames a program, is accepted and changes no
+    value; its ``kcc`` is not a parameter."""
+    if g < 1:
+        raise ValueError(f"g must be >= 1, got {g}")
+    packed = raster_tiles_rows_u8(rows, starts, counts, pack_bg(bg), width,
+                                  tile_w, tile_h)
+    return detile_packed(packed, width, height, tile_w, tile_h)

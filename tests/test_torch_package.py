@@ -72,8 +72,17 @@ def test_cuda_device_raises_without_a_card(monkeypatch):
     ("near_clip", True)])
 def test_tpu_knobs_raise_type_error(knob, value):
     verts, faces, colors = interop.mesh_to_torch(*_tri(), "cpu")
-    with pytest.raises(TypeError):
-        tr.render_gouraud_u8(verts, faces, colors, 16, 16, **{knob: value})
+    if knob == "near_clip":
+        # a parameter of the single-frame entry now (the JAX entry has
+        # it); the loop entry and the pipeline, like JAX's loop, do not
+        frame, ovf = tr.render_gouraud_u8(verts, faces, colors, 16, 16,
+                                          near_clip=True)
+        assert frame.shape == (16, 16, 4) and not bool(ovf)
+        assert frame[..., 3].any()
+    else:
+        with pytest.raises(TypeError):
+            tr.render_gouraud_u8(verts, faces, colors, 16, 16,
+                                 **{knob: value})
     with pytest.raises(TypeError):
         tr.render_gouraud_u8_loop(verts, faces, colors, 16, 16,
                                   torch.eye(4)[None], **{knob: value})
@@ -81,6 +90,26 @@ def test_tpu_knobs_raise_type_error(knob, value):
         port.MeshVideoPipeline(object(), 16, 16, *_tri()[:2],
                                colors=_tri()[2], device="cpu",
                                **{knob: value})
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("interpret", True), ("resident_out", True), ("mega", 8), ("wf", 8),
+    ("out8", True), ("ktail", 8), ("wide_split", True), ("mxu", 1)])
+def test_gouraud_pallas_tpu_knobs_raise_type_error(knob, value):
+    # the float entries refuse the TPU layout knobs; kcc is accepted and
+    # changes no value
+    verts, faces, colors = interop.mesh_to_torch(*_tri(), "cpu")
+    for kw in (dict(), dict(flat=True, u8=True)):
+        with pytest.raises(TypeError):
+            tr.render_gouraud_pallas(verts, faces, colors, 16, 16,
+                                     **kw, **{knob: value})
+        with pytest.raises(TypeError):
+            tr.render_gouraud_pallas_batch(verts, faces, colors, 16, 16,
+                                           torch.eye(4)[None], **kw,
+                                           **{knob: value})
+    a = tr.render_gouraud_pallas(verts, faces, colors, 16, 16, kcc=8)
+    b = tr.render_gouraud_pallas(verts, faces, colors, 16, 16)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def test_textured_pipeline_not_ported_yet():
