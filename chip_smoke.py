@@ -1,6 +1,6 @@
 """On-card smoke run of the PyTorch port: the mesh -> u8 frame path, the
-2D canvas, the textured mesh -> u8 frame path and the float/depth
-Gouraud rasterizer.
+2D canvas, the textured mesh -> u8 frame path, the float/depth Gouraud
+rasterizer and the wf= and mxu= routes of the u8 entries.
 
     python3 chip_smoke.py
 
@@ -8,10 +8,11 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and nvcc;
 imports nothing of JAX.  Phases, one line each (or a few), any failure
 raising:
   1. device: the card, and its name and power limit from nvidia-smi;
-  2. build: K1, K3, K2b, K2a, K5, K6 (csrc/tile_raster.cu) and K4
-     (csrc/canvas_span.cu) compiled from the checkout, one nvcc each,
-     started together; ptxas registers and spills for each
-     instantiation;
+  2. build: K1, K3, K2b, K2a, K5, K6, K1-wf, K1-mxu
+     (csrc/tile_raster.cu) and K4 (csrc/canvas_span.cu) compiled from the
+     checkout, one nvcc each, started together; ptxas registers and
+     spills for each instantiation (phase 16 adds the count of HMMA
+     instructions in the library's SASS, from cuobjdump);
   3. k1 vs plain: the per-frame prep of mesh_10k at 1920x1080 (tiles
      32x32, span (5, 3), capacity 1024) for 4 cameras (opaque, no z test)
      and one of them again with opaque=False, z_clip=True, fed to K1 and
@@ -99,7 +100,29 @@ raising:
      launch and the plain versions, ms/frame (CUDA events) beside each
      bound; render_gouraud_pallas frames/s (host clock), the device time
      by kernel, host launches a frame and the busy share (profiler, 16
-     frames), peak device memory.
+     frames), peak device memory;
+ 16. wf / mxu vs plain: at 1920x1080 on mesh_10k for the 4 cameras, K1-wf
+     against its plain version and K1, bit-equal, at render_gouraud_u8's
+     defaults (128x16, capacity 512, span (8, 8)) and at the video shape
+     (32x32, span (5, 3), capacity 1024, opaque, no z test), for wf in 1, 8
+     and NT, one frame a launch and the 4 frames in one launch; K1-mxu
+     (mxu=1 and 2, opaque and not) against its plain version and mxu=1
+     against K1 (K1-wf's mxu walk bit-equal to K1-mxu's), the shares of
+     differing pixels and of pixels off by more than 1 level printed and
+     held to MXU_SHARE and MXU_BIG_SHARE; K3's mxu walk on bench.py's
+     textured mesh_10k (perspective-correct and affine) against its plain
+     version and K3, the same texel on at least TEX_SAME_SHARE of the
+     pixels; then the entries, each kernel's launches counted from zero:
+     render_gouraud_pallas(flat, u8, wf=8) and (mxu=1) on the 4 frames, one
+     launch a frame, frame 0 card against CPU (wf bit-equal, mxu within the
+     budget), render_gouraud_pallas_batch(mxu=1) one launch and equal to
+     the single frames, render_textured_u8_batch(mxu=1) one launch, frame 0
+     against the CPU;
+ 17. wf / mxu times: K1-wf (wf 1, 8, NT) and K1-mxu (mxu 1, 2), one frame
+     a launch and batched, beside K1's single and batched launches, at
+     the video shape and the entries' defaults; K3's mxu walk beside K3;
+     the plain versions; bounds (K1-mxu's the larger of its tensor-core
+     work at the dense bf16 peak and its CUDA-core work).
 The line before the last is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}.
 """
@@ -1255,6 +1278,399 @@ def gouraud_phases(dev, card: str) -> list:
              "bound_by": bounds["K6"][1], "library_ms": None}]
 
 
+# K1-mxu's operations, counted from csrc/tile_raster.cu: per (pixel,
+# triangle) the product's 8 planes x 16 terms x 2 on the tensor cores, and
+# on the CUDA cores K1's walk without its plane evaluation (3 coverage
+# compares, the z quantisation, the key, the running minimum: 9); per
+# pixel slot the u8 epilogue without its attribute sums (K1's 35 less 3
+# x 5) or K3's (32 less 3 x 5)
+MMA_OPS_PER_PAIR = 8 * 16 * 2
+MXU_OPS_PER_PAIR = K1_OPS_PER_PAIR - 17
+MXU_U8_EPI_OPS, MXU_TEX_EPI_OPS = U8_EPI_OPS - 15, K3_EPI_OPS - 15
+# dense bf16 on the tensor cores (NVIDIA's data sheet, H100 SXM, 700 W)
+PEAK_BF16_S = 989e12
+# K1-mxu against its plain version and mxu=1 against K1: JAX's budget of
+# its mxu walk against the FMA walk (test_pallas_raster.
+# test_u8_mxu_walk_matches); textured: the same texel on at least 99 %,
+# and the hit masks equal but for a coverage flip at a knife edge on at
+# most the share allowed a change of more than one level (the tensor
+# cores' sums are not rounded to nearest, so an edge value at 0 may take
+# the other sign: 1 pixel of 8,355,840 in a first run on an H100)
+MXU_SHARE, MXU_BIG_SHARE, TEX_SAME_SHARE = 0.15, 0.002, 0.99
+
+
+def mma_bound(preps, tile, epi_ops: int, out_bytes_px: int,
+              extra_bytes: int = 0):
+    """(bound ms, 'bytes'|'operations', bytes ms, tensor-core ms,
+    CUDA-core ms, pairs) of the matrix-unit walk over these preps, the
+    mean a frame: the inputs once and the output; MMA_OPS_PER_PAIR at the
+    dense bf16 peak, MXU_OPS_PER_PAIR and ``epi_ops`` a slot at the
+    float32 rate."""
+    p = tile["tile_w"] * tile["tile_h"]
+    byte_s, tc_s, cc_s, pairs = [], [], [], []
+    for sorted_pad, starts, counts, table, *_ in preps:
+        n = int(counts.sum())
+        slots = starts.numel() * p
+        byte_s.append((4 * (table.numel() + n + 2 * starts.numel())
+                       + extra_bytes + out_bytes_px * slots) / MEM_BYTES_S)
+        tc_s.append(n * p * MMA_OPS_PER_PAIR / PEAK_BF16_S)
+        cc_s.append((n * p * MXU_OPS_PER_PAIR + slots * epi_ops)
+                    / PEAK_OPS_S[torch.float32])
+        pairs.append(n)
+    b, tc, cc = (1e3 * float(np.mean(x)) for x in (byte_s, tc_s, cc_s))
+    return (max(b, tc, cc), "bytes" if b >= max(tc, cc) else "operations",
+            b, tc, cc, pairs)
+
+
+def u8_shares(got, want):
+    """(share of pixels differing, share by more than one level, max
+    |delta|) of two packed u8 outputs."""
+    from libnativecpurenderer_tpu_torch.ops.tile_raster import tiles_u8
+    d = (tiles_u8(got).int() - tiles_u8(want).int()).abs().amax(-1)
+    return (float((d > 0).float().mean()), float((d > 1).float().mean()),
+            int(d.max()))
+
+
+def sass_mma_count(_kernels) -> str:
+    """HMMA instructions in the built tile_raster library's SASS, from
+    cuobjdump where the toolkit has it."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        out = subprocess.run([tool, "--dump-sass",
+                              str(_kernels.build("tile_raster"))],
+                             capture_output=True, text=True, timeout=300)
+    except OSError:
+        return "not measured (no cuobjdump)"
+    if out.returncode:
+        return f"not measured (cuobjdump rc {out.returncode})"
+    n = sum("HMMA" in ln for ln in out.stdout.splitlines())
+    if not n:
+        raise AssertionError("the tile_raster library holds no HMMA "
+                             "instruction")
+    return f"{n} HMMA instructions"
+
+
+def wf_mxu_phases(dev, card: str) -> list:
+    """Phases 16-17: K1-wf against its plain version and K1, K1-mxu and
+    K3's matrix-unit walk against their plain versions and the default
+    walk, the wf= and mxu= routes of the entries, card against CPU, and
+    their times; returns the three kernels' entries of the kernel table."""
+    from libnativecpurenderer_tpu_torch import interop
+    from libnativecpurenderer_tpu_torch.models import mesh
+    from libnativecpurenderer_tpu_torch.ops import _kernels, raster3d
+    from libnativecpurenderer_tpu_torch.ops import tile_raster as tr
+
+    verts_np, faces_np, colors_np = mesh.mesh_10k()
+    verts, faces, colors = interop.mesh_to_torch(verts_np, faces_np,
+                                                 colors_np, dev)
+    pre = (raster3d.pregather_mesh(verts, faces), colors[faces])
+    cams = [camera(mesh, k, 0.45) for k in range(4)]
+    mvps = torch.from_numpy(np.stack(cams)).to(dev)
+    k1, wf_k, mxu_k, tex_k = (tr.raster_tiles_flat_u8,
+                              tr.raster_tiles_flat_u8_wf,
+                              tr.raster_tiles_flat_u8_mxu,
+                              tr.raster_tiles_tex_u8_mxu)
+    counted = (k1, wf_k, mxu_k, tex_k)
+    saved = [k.launches for k in counted]
+    print(f"[build] tile_raster SASS: {sass_mma_count(_kernels)}", flush=True)
+
+    def stacked(cfg, opaque, z_clip, mxu=0):
+        """The 4 cameras' preps at cfg: (per-frame kernel args, the 4
+        frames' args stacked)."""
+        preps = [raster3d.prepare_frame(verts, faces, colors, WIDTH, HEIGHT,
+                                        mvp, z_clip=z_clip, pre=pre, mxu=mxu,
+                                        **cfg) for mvp in mvps]
+        if any(bool(p["overflow"]) for p in preps):
+            raise AssertionError(f"a prep overflows at {cfg}")
+        keys = ("sorted_pad", "starts", "counts", "table")
+        tail = (preps[0]["packed_bg"], WIDTH, cfg["tile_w"], cfg["tile_h"])
+        one = [tuple(p[k] for k in keys) + tail for p in preps]
+        return one, tuple(torch.stack([p[k] for p in preps])
+                          for k in keys) + tail
+
+    # 16. K1-wf against its plain version and K1, bit for bit
+    gdef = defaults(raster3d.render_gouraud_u8)
+    wf_cases = {"defaults": (gdef, False, True), "video": (PROD, True, False)}
+    wf_preps = {}
+    for label, (cfg, opaque, z_clip) in wf_cases.items():
+        one, four = stacked(cfg, opaque, z_clip)
+        wf_preps[label] = (one, four)
+        kw = dict(opaque=opaque, z_clip=z_clip)
+        nt = int(four[2].shape[-1])
+        want4 = tr.raster_tiles_flat_u8_reference(*four, **kw)
+        k1_4 = k1(*four, **kw)
+        k1_1 = torch.stack([k1(*a, **kw) for a in one])
+        bad_k1 = same_bits(k1_4, want4) + same_bits(k1_1, want4)
+        for wf in (1, 8, nt):
+            got4 = wf_k(*four, wf=wf, **kw)
+            got1 = torch.stack([wf_k(*a, wf=wf, **kw) for a in one])
+            torch.cuda.synchronize()
+            bad = [same_bits(got1, want4), same_bits(got4, want4),
+                   same_bits(got1, k1_1), same_bits(got4, k1_4)]
+            print(f"[k1-wf vs plain] {label} ({cfg['tile_w']}x"
+                  f"{cfg['tile_h']}, capacity {cfg['capacity']}, span "
+                  f"({cfg['span_x']}, {cfg['span_y']}), opaque={opaque}, "
+                  f"z_clip={z_clip}, {nt} tiles a frame) wf={wf}: one frame "
+                  f"a launch / 4 frames in one launch, {bad[0]} / {bad[1]} "
+                  f"of {got4.numel()} packed pixels differ from the plain "
+                  f"version, {bad[2]} / {bad[3]} from K1's launches; K1 vs "
+                  f"plain {bad_k1}", flush=True)
+            if any(bad) or bad_k1:
+                raise AssertionError(f"K1-wf wf={wf} differs at {label}")
+
+    # K1-mxu: mxu=1 and 2, opaque and not, against its plain version, and
+    # mxu=1 against K1 on the default walk's prep; 4 frames in one launch
+    # and camera 0 alone
+    mxu_preps = {}
+    errs = {"K1-wf": 0, "K1-mxu": 0, "K3-mxu": 0}
+    for opaque in (True, False):
+        z_clip = not opaque
+        kw = dict(opaque=opaque, z_clip=z_clip)
+        base = k1(*stacked(PROD, opaque, z_clip)[1], **kw)
+        one, four = stacked(PROD, opaque, z_clip, mxu=1)
+        mxu_preps[opaque] = (one, four)
+        for mxu in (1, 2):
+            got4 = mxu_k(*four, mxu=mxu, **kw)
+            got1 = mxu_k(*one[0], mxu=mxu, **kw)
+            want4 = tr.raster_tiles_flat_u8_mxu_reference(*four, mxu=mxu,
+                                                          **kw)
+            torch.cuda.synchronize()
+            s4, s1 = u8_shares(got4, want4), u8_shares(got1, want4[0])
+            sk = u8_shares(got4, base)
+            errs["K1-mxu"] = max(errs["K1-mxu"], s4[2], s1[2])
+            print(f"[k1-mxu vs plain] mxu={mxu} opaque={opaque} z_clip="
+                  f"{z_clip} (32x32, span (5, 3), capacity 1024), 4 frames "
+                  f"in one launch / camera 0 alone: pixels differing from "
+                  f"the plain version {s4[0]} / {s1[0]}, by more than 1 "
+                  f"level {s4[1]} / {s1[1]}, max |delta| {s4[2]} / {s1[2]};"
+                  f" against K1 (the default walk): {sk[0]}, by more than "
+                  f"1 level {sk[1]}, max {sk[2]}", flush=True)
+            held = [s4, s1] + ([sk] if mxu == 1 else [])
+            if any(s[0] > MXU_SHARE or s[1] > MXU_BIG_SHARE for s in held):
+                raise AssertionError(f"K1-mxu mxu={mxu} opaque={opaque} is "
+                                     f"outside its budget")
+            # the persistent launch with the same tile body
+            bad_wf = same_bits(wf_k(*four, wf=8, mxu=mxu, **kw), got4)
+            print(f"[k1-mxu vs plain] K1-wf (wf=8) with mxu={mxu}, 4 frames "
+                  f"in one launch: {bad_wf} packed pixels differ from "
+                  f"K1-mxu's launch", flush=True)
+            if bad_wf:
+                raise AssertionError("K1-wf's mxu walk differs from K1-mxu")
+
+    # K3's matrix-unit walk on bench.py's textured mesh_10k
+    t_verts, t_faces, t_uvs, t_tex = textured_scene()
+    tv, tf, tu, tt = interop.textured_mesh_to_torch(t_verts, t_faces, t_uvs,
+                                                    t_tex, dev)
+    v4f, fuv = raster3d.pregather_mesh(tv, tf), tu[tf]
+    tex_packed = raster3d.pack_texture_u8(tt)
+    tex_dims = tuple(tt.shape[:2])
+    # a background no texel of the texture is: sky is exact
+    bgp = tr.pack_bg(torch.tensor([0.5, 0.25, 0.75, 0.0], device=dev))
+    if bool((tex_packed == bgp).any()):
+        raise AssertionError("the background is a texel")
+    tcfg = defaults(raster3d.render_textured_u8_batch)
+    tex_preps = {}
+    for persp in (True, False):
+        def tprep(mxu):
+            ps = [raster3d.prepare_textured_frame(
+                tv, tf, fuv, WIDTH, HEIGHT, mvp, perspective_correct=persp,
+                z_clip=True, v4f=v4f, mxu=mxu, **tcfg) for mvp in mvps]
+            if any(bool(p["overflow"]) for p in ps):
+                raise AssertionError("a textured prep overflows")
+            return tuple(torch.stack([p[k] for p in ps]) for k in
+                         ("sorted_pad", "starts", "counts", "table"))
+        walk, walk0 = tprep(1), tprep(0)
+        tex_preps[persp] = (walk, walk0)
+        targs = (tex_packed, tex_dims, bgp, WIDTH, tcfg["tile_w"],
+                 tcfg["tile_h"])
+        got = tex_k(*walk, *targs, z_clip=True, mxu=1)
+        want = tr.raster_tiles_tex_u8_mxu_reference(*walk, *targs,
+                                                    z_clip=True, mxu=1)
+        k3 = tr.raster_tiles_tex_u8(*walk0, *targs, z_clip=True)
+        torch.cuda.synchronize()
+        for label, other in (("its plain version", want),
+                             ("K3 (the default walk)", k3)):
+            same = float((got == other).float().mean())
+            hit_diff = int(((got == bgp) != (other == bgp)).sum())
+            hit_share = hit_diff / got.numel()
+            errs["K3-mxu"] = max(errs["K3-mxu"], u8_shares(got, other)[2]
+                                 if label.startswith("its") else 0)
+            print(f"[k3-mxu vs plain] {'perspective' if persp else 'affine'}"
+                  f", 4 frames in one launch ({tcfg}): against {label} "
+                  f"{same} of the pixels the same texel, {hit_diff} "
+                  f"hit-mask pixels differ", flush=True)
+            if (same < TEX_SAME_SHARE
+                    or hit_diff / got.numel() > MXU_BIG_SHARE):
+                raise AssertionError(f"K3's mxu walk is outside its budget "
+                                     f"against {label}")
+
+    # the entries, each kernel's launches counted from zero just before
+    def run_counted(fn):
+        for k in counted:
+            k.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k.__name__: k.launches for k in counted}
+
+    cpu = interop.mesh_to_torch(verts_np, faces_np, colors_np, "cpu")
+    main = {}
+    for label, kw, kern in (("wf=8", dict(wf=8), wf_k),
+                            ("mxu=1", dict(mxu=1), mxu_k)):
+        frames, n = run_counted(lambda: [raster3d.render_gouraud_pallas(
+            verts, faces, colors, WIDTH, HEIGHT, mvp, flat=True, u8=True,
+            **kw) for mvp in mvps])
+        main[kern.__name__] = n[kern.__name__]
+        want = {k.__name__: len(cams) * (k is kern) for k in counted}
+        t0 = time.perf_counter()
+        ref, _, ovf_c = raster3d.render_gouraud_pallas(
+            *cpu, WIDTH, HEIGHT, mvps[0].cpu(), flat=True, u8=True, **kw)
+        cpu_s = time.perf_counter() - t0
+        got = frames[0][0].cpu()
+        d = (got.int() - ref.int()).abs().amax(-1)
+        share, big = float((d > 0).float().mean()), float((d > 1).float()
+                                                          .mean())
+        ovf = any(bool(o) for _, _, o in frames) or bool(ovf_c)
+        print(f"[wf/mxu main path] render_gouraud_pallas(flat, u8, {label}) "
+              f"at its defaults on {len(cams)} frames: launches {n}; frame 0 "
+              f"card vs CPU ({cpu_s:.1f} s): {share} of the pixels differ, "
+              f"{big} by more than 1 level; overflow {ovf}", flush=True)
+        if n != want or ovf or (kern is wf_k and share) or (
+                share > MXU_SHARE or big > MXU_BIG_SHARE):
+            raise AssertionError(f"render_gouraud_pallas {label} is wrong")
+    u8_kw = dict(flat=True, u8=True, opaque=True, z_clip=False, **PROD)
+    (fb, _, ovf), n = run_counted(lambda: raster3d.render_gouraud_pallas_batch(
+        verts, faces, colors, WIDTH, HEIGHT, mvps, mxu=1, **u8_kw))
+    main["raster_tiles_flat_u8_mxu"] += n["raster_tiles_flat_u8_mxu"]
+    one = torch.stack([raster3d.render_gouraud_pallas(
+        verts, faces, colors, WIDTH, HEIGHT, mvp, mxu=1, **u8_kw)[0]
+        for mvp in mvps])
+    d_b = int((fb != one).any(-1).sum())
+    print(f"[wf/mxu main path] render_gouraud_pallas_batch(flat, u8, mxu=1) "
+          f"over {len(cams)} frames: launches {n}; {d_b} pixels differ from "
+          f"render_gouraud_pallas frame by frame; overflow {bool(ovf)}",
+          flush=True)
+    if n["raster_tiles_flat_u8_mxu"] != 1 or d_b or bool(ovf):
+        raise AssertionError("the mxu batch route is wrong")
+    (tfb, tovf), n = run_counted(lambda: raster3d.render_textured_u8_batch(
+        tv, tf, tu, tt, WIDTH, HEIGHT, mvps, mxu=1))
+    main["raster_tiles_tex_u8_mxu"] = n["raster_tiles_tex_u8_mxu"]
+    t0 = time.perf_counter()
+    tcpu = interop.textured_mesh_to_torch(t_verts, t_faces, t_uvs, t_tex,
+                                          "cpu")
+    tref, _ = raster3d.render_textured_u8_batch(*tcpu, WIDTH, HEIGHT,
+                                                mvps[:1].cpu(), mxu=1)
+    cpu_s = time.perf_counter() - t0
+    same = float((tfb[0].cpu() == tref[0]).all(-1).float().mean())
+    print(f"[wf/mxu main path] render_textured_u8_batch(mxu=1) at its "
+          f"defaults {tcfg} over {len(cams)} frames: launches {n}; frame 0 "
+          f"card vs CPU ({cpu_s:.1f} s): {same} of the pixels the same; "
+          f"overflow {bool(tovf)}", flush=True)
+    if n["raster_tiles_tex_u8_mxu"] != 1 or same < TEX_SAME_SHARE or bool(
+            tovf):
+        raise AssertionError("render_textured_u8_batch(mxu=1) is wrong")
+    for k, s in zip(counted, saved):
+        k.launches = s
+    rows = {"K1-wf": (739, "raster_tiles_flat_u8_wf"),
+            "K1-mxu": (285, "raster_tiles_flat_u8_mxu"),
+            "K3-mxu": (895, "raster_tiles_tex_u8_mxu")}
+
+    # 17. times (CUDA events, ms a frame, mean of the 4 cameras), in turns
+    # beside K1's one-frame and batched launches on the same preps: at the
+    # video shape (32x32, opaque, no z test) and at the shapes of the
+    # entries' main path (render_gouraud_pallas's defaults)
+    n4 = len(cams)
+    mxu_preps["defaults"] = stacked(gdef, False, True, mxu=1)
+    mxu_preps["video"] = mxu_preps[True]
+    t, bounds, plain = {}, {}, {}
+    for label, (cfg, opaque, z_clip) in wf_cases.items():
+        one, four = wf_preps[label]
+        mone, mfour = mxu_preps[label]
+        kw = dict(opaque=opaque, z_clip=z_clip)
+        nt = int(four[2].shape[-1])
+        tl = {"K1": cuda_ms(lambda: [k1(*a, **kw) for a in one], 10) / n4,
+              "K1 batch": cuda_ms(lambda: k1(*four, **kw), 10) / n4}
+        for wf in (1, 8, nt):
+            tl[f"K1-wf {wf}"] = cuda_ms(lambda: [wf_k(*a, wf=wf, **kw)
+                                                 for a in one], 10) / n4
+            tl[f"K1-wf {wf} batch"] = cuda_ms(
+                lambda: wf_k(*four, wf=wf, **kw), 10) / n4
+        for mxu in (1, 2):
+            tl[f"K1-mxu {mxu}"] = cuda_ms(lambda: [mxu_k(*a, mxu=mxu, **kw)
+                                                   for a in mone], 10) / n4
+            tl[f"K1-mxu {mxu} batch"] = cuda_ms(
+                lambda: mxu_k(*mfour, mxu=mxu, **kw), 10) / n4
+        tl["K1 again"] = cuda_ms(lambda: [k1(*a, **kw) for a in one],
+                                 10) / n4
+        t[label] = tl
+        plain[("K1-wf", label)] = cuda_ms(
+            lambda: tr.raster_tiles_flat_u8_reference(*four, **kw), 2) / n4
+        plain[("K1-mxu", label)] = cuda_ms(
+            lambda: tr.raster_tiles_flat_u8_mxu_reference(*mfour, mxu=1,
+                                                          **kw), 2) / n4
+        bounds[("K1-wf", label)] = walk_bound(one, U8_EPI_OPS, 4, tile=cfg)
+        bounds[("K1-mxu", label)] = mma_bound(mone, cfg, MXU_U8_EPI_OPS, 4)
+        print(f"[wf/mxu times] {card}: ms/frame at {WIDTH}x{HEIGHT} "
+              f"mesh_10k, {label} "
+              f"({cfg}, opaque={opaque}, z_clip={z_clip}; CUDA events, mean "
+              f"of {n4} cameras; 'batch' = the 4 frames in one launch): "
+              + "; ".join(f"{k} {v}" for k, v in tl.items()), flush=True)
+        for name, key in (("K1-wf", "K1-wf 8"), ("K1-mxu", "K1-mxu 1")):
+            b = bounds[(name, label)]
+            ops = (f"operations {b[3]} ms, walk + {U8_EPI_OPS} ops a slot"
+                   if name == "K1-wf" else
+                   f"tensor cores {b[3]} ms at {PEAK_BF16_S:.3g} bf16 op/s, "
+                   f"CUDA cores {b[4]} ms at "
+                   f"{PEAK_OPS_S[torch.float32]:.3g} op/s")
+            print(f"[wf/mxu times] {name} {label}: plain version "
+                  f"{plain[(name, label)]} ms/frame; bound {b[0]} ms/frame "
+                  f"by {b[1]} (bytes {b[2]} ms, {ops}; pairs {b[-1]}); "
+                  f"{key} one frame a launch at {b[0] / tl[key]:.4f} of it, "
+                  f"4 frames in one launch at "
+                  f"{b[0] / tl[key + ' batch']:.4f}", flush=True)
+    twalk, twalk0 = tex_preps[True]
+    targs = (tex_packed, tex_dims, bgp, WIDTH, tcfg["tile_w"], tcfg["tile_h"])
+    t["K3-mxu"] = cuda_ms(lambda: tex_k(*twalk, *targs, z_clip=True, mxu=1),
+                          10) / n4
+    t["K3"] = cuda_ms(lambda: tr.raster_tiles_tex_u8(*twalk0,
+                                                     *targs, z_clip=True),
+                      10) / n4
+    plain[("K3-mxu", "tex")] = cuda_ms(
+        lambda: tr.raster_tiles_tex_u8_mxu_reference(*twalk, *targs,
+                                                     z_clip=True, mxu=1),
+        2) / n4
+    b = bounds[("K3-mxu", "tex")] = mma_bound(
+        [tuple(x[i] for x in twalk) for i in range(n4)], tcfg,
+        MXU_TEX_EPI_OPS, 4, 4 * tex_packed.numel())
+    print(f"[wf/mxu times] {card}: K3-mxu {t['K3-mxu']} ms/frame, K3 (the "
+          f"default walk, same frames) {t['K3']} ms/frame, 4 frames in one "
+          f"launch each ({tcfg}, perspective-correct); plain version "
+          f"{plain[('K3-mxu', 'tex')]} ms/frame; bound {b[0]} ms/frame by "
+          f"{b[1]} (bytes {b[2]} ms, tensor cores {b[3]} ms, CUDA cores "
+          f"{b[4]} ms; pairs {b[5]}); K3-mxu at {b[0] / t['K3-mxu']:.4f} of "
+          f"it", flush=True)
+    for k, s in zip(counted, saved):
+        k.launches = s
+    src = "libnativecpurenderer_tpu_torch/csrc/tile_raster.cu"
+    tpu = "libnativecpurenderer_tpu/ops/pallas_raster.py"
+    # the main path's shapes: render_gouraud_pallas's defaults, one frame
+    # a launch; K3-mxu the batch entry's 4 frames in one launch
+    key = {"K1-wf": ("defaults", "K1-wf 8"),
+           "K1-mxu": ("defaults", "K1-mxu 1"), "K3-mxu": ("tex", None)}
+    out = []
+    for name, (line, fn) in rows.items():
+        label, tk = key[name]
+        out.append({"name": fn, "route": "cuda", "source": src,
+                    "replaces": f"{tpu}:{line}", "launches": main[fn],
+                    "max_abs_err": errs[name],
+                    "ms": t[label][tk] if tk else t["K3-mxu"],
+                    "plain_ms": plain[(name, label)],
+                    "bound_ms": bounds[(name, label)][0],
+                    "bound_by": bounds[(name, label)][1],
+                    "library_ms": None})
+    return out
+
+
 def bench_draw(ctx, texs, t):
     """bench.py:488-508's draw(t): the ~60-command canvas frame at
     1920x1080 (a dim full-frame fill, a gradient, 8 lines, 30 split blits,
@@ -1660,7 +2076,9 @@ def main() -> None:
     blit_phase(dev)
     tex_rows = textured_phases(dev, card)
     gouraud_rows = gouraud_phases(dev, card)
-    print(json.dumps({"kernels": [k1, k4, *tex_rows, *gouraud_rows]}))
+    wf_mxu_rows = wf_mxu_phases(dev, card)
+    print(json.dumps({"kernels": [k1, k4, *tex_rows, *gouraud_rows,
+                                  *wf_mxu_rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -80,9 +80,10 @@ class TextureStore:
 _stores: Dict[tuple, TextureStore] = {}
 
 
-def get_store(dtype=None, device="cpu") -> TextureStore:
+def get_store(dtype, device) -> TextureStore:
     """The process's store for (dtype, device), created on first use;
-    ``dtype`` defaults to ``config.default_dtype()``."""
+    ``dtype`` None means ``config.default_dtype()``.  The device is
+    required: no store falls to the CPU when none is named."""
     dtype = dtype or config.default_dtype()
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:

@@ -1,5 +1,5 @@
-// Kernels K1, K3, K2b, K2a, K5 and K6: per-tile triangle visibility, then
-// one of four epilogues on the winner.
+// Kernels K1, K3, K2b, K2a, K5, K6, K1-wf and K1-mxu: per-tile triangle
+// visibility, then one of four epilogues on the winner.
 //
 // Replaces the TPU kernels of libnativecpurenderer_tpu/ops/pallas_raster.py
 // as their launchers use them:
@@ -14,7 +14,13 @@
 //   _make_kernel (:51-122), rows from a materialised bins row:
 //     KEYS_F32   (K5)  raster_tiles (:1433), the z test always on;
 //   _make_kernel_dynrows (:1176-1267), rows pre-gathered in pair order:
-//     U8_GOURAUD (K6)  raster_tiles_dynrows (:1294), opaque, no z test.
+//     U8_GOURAUD (K6)  raster_tiles_dynrows (:1294), opaque, no z test;
+//   the wf branch of raster_tiles_flat (:739, kernel_wf :624-655):
+//     K1-wf, K1's walk from a persistent grid (below);
+//   the mxu branch of _make_kernel_flat (:242-250,285-301,326-327) over
+//   build_table_mxu's affine table (:1474-1505), in the launches at :739,
+//   :793 and :895: K1-mxu, the walk on the tensor cores (below), with the
+//   U8_GOURAUD or TEX_U8 epilogue.
 // Plain versions and wrappers: ops/tile_raster.py (raster_tiles_*).
 //
 // The walk.  For tile t, pixel slot p at integer coordinates
@@ -94,7 +100,50 @@
 // tensor cores or TMA: nothing here is a matrix product or a large tile
 // copy.  A long run stays in one block; splitting long runs across blocks
 // is the lever if the tail is the bound.
+//
+// K1-wf.  The TPU's programs each walked wf consecutive tiles and copied
+// their id blocks into SMEM themselves, so no id window bound a program.
+// Here a persistent grid of at most (SMs x resident blocks a SM, from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor) blocks claims wf
+// consecutive tiles at a time from a counter (atomicAdd; zeroed on the
+// launch's stream before each launch) and walks them one after another
+// with K1's own tile body (fma_tile), so its values are K1's for any wf.
+// Tiles are claimed in index order; longest-run-first is a later lever.
+//
+// K1-mxu.  The TPU kernel evaluated a chunk's 4 + nacc affine planes
+// (a_x, a_y, c, 0) . (x, y, 1, 0) as (kcc, 4) x (4, P) products on its
+// matrix unit.  Here each warp issues mma.sync.m16n8k16 (bf16 operands,
+// float32 accumulators): M = 16 pixels, N = the 8 planes of one triangle
+// (3 edges, depth, 4 attributes), K = 16 cross terms.  Pixel coordinates
+// split exactly into bf16 parts, x = xh + xl (integers below 65536), and
+// each coefficient into three, a = a0 + a1 + a2 (exact for a float32 away
+// from underflow); K holds the 6 x terms, 6 y terms, c0..c2 against 1 and
+// one 0.  With mxu=1 every product is exact and only the accumulation
+// rounds (near float32, the TPU's HIGHEST); with mxu=2 only the hi x hi
+// terms remain, the TPU's one DEFAULT pass, which rounds the coordinates
+// and coefficients to bf16 themselves.  What the MMA path rounds: the
+// tensor cores add the products in float32 in an order and with rounding
+// that are not IEEE round-to-nearest per addition, so the planes can
+// differ from the plain version's ((a_x x + a_y y) + c) by an ulp or so;
+// the kernel is held to it within a tolerance (chip_smoke.py), not bit
+// for bit.  -fmad=false governs the CUDA-core arithmetic only.  Pixel A
+// fragments stay in registers for the walk; a chunk's split B fragments
+// (32 triangles x 32 lanes x 2 words, 8 KiB) are staged in shared memory
+// already in fragment order, so each lane loads its 8 bytes with one
+// conflict-free uint2 read (no ldmatrix needed).  A lane of quad q holds
+// planes 2q, 2q + 1 of pixels g and g + 8: lanes 0 and 1 trade their
+// halves (shfl xor 1) to test coverage and form the key, lanes 2 and 3
+// (the attributes) take the key from them (shfl xor 2) and keep the
+// winner's attributes, and the epilogue joins their halves (shfl xor 1).
+// A warp holds up to 8 groups of 16 pixels a pass; larger tiles walk the
+// run again a pass at a time.  Slots past the run are not walked (K1's
+// rule); pad pixels of a group past P are computed and not stored; NaN
+// rows keep NaN in their first part and zero parts, so they never cover.
+// Bound on an H100: 8 planes x 16 products x 2 = 256 tensor-core
+// operations a (pixel, triangle) against 989 T/s dense bf16, and ~9
+// CUDA-core operations (coverage, key, minimum) at 33.5 T/s.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -109,7 +158,10 @@ constexpr int WALK_COLS = 12;   // 9 edge coefficients + 3 z columns
 constexpr int ATTR_COL = 14;    // vertex i, attribute d at ATTR_COL + 4 i + d
 constexpr int D = 4;
 constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
 constexpr int CHUNK = 32;       // triangle rows staged per pass
+constexpr int MAX_GROUPS = 8;   // MMA walk: 16-pixel groups a warp per pass
+constexpr unsigned FULL = 0xffffffffu;
 
 enum Epilogue { U8_GOURAUD, TEX_U8, TEX_IDX, KEYS_F32 };
 enum Source { PAIRS, BINS, ROWS };
@@ -134,6 +186,7 @@ struct Epi {
   int tex_w, tex_h;
   int* out;       // packed u8, texel index or key: (B * nt, P)
   float* rgba;    // KEYS_F32: (B * nt, D, P)
+  int mxu;        // the MMA walk: 1 exact parts, 2 one bf16 pass
 };
 
 // Row (of the whole (B * nrows, 32) array) of slot j of block b's run.
@@ -163,25 +216,32 @@ __device__ __forceinline__ float attr(const float* a, float e0, float e1,
                    __fmul_rn(e2, a[2 * D + d]));
 }
 
+// vi * tw + ui of the clamped-nearest texel of attributes (u, v, den)
+__device__ __forceinline__ int texel_of(float u, float v, float den, int tw,
+                                        int th) {
+  const float safe = den != 0.0f ? den : 1.0f;   // NaN stays NaN
+  const int ui = __float2int_rz(__fmul_rn(__fdiv_rn(u, safe), (float)tw));
+  const int vi = __float2int_rz(__fmul_rn(__fdiv_rn(v, safe), (float)th));
+  return min(max(vi, 0), th - 1) * tw + min(max(ui, 0), tw - 1);
+}
+
 __device__ __forceinline__ int texel_index(const float* a, float e0,
                                            float e1, float e2, int tw,
                                            int th) {
   const float den = attr(a, e0, e1, e2, 2);
-  const float safe = den != 0.0f ? den : 1.0f;   // NaN stays NaN
-  const int ui = __float2int_rz(
-      __fmul_rn(__fdiv_rn(attr(a, e0, e1, e2, 0), safe), (float)tw));
-  const int vi = __float2int_rz(
-      __fmul_rn(__fdiv_rn(attr(a, e0, e1, e2, 1), safe), (float)th));
-  return min(max(vi, 0), th - 1) * tw + min(max(ui, 0), tw - 1);
+  return texel_of(attr(a, e0, e1, e2, 0), attr(a, e0, e1, e2, 1), den, tw,
+                  th);
 }
 
+// K1's tile body (and K3's, K2b's, K2a's, K5's, K6's): block-wide walk of
+// tile b's run and the epilogue; the grid and the persistent kernels call
+// it, so their values cannot drift apart.
 template <int PPT, bool ZCLIP, int EPI, int SRC>
-__global__ void __launch_bounds__(THREADS)
-tile_raster_kernel(const Walk w, const Epi ep) {
+__device__ __forceinline__ void fma_tile(const Walk& w, const Epi& ep,
+                                         const int b) {
   __shared__ float s_rows[CHUNK][WALK_COLS];
   __shared__ int s_row[CHUNK];
 
-  const int b = blockIdx.x;
   const int f = b / w.nt;
   const int t = b - f * w.nt;
   const int P = w.tile_w * w.tile_h;
@@ -284,6 +344,250 @@ tile_raster_kernel(const Walk w, const Epi ep) {
   }
 }
 
+template <int PPT, bool ZCLIP, int EPI, int SRC>
+__global__ void __launch_bounds__(THREADS)
+tile_raster_kernel(const Walk w, const Epi ep) {
+  fma_tile<PPT, ZCLIP, EPI, SRC>(w, ep, blockIdx.x);
+}
+
+// ---- K1-mxu: the walk on the tensor cores ----
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// two bf16 values in one register, lo in the low half
+__device__ __forceinline__ unsigned bf16_pair(float lo, float hi) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
+
+// a = p[0] + p[1] + p[2] in bf16 parts (8 significant bits each cover
+// float32's 24); mxu=2 keeps p[0] alone.  A non-finite p[0] keeps zero
+// parts, so a NaN row stays NaN (and never covers).
+__device__ __forceinline__ void split3(float a, int mxu, float p[3]) {
+  p[0] = bf16_round(a);
+  p[1] = p[2] = 0.0f;
+  if (mxu == 1 && isfinite(p[0])) {
+    const float r = __fsub_rn(a, p[0]);
+    p[1] = bf16_round(r);
+    p[2] = bf16_round(__fsub_rn(r, p[1]));
+  }
+}
+
+// Row k of B (K = 16) for a plane with coefficient parts ax, ay, c:
+// ax0 ax0 ax1 ax1 ax2 ax2 | ay0 ay0 ay1 ay1 ay2 ay2 | c0 c1 c2 | 0
+__device__ __forceinline__ float b_row(int k, const float ax[3],
+                                       const float ay[3], const float c[3]) {
+  if (k < 6) return ax[k >> 1];
+  if (k < 12) return ay[(k - 6) >> 1];
+  return k < 15 ? c[k - 12] : 0.0f;
+}
+
+// Column k of A for the pixel x = xh + xl, y = yh + yl:
+// xh xl xh xl xh xl | yh yl yh yl yh yl | 1 1 1 | 0
+__device__ __forceinline__ float a_col(int k, float xh, float xl, float yh,
+                                       float yl) {
+  if (k < 6) return (k & 1) ? xl : xh;
+  if (k < 12) return (k & 1) ? yl : yh;
+  return k < 15 ? 1.0f : 0.0f;
+}
+
+// D (16 pixels x 8 planes) = A (16 x 16) B (16 x 8), float32 accumulators
+// from zero.  Thread (g = lane / 4, q = lane % 4) holds d[0..1] = planes
+// 2q, 2q + 1 of pixel g and d[2..3] those of pixel g + 8.
+__device__ __forceinline__ void mma_16x8x16(const unsigned a[4], unsigned b0,
+                                            unsigned b1, float d[4]) {
+  const float z = 0.0f;
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(z), "f"(z), "f"(z), "f"(z));
+}
+
+// K1's coverage test and key on a slot's planes; SKY_KEY when not covered
+template <bool ZCLIP>
+__device__ __forceinline__ int slot_key(float e0, float e1, float e2,
+                                        float zz, int slot) {
+  bool cov = (e0 >= 0.0f) && (e1 >= 0.0f) && (e2 >= 0.0f);
+  if (ZCLIP) cov = cov && (zz >= 0.0f) && (zz <= 1.0f);
+  const unsigned zq = (unsigned)__float2int_rz(__fmul_rn(zz, (float)Z_LEVELS));
+  return cov ? (int)((zq << IDX_BITS) | (unsigned)slot) : SKY_KEY;
+}
+
+// The matrix-unit walk of tile b's run over an affine table (PAIRS
+// source), with the U8_GOURAUD or TEX_U8 epilogue; G groups of 16 pixels
+// a warp per pass.
+template <int G, bool ZCLIP, int EPI>
+__device__ __forceinline__ void mma_tile(const Walk& w, const Epi& ep,
+                                         const int b) {
+  __shared__ __align__(16) unsigned s_frag[CHUNK][64];
+
+  const int f = b / w.nt;
+  const int t = b - f * w.nt;
+  const int P = w.tile_w * w.tile_h;
+  const int ox = (t % w.ntx) * w.tile_w;
+  const int oy = (t / w.ntx) * w.tile_h;
+  const int start = w.starts[b];
+  const int count = w.counts[b];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int q = lane & 3;
+  const int bgp = *ep.packed_bg;
+
+  for (int pass = 0; pass < P; pass += WARPS * G * 16) {
+    unsigned afr[G][4];
+    int best[G][2];
+    float at[G][2][2];   // lanes q = 2, 3: the winner's planes 2q, 2q + 1
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      const int p0 = pass + (warp * G + gi) * 16 + g;
+      float xh[2], xl[2], yh[2], yl[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = p0 + 8 * h;
+        const float x = (float)(ox + p % w.tile_w);
+        const float y = (float)(oy + p / w.tile_w);
+        // one pass (mxu=2) multiplies the rounded coordinates alone
+        xh[h] = bf16_round(x);
+        xl[h] = ep.mxu == 1 ? __fsub_rn(x, xh[h]) : 0.0f;
+        yh[h] = bf16_round(y);
+        yl[h] = ep.mxu == 1 ? __fsub_rn(y, yh[h]) : 0.0f;
+        best[gi][h] = SKY_KEY;
+        at[gi][h][0] = at[gi][h][1] = 0.0f;
+      }
+      const int k = 2 * q;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        afr[gi][h] = bf16_pair(a_col(k, xh[h], xl[h], yh[h], yl[h]),
+                               a_col(k + 1, xh[h], xl[h], yh[h], yl[h]));
+        afr[gi][2 + h] = bf16_pair(a_col(k + 8, xh[h], xl[h], yh[h], yl[h]),
+                                   a_col(k + 9, xh[h], xl[h], yh[h], yl[h]));
+      }
+    }
+
+    for (int base = 0; base < count; base += CHUNK) {
+      const int n = min(CHUNK, count - base);
+      __syncthreads();  // the previous chunk's fragments are no longer read
+      // word 2 * l + hf of a slot: lane l's B register hf, rows
+      // 2 (l % 4) + 8 hf and + 1 of plane l / 4
+      for (int i = threadIdx.x; i < n * 64; i += THREADS) {
+        const int j = i >> 6;
+        const int word = i & 63;
+        const int fl = word >> 1;
+        const int k0 = 2 * (fl & 3) + 8 * (word & 1);
+        const int row = row_of<PAIRS>(w, b, f, start, base + j);
+        const float* pl = w.table + (size_t)row * ROW_W + 4 * (fl >> 2);
+        float ax[3], ay[3], c[3];
+        split3(pl[0], ep.mxu, ax);
+        split3(pl[1], ep.mxu, ay);
+        split3(pl[2], ep.mxu, c);
+        s_frag[j][word] = bf16_pair(b_row(k0, ax, ay, c),
+                                    b_row(k0 + 1, ax, ay, c));
+      }
+      __syncthreads();
+      for (int j = 0; j < n; ++j) {
+        const uint2 bf = reinterpret_cast<const uint2*>(s_frag[j])[lane];
+        const int slot = base + j;
+#pragma unroll
+        for (int gi = 0; gi < G; ++gi) {
+          float d[4], o[4];
+          mma_16x8x16(afr[gi], bf.x, bf.y, d);
+#pragma unroll
+          for (int m = 0; m < 4; ++m) o[m] = __shfl_xor_sync(FULL, d[m], 1);
+          const bool first = (q & 1) == 0;   // q = 0 holds e0 e1, q = 1 e2 z
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float a0 = d[2 * h], a1 = d[2 * h + 1];
+            const float b0 = o[2 * h], b1 = o[2 * h + 1];
+            int key = slot_key<ZCLIP>(first ? a0 : b0, first ? a1 : b1,
+                                      first ? b0 : a0, first ? b1 : a1, slot);
+            const int from_edges = __shfl_xor_sync(FULL, key, 2);
+            if (q >= 2) key = from_edges;
+            if (key < best[gi][h]) {
+              best[gi][h] = key;
+              at[gi][h][0] = a0;
+              at[gi][h][1] = a1;
+            }
+          }
+        }
+      }
+    }
+
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      // lane q = 2 writes pixel p0, q = 3 pixel p0 + 8
+      const int h = q & 1;
+      const int p = pass + (warp * G + gi) * 16 + g + 8 * h;
+      int value;
+      if constexpr (EPI == U8_GOURAUD) {
+        unsigned part[2];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const unsigned c0 = (unsigned)quant_u8(at[gi][hh][0]);
+          const unsigned c1 = ep.opaque && q == 3
+                                  ? 255u
+                                  : (unsigned)quant_u8(at[gi][hh][1]);
+          part[hh] = q == 2 ? (c0 | (c1 << 8)) : ((c0 << 16) | (c1 << 24));
+        }
+        const unsigned other0 = __shfl_xor_sync(FULL, part[0], 1);
+        const unsigned other1 = __shfl_xor_sync(FULL, part[1], 1);
+        const unsigned packed = h ? (part[1] | other1) : (part[0] | other0);
+        value = best[gi][h] != SKY_KEY ? (int)packed : bgp;
+      } else {
+        // q = 2 holds u, v and q = 3 1/w, 1 of both pixels: q = 2 takes
+        // 1/w of pixel p0, q = 3 takes u, v of pixel p0 + 8
+        const float s0 = __shfl_xor_sync(FULL, at[gi][0][0], 1);
+        const float s1 = __shfl_xor_sync(FULL, at[gi][1][0], 1);
+        const float s2 = __shfl_xor_sync(FULL, at[gi][1][1], 1);
+        const float u = h ? s1 : at[gi][0][0];
+        const float v = h ? s2 : at[gi][0][1];
+        const float den = h ? at[gi][1][0] : s0;
+        value = best[gi][h] != SKY_KEY
+                    ? __ldg(ep.tex + texel_of(u, v, den, ep.tex_w, ep.tex_h))
+                    : bgp;
+      }
+      if (q >= 2 && p < P) ep.out[(size_t)b * P + p] = value;
+    }
+  }
+}
+
+template <int G, bool ZCLIP, int EPI>
+__global__ void __launch_bounds__(THREADS)
+tile_raster_mma_kernel(const Walk w, const Epi ep) {
+  mma_tile<G, ZCLIP, EPI>(w, ep, blockIdx.x);
+}
+
+// ---- K1-wf: the persistent walk ----
+
+// Blocks claim wf consecutive tiles (of nblocks = B * nt) at a time from
+// *next and walk each with the FMA (K1) or the MMA (K1-mxu) tile body;
+// N is that body's pixels a thread or groups a warp.
+template <bool MMA, int N, bool ZCLIP>
+__global__ void __launch_bounds__(THREADS)
+tile_raster_wf_kernel(const Walk w, const Epi ep, int nblocks, int wf,
+                      int* next) {
+  __shared__ int s_first;
+  for (;;) {
+    __syncthreads();  // every thread has read the previous claim
+    if (threadIdx.x == 0) s_first = atomicAdd(next, wf);
+    __syncthreads();
+    const int first = s_first;
+    if (first >= nblocks) return;
+    const int last = min(first + wf, nblocks);
+    for (int b = first; b < last; ++b) {
+      __syncthreads();  // the shared rows are reused by the next tile
+      if constexpr (MMA)
+        mma_tile<N, ZCLIP, U8_GOURAUD>(w, ep, b);
+      else
+        fma_tile<N, ZCLIP, U8_GOURAUD, PAIRS>(w, ep, b);
+    }
+  }
+}
+
 template <int EPI, int SRC, int PPT>
 cudaError_t launch_ppt(int nblocks, bool z_clip, const Walk& w,
                        const Epi& ep, cudaStream_t s) {
@@ -296,32 +600,141 @@ cudaError_t launch_ppt(int nblocks, bool z_clip, const Walk& w,
   return cudaGetLastError();
 }
 
-// Launches epilogue EPI on source SRC over nblocks = B * nt tiles on
-// `stream`; returns the cudaError_t of the launch (0 on success).  An
-// error left pending by an earlier launch is returned without launching,
-// so the caller raises it; an out-of-range size returns
-// cudaErrorInvalidValue without launching.
+// The checks every launch makes first: an error left pending by an
+// earlier launch is returned (the caller raises it); an out-of-range size
+// gives cudaErrorInvalidValue.  Returns 0 when the launch may go ahead,
+// -1 when there is nothing to launch (no tiles).
 template <int EPI, int SRC>
-int launch(int nblocks, int z_clip, const Walk& w, const Epi& ep,
-           void* stream) {
+int check(const Walk& w, const Epi& ep, int nblocks) {
   const cudaError_t pending = cudaGetLastError();
   if (pending != cudaSuccess) return (int)pending;
-  if (nblocks == 0) return 0;
+  if (nblocks == 0) return -1;
   const int P = w.tile_w * w.tile_h;
-  if (P <= 0 || w.nrows <= 0 || w.ntx <= 0 || w.nt <= 0 ||
-      nblocks % w.nt != 0 || (SRC != ROWS && w.ids_len <= 0))
+  if (P <= 0 || P > 16 * THREADS || w.nrows <= 0 || w.ntx <= 0 ||
+      w.nt <= 0 || nblocks % w.nt != 0 || (SRC != ROWS && w.ids_len <= 0))
     return (int)cudaErrorInvalidValue;
   if ((EPI == TEX_U8 || EPI == TEX_IDX) && (ep.tex_w <= 0 || ep.tex_h <= 0))
     return (int)cudaErrorInvalidValue;
+  if (ep.mxu < 0 || ep.mxu > 2) return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+// pixels a thread of the FMA walk
+int fma_ppt(int P) {
+  const int ppt = (P + THREADS - 1) / THREADS;
+  return ppt <= 1 ? 1 : ppt <= 2 ? 2 : ppt <= 4 ? 4 : ppt <= 8 ? 8 : 16;
+}
+
+// 16-pixel groups a warp of the MMA walk holds per pass
+int mma_groups(int P) {
+  const int g = (P + WARPS * 16 - 1) / (WARPS * 16);
+  return g <= 1 ? 1 : g <= 2 ? 2 : g <= 4 ? 4 : MAX_GROUPS;
+}
+
+// Launches epilogue EPI on source SRC over nblocks = B * nt tiles on
+// `stream`; returns the cudaError_t of the launch (0 on success).
+template <int EPI, int SRC>
+int launch(int nblocks, int z_clip, const Walk& w, const Epi& ep,
+           void* stream) {
+  if (const int e = check<EPI, SRC>(w, ep, nblocks)) return e < 0 ? 0 : e;
   cudaStream_t s = (cudaStream_t)stream;
   const bool zc = z_clip != 0;
-  const int ppt = (P + THREADS - 1) / THREADS;
-  if (ppt <= 1) return (int)launch_ppt<EPI, SRC, 1>(nblocks, zc, w, ep, s);
-  if (ppt <= 2) return (int)launch_ppt<EPI, SRC, 2>(nblocks, zc, w, ep, s);
-  if (ppt <= 4) return (int)launch_ppt<EPI, SRC, 4>(nblocks, zc, w, ep, s);
-  if (ppt <= 8) return (int)launch_ppt<EPI, SRC, 8>(nblocks, zc, w, ep, s);
-  if (ppt <= 16) return (int)launch_ppt<EPI, SRC, 16>(nblocks, zc, w, ep, s);
-  return (int)cudaErrorInvalidValue;
+  switch (fma_ppt(w.tile_w * w.tile_h)) {
+    case 1: return (int)launch_ppt<EPI, SRC, 1>(nblocks, zc, w, ep, s);
+    case 2: return (int)launch_ppt<EPI, SRC, 2>(nblocks, zc, w, ep, s);
+    case 4: return (int)launch_ppt<EPI, SRC, 4>(nblocks, zc, w, ep, s);
+    case 8: return (int)launch_ppt<EPI, SRC, 8>(nblocks, zc, w, ep, s);
+    default: return (int)launch_ppt<EPI, SRC, 16>(nblocks, zc, w, ep, s);
+  }
+}
+
+template <int EPI, int G>
+cudaError_t launch_mma_g(int nblocks, bool z_clip, const Walk& w,
+                         const Epi& ep, cudaStream_t s) {
+  if (z_clip)
+    tile_raster_mma_kernel<G, true, EPI><<<nblocks, THREADS, 0, s>>>(w, ep);
+  else
+    tile_raster_mma_kernel<G, false, EPI><<<nblocks, THREADS, 0, s>>>(w, ep);
+  return cudaGetLastError();
+}
+
+// The MMA walk (K1-mxu) with epilogue EPI over nblocks = B * nt tiles.
+template <int EPI>
+int launch_mma(int nblocks, int z_clip, const Walk& w, const Epi& ep,
+               void* stream) {
+  if (const int e = check<EPI, PAIRS>(w, ep, nblocks)) return e < 0 ? 0 : e;
+  if (ep.mxu != 1 && ep.mxu != 2) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool zc = z_clip != 0;
+  switch (mma_groups(w.tile_w * w.tile_h)) {
+    case 1: return (int)launch_mma_g<EPI, 1>(nblocks, zc, w, ep, s);
+    case 2: return (int)launch_mma_g<EPI, 2>(nblocks, zc, w, ep, s);
+    case 4: return (int)launch_mma_g<EPI, 4>(nblocks, zc, w, ep, s);
+    default: return (int)launch_mma_g<EPI, MAX_GROUPS>(nblocks, zc, w, ep, s);
+  }
+}
+
+// The persistent grid: at most the blocks the card holds at once, never
+// more than there are claims; the claim counter zeroed on the stream.
+template <bool MMA, int N, bool ZCLIP>
+cudaError_t launch_wf_n(int nblocks, int wf, int* next, const Walk& w,
+                        const Epi& ep, cudaStream_t s) {
+  const auto kernel = tile_raster_wf_kernel<MMA, N, ZCLIP>;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      THREADS, 0);
+  if (e == cudaSuccess) e = cudaMemsetAsync(next, 0, sizeof(int), s);
+  if (e != cudaSuccess) return e;
+  const int claims = (nblocks + wf - 1) / wf;
+  const int resident = sms * (per_sm > 0 ? per_sm : 1);
+  const int grid = claims < resident ? claims : resident;
+  kernel<<<grid, THREADS, 0, s>>>(w, ep, nblocks, wf, next);
+  return cudaGetLastError();
+}
+
+template <bool MMA, bool ZCLIP>
+cudaError_t launch_wf_z(int nblocks, int wf, int* next, const Walk& w,
+                        const Epi& ep, cudaStream_t s) {
+  const int P = w.tile_w * w.tile_h;
+  if constexpr (MMA) {
+    switch (mma_groups(P)) {
+      case 1: return launch_wf_n<true, 1, ZCLIP>(nblocks, wf, next, w, ep, s);
+      case 2: return launch_wf_n<true, 2, ZCLIP>(nblocks, wf, next, w, ep, s);
+      case 4: return launch_wf_n<true, 4, ZCLIP>(nblocks, wf, next, w, ep, s);
+      default:
+        return launch_wf_n<true, MAX_GROUPS, ZCLIP>(nblocks, wf, next, w, ep,
+                                                    s);
+    }
+  } else {
+    switch (fma_ppt(P)) {
+      case 1: return launch_wf_n<false, 1, ZCLIP>(nblocks, wf, next, w, ep, s);
+      case 2: return launch_wf_n<false, 2, ZCLIP>(nblocks, wf, next, w, ep, s);
+      case 4: return launch_wf_n<false, 4, ZCLIP>(nblocks, wf, next, w, ep, s);
+      case 8: return launch_wf_n<false, 8, ZCLIP>(nblocks, wf, next, w, ep, s);
+      default:
+        return launch_wf_n<false, 16, ZCLIP>(nblocks, wf, next, w, ep, s);
+    }
+  }
+}
+
+// K1-wf (ep.mxu 0) or its MMA walk (ep.mxu 1 or 2), u8 epilogue.
+int launch_wf(int nblocks, int z_clip, int wf, int* next, const Walk& w,
+              const Epi& ep, void* stream) {
+  if (const int e = check<U8_GOURAUD, PAIRS>(w, ep, nblocks))
+    return e < 0 ? 0 : e;
+  if (wf < 1 || next == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (ep.mxu)
+    return (int)(z_clip ? launch_wf_z<true, true>(nblocks, wf, next, w, ep, s)
+                        : launch_wf_z<true, false>(nblocks, wf, next, w, ep,
+                                                   s));
+  return (int)(z_clip ? launch_wf_z<false, true>(nblocks, wf, next, w, ep, s)
+                      : launch_wf_z<false, false>(nblocks, wf, next, w, ep,
+                                                  s));
 }
 
 }  // namespace
@@ -344,7 +757,7 @@ extern "C" {
 int tile_raster_u8(WALK_ARGS, const int* packed_bg, int opaque, int* out,
                    void* stream) {
   const Walk w = WALK;
-  const Epi ep = {packed_bg, opaque, nullptr, 0, 0, out, nullptr};
+  const Epi ep = {packed_bg, opaque, nullptr, 0, 0, out, nullptr, 0};
   return launch<U8_GOURAUD, PAIRS>(nblocks, z_clip, w, ep, stream);
 }
 
@@ -353,7 +766,7 @@ int tile_raster_u8(WALK_ARGS, const int* packed_bg, int opaque, int* out,
 int tile_raster_tex_u8(WALK_ARGS, const int* tex, int tex_w, int tex_h,
                        const int* packed_bg, int* out, void* stream) {
   const Walk w = WALK;
-  const Epi ep = {packed_bg, 0, tex, tex_w, tex_h, out, nullptr};
+  const Epi ep = {packed_bg, 0, tex, tex_w, tex_h, out, nullptr, 0};
   return launch<TEX_U8, PAIRS>(nblocks, z_clip, w, ep, stream);
 }
 
@@ -361,21 +774,21 @@ int tile_raster_tex_u8(WALK_ARGS, const int* tex, int tex_w, int tex_h,
 int tile_raster_tex_idx(WALK_ARGS, int tex_w, int tex_h, int* out,
                         void* stream) {
   const Walk w = WALK;
-  const Epi ep = {nullptr, 0, nullptr, tex_w, tex_h, out, nullptr};
+  const Epi ep = {nullptr, 0, nullptr, tex_w, tex_h, out, nullptr, 0};
   return launch<TEX_IDX, PAIRS>(nblocks, z_clip, w, ep, stream);
 }
 
 // K2a: keys (B * nt, P) int32 and rgba (B * nt, 4, P) float32.
 int tile_raster_keys_f32(WALK_ARGS, int* keys, float* rgba, void* stream) {
   const Walk w = WALK;
-  const Epi ep = {nullptr, 0, nullptr, 0, 0, keys, rgba};
+  const Epi ep = {nullptr, 0, nullptr, 0, 0, keys, rgba, 0};
   return launch<KEYS_F32, PAIRS>(nblocks, z_clip, w, ep, stream);
 }
 
 // K5: K2a's outputs, rows from bins (ids (B * nt, K), starts unused).
 int tile_raster_bins_f32(WALK_ARGS, int* keys, float* rgba, void* stream) {
   const Walk w = WALK;
-  const Epi ep = {nullptr, 0, nullptr, 0, 0, keys, rgba};
+  const Epi ep = {nullptr, 0, nullptr, 0, 0, keys, rgba, 0};
   return launch<KEYS_F32, BINS>(nblocks, z_clip, w, ep, stream);
 }
 
@@ -384,8 +797,36 @@ int tile_raster_bins_f32(WALK_ARGS, int* keys, float* rgba, void* stream) {
 int tile_raster_rows_u8(WALK_ARGS, const int* packed_bg, int opaque,
                         int* out, void* stream) {
   const Walk w = WALK;
-  const Epi ep = {packed_bg, opaque, nullptr, 0, 0, out, nullptr};
+  const Epi ep = {packed_bg, opaque, nullptr, 0, 0, out, nullptr, 0};
   return launch<U8_GOURAUD, ROWS>(nblocks, z_clip, w, ep, stream);
+}
+
+// K1-wf: K1's out from a persistent grid whose blocks claim wf
+// consecutive tiles at a time from *next (one int, zeroed here on the
+// stream); with mxu 1 or 2 (an affine table) each tile walks K1-mxu's
+// MMA walk.
+int tile_raster_u8_wf(WALK_ARGS, const int* packed_bg, int opaque, int mxu,
+                      int wf, int* next, int* out, void* stream) {
+  const Walk w = WALK;
+  const Epi ep = {packed_bg, opaque, nullptr, 0, 0, out, nullptr, mxu};
+  return launch_wf(nblocks, z_clip, wf, next, w, ep, stream);
+}
+
+// K1-mxu: K1's out from the MMA walk over an affine table (mxu 1 or 2).
+int tile_raster_u8_mxu(WALK_ARGS, const int* packed_bg, int opaque, int mxu,
+                       int* out, void* stream) {
+  const Walk w = WALK;
+  const Epi ep = {packed_bg, opaque, nullptr, 0, 0, out, nullptr, mxu};
+  return launch_mma<U8_GOURAUD>(nblocks, z_clip, w, ep, stream);
+}
+
+// K3 over the MMA walk: K3's out from an affine textured table.
+int tile_raster_tex_u8_mxu(WALK_ARGS, const int* tex, int tex_w, int tex_h,
+                           const int* packed_bg, int mxu, int* out,
+                           void* stream) {
+  const Walk w = WALK;
+  const Epi ep = {packed_bg, 0, tex, tex_w, tex_h, out, nullptr, mxu};
+  return launch_mma<TEX_U8>(nblocks, z_clip, w, ep, stream);
 }
 
 const char* tile_raster_error_string(int err) {

@@ -71,9 +71,10 @@ def prep_to_torch(sorted_pad, starts, counts, table, device):
 
 def kernel_inputs_to_torch(device, *arrays):
     """Arrays the tile kernels take (a JAX prep's ``bins``, ``counts`` and
-    row table for the gridded kernel, or its dynrows ``rows``, ``starts``
-    and ``counts``) -> tensors on ``device``: integer arrays as int32,
-    float arrays as float32, shapes kept."""
+    row table for the gridded kernel, its dynrows ``rows``, ``starts``
+    and ``counts``, or its sorted pairs, runs and ``build_table_mxu``
+    table for the matrix-unit walk) -> tensors on ``device``: integer
+    arrays as int32, float arrays as float32, shapes kept."""
     dev = as_device(device)
     out = []
     for a in arrays:

@@ -9,8 +9,12 @@ and the stream are passed as ``c_void_p``; every C entry returns a
 
 ``-fmad=false`` keeps nvcc from contracting a multiply and an add into one
 fused operation: the kernels must round each product and sum the way the
-plain torch versions do, bit for bit.  ``-Xptxas=-v`` writes each kernel's
-register and shared-memory use into the build log beside the library.
+plain torch versions do, bit for bit.  It governs the CUDA-core
+arithmetic only: the matrix-unit walk (K1-mxu) accumulates its products
+on the tensor cores, whose float32 sums are not rounded to nearest one
+addition at a time, and is held to its plain version within a
+tolerance.  ``-Xptxas=-v`` writes each kernel's register and
+shared-memory use into the build log beside the library.
 """
 
 from __future__ import annotations
@@ -72,8 +76,8 @@ def build_log(name: str) -> str:
 
 
 def tile_raster() -> ctypes.CDLL:
-    """The loaded ``tile_raster`` library (K1, K3, K2b, K2a, K5, K6),
-    built if needed."""
+    """The loaded ``tile_raster`` library (K1, K3, K2b, K2a, K5, K6, K1-wf,
+    K1-mxu), built if needed."""
     lib = _libs.get("tile_raster")
     if lib is None:
         lib = ctypes.CDLL(str(build("tile_raster")))
@@ -87,7 +91,11 @@ def tile_raster() -> ctypes.CDLL:
                                 ("tile_raster_tex_idx", [i, i, p]),
                                 ("tile_raster_keys_f32", [p, p]),
                                 ("tile_raster_bins_f32", [p, p]),
-                                ("tile_raster_rows_u8", [p, i, p])):
+                                ("tile_raster_rows_u8", [p, i, p]),
+                                ("tile_raster_u8_wf", [p, i, i, i, p, p]),
+                                ("tile_raster_u8_mxu", [p, i, i, p]),
+                                ("tile_raster_tex_u8_mxu",
+                                 [p, i, i, p, i, p])):
             fn = getattr(lib, entry)
             fn.argtypes = walk + epilogue + [p]
             fn.restype = ctypes.c_int

@@ -500,6 +500,20 @@ def bin_triangles_flat(sxy, valid, width: int, height: int, tile_w: int,
     return sorted_pad, starts[:-1].contiguous(), counts, overflow
 
 
+def clamp_mega(mega: int, tiles_per_frame: int) -> int:
+    """Largest divisor of ``tiles_per_frame`` that is <= ``mega``, 0 when
+    ``mega`` <= 0 (``raster3d.py:642-653``): how the entries clamp the
+    tiles a program of the TPU's wf walk took, kept so that ``wf=n``
+    walks what JAX's does (the persistent kernel itself takes any
+    ``wf`` >= 1)."""
+    if mega <= 0:
+        return 0
+    m = min(int(mega), int(tiles_per_frame))
+    while tiles_per_frame % m:
+        m -= 1
+    return m
+
+
 def viewport_mask(width: int, height: int, tile_w: int, tile_h: int):
     """(NT, P) bool CPU tensor, True where tile slot p lands inside the
     viewport (``raster3d.py:671-686``).  Slots past width/height of the
@@ -578,14 +592,15 @@ def prepare_frame(verts, faces, vtx_colors, width: int, height: int,
                   mvp=None, *, tile_w: int = 128, tile_h: int = 16,
                   capacity: int = 512, bg=None, span_x: int = 8,
                   span_y: int = 8, z_clip: bool = True, pre=None,
-                  near_clip: bool = False):
+                  near_clip: bool = False, mxu: int = 0):
     """Per-frame prep of :func:`render_gouraud_u8`, everything before the
     tile kernel (``raster3d.py:895-934``): returns a dict with the
     kernel's inputs ``sorted_pad``, ``starts``, ``counts``, ``table``,
     ``packed_bg`` and the device ``overflow`` flag, which with
     ``z_clip=False`` also carries the vertex-z check (see
     :func:`_prep_geometry`).  ``near_clip`` clips at the near plane (two
-    table rows a face)."""
+    table rows a face).  With ``mxu`` the table is the matrix-unit
+    walk's affine one (``tile_raster.build_table_mxu``)."""
     from . import tile_raster
     dtype = verts.dtype
     if mvp is None:
@@ -600,7 +615,8 @@ def prepare_frame(verts, faces, vtx_colors, width: int, height: int,
         verts, faces, mvp, width, height, tile_w=tile_w, tile_h=tile_h,
         capacity=capacity, span_x=span_x, span_y=span_y, z_clip=z_clip,
         v4f=v4f, attrs=attrs, near_clip=near_clip)
-    prep["table"] = tile_raster.build_table(*edges, attrs)
+    build = tile_raster.build_table_mxu if mxu else tile_raster.build_table
+    prep["table"] = build(*edges, attrs)
     prep["packed_bg"] = tile_raster.pack_bg(bg)
     return prep
 
@@ -619,13 +635,15 @@ def prepare_textured_frame(verts, faces, fuv, width: int, height: int,
                            mvp, *, tile_w: int, tile_h: int, capacity: int,
                            span_x: int, span_y: int,
                            perspective_correct: bool, z_clip: bool,
-                           v4f=None):
+                           v4f=None, mxu: int = 0):
     """Per-frame prep of the textured entries, everything before the tile
-    kernel — counterpart of ``_tex_prep`` (``raster3d.py:1208-1250``,
-    without ``mxu``).  ``fuv`` is ``uvs[faces]``, (F, 3, 2).  The row
-    table carries the attributes [u/w, v/w, 1/w, 1], or [u, v, 1, 1]
-    without ``perspective_correct``.  Returns a dict with ``sorted_pad``,
-    ``starts``, ``counts``, ``table`` and the device ``overflow`` flag
+    kernel — counterpart of ``_tex_prep`` (``raster3d.py:1208-1250``).
+    ``fuv`` is ``uvs[faces]``, (F, 3, 2).  The row table carries the
+    attributes [u/w, v/w, 1/w, 1], or [u, v, 1, 1] without
+    ``perspective_correct``; with ``mxu`` it is the affine table of the
+    matrix-unit walk (``tile_raster.build_table_mxu``).  Returns a dict
+    with ``sorted_pad``, ``starts``, ``counts``, ``table`` and the device
+    ``overflow`` flag
     (with ``z_clip=False`` also the vertex-z check, see
     :func:`_prep_geometry`)."""
     from . import tile_raster
@@ -638,7 +656,8 @@ def prepare_textured_frame(verts, faces, fuv, width: int, height: int,
         attrs = torch.cat([fuv * iw, iw, torch.ones_like(iw)], dim=-1)
     else:
         attrs = torch.cat([fuv, torch.ones_like(fuv)], dim=-1)
-    prep["table"] = tile_raster.build_table(*edges, attrs)
+    build = tile_raster.build_table_mxu if mxu else tile_raster.build_table
+    prep["table"] = build(*edges, attrs)
     return prep
 
 
@@ -647,7 +666,7 @@ def render_gouraud_u8(verts, faces, vtx_colors, width: int, height: int,
                       capacity: int = 512, bg=None, span_x: int = 8,
                       span_y: int = 8, kcc: int = 32, opaque: bool = False,
                       z_clip: bool = True, pre=None, tiled: bool = False,
-                      near_clip: bool = False):
+                      near_clip: bool = False, wf: int = 0, mxu: int = 0):
     """Binned Gouraud render to u8 — counterpart of
     ``render_gouraud_pallas(flat=True, u8=True, ...)``
     (``raster3d.py:844-952``).
@@ -669,20 +688,35 @@ def render_gouraud_u8(verts, faces, vtx_colors, width: int, height: int,
     optional ``(pregather_mesh(verts, faces), vtx_colors[faces])`` hoisted
     out of frame loops.  ``near_clip`` cuts triangles crossing the near
     plane w = NEAR_EPS into sub-triangles (see
-    :func:`clip_near_triangles`) instead of culling them whole.  ``kcc``
-    is accepted for signature parity: it sized the TPU kernel's triangle
-    chunk and changes no value.  The TPU layout knobs of the JAX entry
-    (``interpret``, ``resident_out``, ``mega``, ``wf``, ``out8``,
-    ``ktail``, ``wide_split``, ``mxu``) are not parameters."""
+    :func:`clip_near_triangles`) instead of culling them whole.
+
+    ``wf=n`` walks the tiles with the persistent kernel K1-wf, its blocks
+    claiming :func:`clamp_mega` (n, tiles) consecutive tiles at a time:
+    the same frame as ``wf=0``.  ``mxu=1|2`` builds the affine table and
+    walks it with the matrix-unit kernel K1-mxu (1: near float32, ±1 u8
+    slips against the default walk; 2: one bfloat16 pass, a measurement
+    setting); with ``wf`` too, the persistent launch takes that walk.
+    ``kcc`` is accepted for signature parity: it sized the TPU kernel's
+    triangle chunk and changes no value.  The other TPU layout knobs of
+    the JAX entry (``interpret``, ``resident_out``, ``mega``, ``out8``,
+    ``ktail``, ``wide_split``) are not parameters."""
     from . import tile_raster
     prep = prepare_frame(verts, faces, vtx_colors, width, height, mvp,
                          tile_w=tile_w, tile_h=tile_h, capacity=capacity,
                          bg=bg, span_x=span_x, span_y=span_y,
-                         z_clip=z_clip, pre=pre, near_clip=near_clip)
-    packed = tile_raster.raster_tiles_flat_u8(
-        prep["sorted_pad"], prep["starts"], prep["counts"], prep["table"],
-        prep["packed_bg"], width, tile_w, tile_h, opaque=opaque,
-        z_clip=z_clip)
+                         z_clip=z_clip, pre=pre, near_clip=near_clip,
+                         mxu=mxu)
+    args = (prep["sorted_pad"], prep["starts"], prep["counts"],
+            prep["table"], prep["packed_bg"], width, tile_w, tile_h)
+    kw = dict(opaque=opaque, z_clip=z_clip)
+    wf = clamp_mega(wf, prep["counts"].shape[-1])
+    if wf:
+        packed = tile_raster.raster_tiles_flat_u8_wf(*args, wf=wf, mxu=mxu,
+                                                     **kw)
+    elif mxu:
+        packed = tile_raster.raster_tiles_flat_u8_mxu(*args, mxu=mxu, **kw)
+    else:
+        packed = tile_raster.raster_tiles_flat_u8(*args, **kw)
     if tiled:
         return tile_raster.tiles_u8(packed), prep["overflow"]
     return (tile_raster.detile_packed(packed, width, height, tile_w,
@@ -807,17 +841,47 @@ def render_textured_u8_batch(verts, faces, uvs, tex_u8, width: int,
                              tile_h: int = 32, capacity: int = 512,
                              bg=None, span_x: int = 5, span_y: int = 3,
                              kcc: int = 16, perspective_correct: bool = True,
-                             z_clip: bool = True, tiled: bool = False):
-    """:func:`render_textured_u8_loop` under the defaults of
+                             z_clip: bool = True, tiled: bool = False,
+                             mxu: int = 0):
+    """B frames (mvps (B, 4, 4)) under the defaults of
     ``render_textured_pallas_batch`` (``raster3d.py:1344-1425``: capacity
-    512, kcc 16) — an alias kept for the JAX entry's name, not a path of
-    its own: the same loop and the same values (the JAX entry's vmapped
-    prep was a TPU program layout)."""
-    return render_textured_u8_loop(
-        verts, faces, uvs, tex_u8, width, height, mvps, tile_w=tile_w,
-        tile_h=tile_h, capacity=capacity, bg=bg, span_x=span_x,
-        span_y=span_y, kcc=kcc, perspective_correct=perspective_correct,
-        z_clip=z_clip, tiled=tiled)
+    512, kcc 16).  With ``mxu=0`` it is :func:`render_textured_u8_loop`
+    under these defaults, an alias kept for the JAX entry's name (the JAX
+    entry's vmapped prep was a TPU program layout).  With ``mxu=1|2``
+    each frame is prepped with the affine table of the matrix-unit walk
+    and the B frames go through one launch of K3's matrix-unit walk
+    (``tile_raster.raster_tiles_tex_u8_mxu``): texels may flip to a
+    neighbour at UV knife edges against the default walk.  Returns
+    (frames (B, H, W, 4) uint8 — or (B, NT, P, 4) when ``tiled`` — ,
+    overflow device bool over the batch)."""
+    from . import tile_raster
+    if not mxu:
+        return render_textured_u8_loop(
+            verts, faces, uvs, tex_u8, width, height, mvps, tile_w=tile_w,
+            tile_h=tile_h, capacity=capacity, bg=bg, span_x=span_x,
+            span_y=span_y, kcc=kcc, perspective_correct=perspective_correct,
+            z_clip=z_clip, tiled=tiled)
+    dev = verts.device
+    if bg is None:
+        bg = torch.zeros(4, dtype=torch.float32, device=dev)
+    v4f, fuv = pregather_mesh(verts, faces), uvs[faces]
+    preps = [prepare_textured_frame(
+        verts, faces, fuv, width, height, m, tile_w=tile_w, tile_h=tile_h,
+        capacity=capacity, span_x=span_x, span_y=span_y,
+        perspective_correct=perspective_correct, z_clip=z_clip, v4f=v4f,
+        mxu=mxu) for m in mvps]
+    sps, starts, counts, tables = (
+        torch.stack([p[k] for p in preps])
+        for k in ("sorted_pad", "starts", "counts", "table"))
+    packed = tile_raster.raster_tiles_tex_u8_mxu(
+        sps, starts, counts, tables, pack_texture_u8(tex_u8),
+        tuple(tex_u8.shape[:2]), tile_raster.pack_bg(bg), width, tile_w,
+        tile_h, z_clip=z_clip, mxu=mxu)
+    overflow = torch.stack([p["overflow"] for p in preps]).any()
+    if tiled:
+        return tile_raster.tiles_u8(packed), overflow
+    return (tile_raster.detile_packed(packed, width, height, tile_w, tile_h),
+            overflow)
 
 
 def render_textured(verts, faces, uvs, tex, width: int, height: int,
@@ -979,7 +1043,8 @@ def render_gouraud_pallas(verts, faces, vtx_colors, width: int, height: int,
                           span_y: int = 8, kcc: int = 32, flat: bool = False,
                           near_clip: bool = False, u8: bool = False,
                           opaque: bool = False, z_clip: bool = True,
-                          pre=None, tiled: bool = False):
+                          pre=None, tiled: bool = False, wf: int = 0,
+                          mxu: int = 0):
     """Binned Gouraud render through the tile kernels — counterpart of
     ``raster3d.render_gouraud_pallas`` (``raster3d.py:844-966``), with its
     defaults.  Routes:
@@ -990,27 +1055,34 @@ def render_gouraud_pallas(verts, faces, vtx_colors, width: int, height: int,
         and one K2a launch (``render_binned_pallas_flat``); rgba float32;
       * ``flat=True, u8=True``: :func:`render_gouraud_u8` (K1), returning
         (frame (H, W, 4) uint8 — or with ``tiled`` the (NT, P, 4) tiles —,
-        None, overflow), with ``opaque`` and ``z_clip``.
+        None, overflow), with ``opaque``, ``z_clip``, ``wf`` (K1-wf) and
+        ``mxu`` (K1-mxu); the other routes refuse ``wf`` and ``mxu``
+        with a ValueError, as the JAX entry asserts.
     Otherwise returns (rgba (H, W, 4), bg where sky; zq (H, W) the
     quantised depth (key >> IDX_BITS) / Z_LEVELS; overflow device bool).
     ``z_clip=False`` skips the per-pixel z test only on the u8 route (the
     f32 kernels keep it), and folds the vertex-z check into the flat
     routes' flag.  ``near_clip`` and ``pre`` = ``(pregather_mesh(verts,
     faces), vtx_colors[faces])`` apply on every route.  ``kcc`` is
-    accepted and changes no value; the TPU layout knobs (``interpret``,
-    ``resident_out``, ``mega``, ``wf``, ``out8``, ``ktail``,
-    ``wide_split``, ``mxu``) are not parameters."""
+    accepted and changes no value; the other TPU layout knobs
+    (``interpret``, ``resident_out``, ``mega``, ``out8``, ``ktail``,
+    ``wide_split``) are not parameters."""
     from . import tile_raster
     if u8 and not flat:
         raise ValueError("u8 output requires flat=True")
     if tiled and not u8:
         raise ValueError("tiled output is wired for the u8 path")
+    if mxu and not u8:
+        raise ValueError("mxu walk requires flat=True, u8=True")
+    if wf and not u8:
+        raise ValueError("the wf loop is wired for the u8 video path "
+                         "(flat=True, u8=True)")
     if u8:
         frame, overflow = render_gouraud_u8(
             verts, faces, vtx_colors, width, height, mvp, tile_w=tile_w,
             tile_h=tile_h, capacity=capacity, bg=bg, span_x=span_x,
             span_y=span_y, opaque=opaque, z_clip=z_clip, pre=pre,
-            tiled=tiled, near_clip=near_clip)
+            tiled=tiled, near_clip=near_clip, wf=wf, mxu=mxu)
         return frame, None, overflow
     dtype = verts.dtype
     dev = verts.device
@@ -1048,7 +1120,7 @@ def render_gouraud_pallas_batch(verts, faces, vtx_colors, width: int,
                                 flat: bool = False, kcc: int = 32,
                                 u8: bool = False, opaque: bool = False,
                                 z_clip: bool = True, dynrows: int = 0,
-                                rows_cap: int = 0):
+                                rows_cap: int = 0, mxu: int = 0):
     """B frames (mvps (B, 4, 4)) of :func:`render_gouraud_pallas`, the
     tiles of all frames in one kernel launch — counterpart of
     ``raster3d.render_gouraud_pallas_batch`` (``raster3d.py:973-1076``),
@@ -1056,7 +1128,9 @@ def render_gouraud_pallas_batch(verts, faces, vtx_colors, width: int,
       * default: K5 over the B frames' bins (``render_binned_pallas_batch``);
       * ``flat=True``: K2a (``render_binned_pallas_flat_batch``);
       * ``flat=True, u8=True``: K1
-        (``render_binned_pallas_flat_batch_u8``), with ``opaque``, ``z_clip``;
+        (``render_binned_pallas_flat_batch_u8``), with ``opaque``,
+        ``z_clip``; with ``mxu=1|2`` each frame's table is the affine one
+        and the launch is K1-mxu's (not with ``dynrows``);
       * ``dynrows=g`` (flat, u8, opaque, z_clip off): each frame's table
         rows gathered in pair order, ``rows_cap`` rows a frame (default
         49152), and K6 (``render_binned_dynrows_batch_u8``), bit-equal to
@@ -1066,10 +1140,13 @@ def render_gouraud_pallas_batch(verts, faces, vtx_colors, width: int,
     Returns (rgba (B, H, W, 4) — float32, or uint8 on the u8 routes —,
     zq (B, H, W) or None on the u8 routes, overflow device bool over the
     batch).  ``kcc`` is accepted and changes no value; ``interpret`` and
-    ``mxu`` are not parameters."""
+    ``wf`` (JAX's batch entry has none) are not parameters."""
     from . import tile_raster
     if u8 and not flat:
         raise ValueError("u8 output requires flat=True")
+    if mxu and not (flat and u8 and not dynrows):
+        raise ValueError("mxu walk requires flat=True, u8=True and no "
+                         "dynrows")
     if dynrows and not (flat and u8 and opaque and not z_clip):
         raise ValueError("the dynrows kernel is the opaque u8 path: flat, "
                          "u8, opaque, z_clip=False")
@@ -1082,7 +1159,8 @@ def render_gouraud_pallas_batch(verts, faces, vtx_colors, width: int,
                span_x=span_x, span_y=span_y)
     if flat:
         preps = [prepare_frame(verts, faces, vtx_colors, width, height, m,
-                               bg=bg, z_clip=z_clip, pre=pre, **cfg)
+                               bg=bg, z_clip=z_clip, pre=pre, mxu=mxu,
+                               **cfg)
                  for m in mvps]
         sps, starts, counts, tables = (
             torch.stack([p[k] for p in preps])
@@ -1103,7 +1181,7 @@ def render_gouraud_pallas_batch(verts, faces, vtx_colors, width: int,
         if u8:
             frames = tile_raster.render_binned_pallas_flat_batch_u8(
                 sps, starts, counts, tables, bg, width, height, tile_w,
-                tile_h, opaque=opaque, z_clip=z_clip)
+                tile_h, opaque=opaque, z_clip=z_clip, mxu=mxu)
             return frames, None, overflow
         keys, rgba = tile_raster.render_binned_pallas_flat_batch(
             sps, starts, counts, tables, bg, width, height, tile_w, tile_h)

@@ -1,4 +1,5 @@
-"""Per-tile visibility and its epilogues: kernels K1, K3, K2b, K2a, K5, K6.
+"""Per-tile visibility and its epilogues: kernels K1, K3, K2b, K2a, K5, K6,
+K1-wf and K1-mxu.
 
 Counterpart of ``libnativecpurenderer_tpu/ops/pallas_raster.py``: the row
 table (``build_table``, ``pallas_raster.py:1445``), the packed background
@@ -8,8 +9,9 @@ table (``build_table``, ``pallas_raster.py:1445``), the packed background
 ``render_binned_pallas_flat_batch_u8`` (``:1010``),
 ``render_binned_tex_idx_batch`` (``:1048``), ``render_binned_pallas``
 (``:1559``), ``render_binned_pallas_batch`` (``:1526``) and
-``render_binned_dynrows_batch_u8`` (``:1302``), and the three TPU tile
-kernels, as the kernels their launchers pick:
+``render_binned_dynrows_batch_u8`` (``:1302``), the affine table
+(``build_table_mxu``, ``:1474``), and the TPU tile kernels, as the
+kernels their launchers pick:
 
   * K1, ``raster_tiles_flat_u8``: packed u8 Gouraud RGBA (``u8=True``,
     ``raster_tiles_flat`` ``:793``, epilogue ``:566-596``);
@@ -24,15 +26,25 @@ kernels, as the kernels their launchers pick:
     row (``raster_tiles`` ``:1396-1442``, body ``_make_kernel`` ``:51-122``);
   * K6, ``raster_tiles_rows_u8``: K1's opaque values over rows gathered in
     pair order (``raster_tiles_dynrows`` ``:1271-1299``, body
-    ``_make_kernel_dynrows`` ``:1176-1267``).
+    ``_make_kernel_dynrows`` ``:1176-1267``);
+  * K1-wf, ``raster_tiles_flat_u8_wf``: K1's values from a persistent
+    launch whose blocks claim ``wf`` consecutive tiles at a time (the
+    ``wf`` branch, ``:739``, kernel ``kernel_wf`` ``:624-655``);
+  * K1-mxu, ``raster_tiles_flat_u8_mxu`` and ``raster_tiles_tex_u8_mxu``:
+    the walk over an affine table (``build_table_mxu``, ``:1474``) with
+    the planes evaluated on the tensor cores (the ``mxu`` branch of
+    ``_make_kernel_flat``, ``:242-250,285-301,326-327``), K1's and K3's
+    epilogues on the winner's planes.
 
 Each wrapper, on CUDA tensors, launches the hand-written kernel in
 ``csrc/tile_raster.cu`` (one walk; the epilogue and the row source are
 template parameters) or raises; on CPU tensors it runs its
 ``*_reference``, the plain torch version in the same operation order,
-bit-identical to the kernel on the card.  Each wrapper counts its kernel
-launches in its ``launches`` attribute.  The walks over pairs and rows
-take one frame or B frames (a leading B on each input) in one launch.
+bit-identical to the kernel on the card (the matrix-unit walk's within
+a tolerance: the tensor cores do not round each sum to nearest).  Each
+wrapper counts its kernel launches in its ``launches`` attribute.  The
+walks over pairs and rows take one frame or B frames (a leading B on
+each input) in one launch.
 
 Row table layout (32 floats per triangle, ``pallas_raster.py:18-27``):
   0:9   A0' B0' C0' A1' B1' C1' A2' B2' C2'  (edges, cover sign folded in)
@@ -77,6 +89,43 @@ def build_table(A, B, C, zplane_scaled, inv_area, sign, valid, attrs):
     table = torch.cat([table, table.new_full((1, table.shape[1]),
                                              float("nan"))], dim=0)
     return torch.nn.functional.pad(table, (0, ROW_W - table.shape[1]))
+
+
+def build_table_mxu(A, B, C, zplane_scaled, inv_area, sign, valid, attrs):
+    """Affine-plane float32 row table of the matrix-unit walk, (F + 1,
+    ROW_W), NaN rows for invalid triangles and for the pad row F
+    (``pallas_raster.build_table_mxu``, ``:1474-1505``).  Row lanes
+    4q..4q+3 hold plane q as (a_x, a_y, c, 0): q = 0..2 the sign-folded
+    edges, q = 3 the depth, q = 4 + d attribute d.  The depth and
+    attribute planes precombine the per-edge weights w_i:
+    a_x = (A0' w0 + A1' w1) + A2' w2, and the same for a_y and c — three
+    terms in a fixed order where JAX's ``jnp.sum`` leaves the order to
+    XLA."""
+    F = A.shape[0]
+    sg = sign[:, None]
+    As, Bs, Cs = A * sg, B * sg, C * sg
+    w_z = zplane_scaled * sg                                # (F, 3)
+    attrs_sc = attrs * (inv_area * sign)[:, None, None]     # (F, 3, D)
+    zero = torch.zeros_like(As[:, 0])
+
+    def comb(e, w):
+        return e[:, 0] * w[:, 0] + e[:, 1] * w[:, 1] + e[:, 2] * w[:, 2]
+
+    cols = []
+    for q in range(3):
+        cols += [As[:, q], Bs[:, q], Cs[:, q], zero]
+    for w in [w_z] + [attrs_sc[:, :, d] for d in range(D)]:
+        cols += [comb(As, w), comb(Bs, w), comb(Cs, w), zero]
+    table = torch.stack(cols, dim=1)
+    table = torch.where(valid[:, None], table, float("nan")).to(
+        torch.float32)
+    return torch.cat([table, table.new_full((1, ROW_W), float("nan"))])
+
+
+def bf16_round(x):
+    """float32 -> the nearest bfloat16 (ties to even), as float32: the
+    operand rounding of one bf16 pass of the matrix unit (``mxu=2``)."""
+    return x.to(torch.bfloat16).to(torch.float32)
 
 
 def _quant_u8(v):
@@ -213,6 +262,16 @@ def _check_inputs(sorted_pad, starts, counts, table, tile_w, tile_h,
                              f"{tuple(tex_packed.shape)}")
 
 
+def _check_tex_tile(tile_w: int, tile_h: int) -> int:
+    """The textured launcher's tile rule; returns P."""
+    P = tile_w * tile_h
+    if P % 128 or P < 256:
+        raise ValueError(f"textured tiles need P % 128 == 0 and P >= 256, "
+                         f"got {tile_w}x{tile_h} (the JAX launcher's "
+                         f"Mosaic lane constraint, kept for parity)")
+    return P
+
+
 def _on_cpu(table, kernel: str) -> bool:
     """True for CPU tensors (run the plain version), False for CUDA ones
     (launch the kernel); raises for any other device."""
@@ -302,11 +361,7 @@ def raster_tiles_tex_u8(sorted_pad, starts, counts, table, tex_packed,
 
     CUDA tensors launch the kernel on the current stream (no sync);
     CPU tensors run :func:`raster_tiles_tex_u8_reference`."""
-    P = tile_w * tile_h
-    if P % 128 or P < 256:
-        raise ValueError(f"textured tiles need P % 128 == 0 and P >= 256, "
-                         f"got {tile_w}x{tile_h} (the JAX launcher's "
-                         f"Mosaic lane constraint, kept for parity)")
+    P = _check_tex_tile(tile_w, tile_h)
     _check_inputs(sorted_pad, starts, counts, table, tile_w, tile_h,
                   packed_bg=packed_bg, tex_packed=tex_packed,
                   tex_dims=tex_dims)
@@ -470,6 +525,130 @@ def raster_tiles_rows_u8(rows, starts, counts, packed_bg, width: int,
 raster_tiles_rows_u8.launches = 0
 
 
+def _check_mxu(mxu: int) -> int:
+    if mxu not in (1, 2):
+        raise ValueError(f"mxu must be 1 (near float32) or 2 (one bfloat16 "
+                         f"pass), got {mxu}")
+    return mxu
+
+
+def raster_tiles_flat_u8_wf(sorted_pad, starts, counts, table, packed_bg,
+                            width: int, tile_w: int, tile_h: int, *,
+                            opaque: bool, z_clip: bool, wf: int,
+                            mxu: int = 0):
+    """Kernel K1-wf: K1's output, (NT, P) packed u8 RGBA int32 (B frames:
+    (B, NT, P)), from a persistent launch — counterpart of the ``wf``
+    branch of ``raster_tiles_flat`` (``pallas_raster.py:713-748``, kernel
+    ``kernel_wf`` ``:624-655``).  The TPU programs each walked ``wf``
+    consecutive tiles and copied their id blocks into SMEM themselves;
+    here a grid of at most the card's resident blocks claims ``wf``
+    consecutive tiles at a time from a counter and walks them with K1's
+    tile body, so the values are K1's (:func:`raster_tiles_flat_u8`) for
+    every ``wf`` >= 1.  With ``mxu`` (an affine table) the tile body is
+    the matrix-unit walk's (:func:`raster_tiles_flat_u8_mxu`), as JAX's
+    wf branch takes its ``mxu``.
+
+    CUDA tensors launch the kernel on the current stream (no sync);
+    CPU tensors run K1's plain version (with ``mxu``, K1-mxu's)."""
+    if wf < 1:
+        raise ValueError(f"wf must be >= 1, got {wf}")
+    if mxu:
+        _check_mxu(mxu)
+    _check_inputs(sorted_pad, starts, counts, table, tile_w, tile_h,
+                  packed_bg=packed_bg)
+    if _on_cpu(table, "K1-wf"):
+        if mxu:
+            return raster_tiles_flat_u8_mxu_reference(
+                sorted_pad, starts, counts, table, packed_bg, width, tile_w,
+                tile_h, opaque=opaque, z_clip=z_clip, mxu=mxu)
+        return raster_tiles_flat_u8_reference(
+            sorted_pad, starts, counts, table, packed_bg, width, tile_w,
+            tile_h, opaque=opaque, z_clip=z_clip)
+    out = torch.empty(counts.shape + (tile_w * tile_h,), dtype=torch.int32,
+                      device=table.device)
+    claim = torch.empty(1, dtype=torch.int32, device=table.device)
+    _launch("tile_raster_u8_wf", sorted_pad, starts, counts, counts.shape[-1],
+            table, width, tile_w, tile_h, z_clip, packed_bg, int(opaque),
+            mxu, wf, claim, out)
+    raster_tiles_flat_u8_wf.launches += 1
+    return out
+
+
+raster_tiles_flat_u8_wf.launches = 0
+
+
+def raster_tiles_flat_u8_mxu(sorted_pad, starts, counts, table, packed_bg,
+                             width: int, tile_w: int, tile_h: int, *,
+                             opaque: bool, z_clip: bool, mxu: int):
+    """Kernel K1-mxu: K1's u8 output from the matrix-unit walk over an
+    affine table (:func:`build_table_mxu`) — counterpart of the ``mxu``
+    branch of ``_make_kernel_flat`` (``pallas_raster.py:242-250,285-301,
+    326-327``) in the u8 launch (``:793``).  Each slot's 8 planes (edges,
+    depth, attributes) at 16 pixels are one bf16 tensor-core product with
+    float32 accumulation: ``mxu=1`` splits coordinates and coefficients
+    into exact bf16 parts (near float32, the TPU's HIGHEST), ``mxu=2``
+    takes one bf16 pass (the TPU's DEFAULT, which rounds the pixel
+    coordinates themselves: a measurement setting).  Coverage, key and
+    minimum are K1's; the channels are the winner's planes 4 + d.  B
+    frames (a leading B) in one launch.
+
+    CUDA tensors launch the kernel on the current stream (no sync); CPU
+    tensors run :func:`raster_tiles_flat_u8_mxu_reference`, which the
+    kernel matches within a tolerance (the tensor cores' accumulation is
+    not IEEE round-to-nearest)."""
+    _check_mxu(mxu)
+    _check_inputs(sorted_pad, starts, counts, table, tile_w, tile_h,
+                  packed_bg=packed_bg)
+    if _on_cpu(table, "K1-mxu"):
+        return raster_tiles_flat_u8_mxu_reference(
+            sorted_pad, starts, counts, table, packed_bg, width, tile_w,
+            tile_h, opaque=opaque, z_clip=z_clip, mxu=mxu)
+    out = torch.empty(counts.shape + (tile_w * tile_h,), dtype=torch.int32,
+                      device=table.device)
+    _launch("tile_raster_u8_mxu", sorted_pad, starts, counts,
+            counts.shape[-1], table, width, tile_w, tile_h, z_clip,
+            packed_bg, int(opaque), mxu, out)
+    raster_tiles_flat_u8_mxu.launches += 1
+    return out
+
+
+raster_tiles_flat_u8_mxu.launches = 0
+
+
+def raster_tiles_tex_u8_mxu(sorted_pad, starts, counts, table, tex_packed,
+                            tex_dims, packed_bg, width: int, tile_w: int,
+                            tile_h: int, *, z_clip: bool, mxu: int):
+    """K3 over the matrix-unit walk: the packed texel of the winner's
+    clamped-nearest texel, its (u, v, 1/w) the winner's planes 4..6 of an
+    affine textured table — counterpart of ``raster_tiles_tex`` with
+    ``mxu`` (``pallas_raster.py:895``).  Inputs and the tile rule as
+    :func:`raster_tiles_tex_u8`, the walk as
+    :func:`raster_tiles_flat_u8_mxu`.
+
+    CUDA tensors launch the kernel on the current stream (no sync); CPU
+    tensors run :func:`raster_tiles_tex_u8_mxu_reference`."""
+    _check_mxu(mxu)
+    _check_tex_tile(tile_w, tile_h)
+    _check_inputs(sorted_pad, starts, counts, table, tile_w, tile_h,
+                  packed_bg=packed_bg, tex_packed=tex_packed,
+                  tex_dims=tex_dims)
+    if _on_cpu(table, "K3-mxu"):
+        return raster_tiles_tex_u8_mxu_reference(
+            sorted_pad, starts, counts, table, tex_packed, tex_dims,
+            packed_bg, width, tile_w, tile_h, z_clip=z_clip, mxu=mxu)
+    th, tw = tex_dims
+    out = torch.empty(counts.shape + (tile_w * tile_h,), dtype=torch.int32,
+                      device=table.device)
+    _launch("tile_raster_tex_u8_mxu", sorted_pad, starts, counts,
+            counts.shape[-1], table, width, tile_w, tile_h, z_clip,
+            tex_packed, tw, th, packed_bg, mxu, out)
+    raster_tiles_tex_u8_mxu.launches += 1
+    return out
+
+
+raster_tiles_tex_u8_mxu.launches = 0
+
+
 def _edges(r, X, Y):
     """e_i = (A_i x + B_i y) + C_i of the three sign-folded edges; r[..., k]
     is row column k, broadcast against the pixel coordinates X, Y."""
@@ -477,19 +656,30 @@ def _edges(r, X, Y):
             for i in range(3)]
 
 
+def _affine(r, X, Y, q: int):
+    """Plane q of an affine row (:func:`build_table_mxu`),
+    (a_x x + a_y y) + c, each operation rounded on its own."""
+    return r[..., 4 * q] * X + r[..., 4 * q + 1] * Y + r[..., 4 * q + 2]
+
+
 def _walk(n_walk, rows_at, nt: int, width: int, tile_w: int, tile_h: int,
-          z_clip: bool):
+          z_clip: bool, mxu: int = 0):
     """The min-key walk the plain versions share, vectorised over tiles
     and pixels: ``n_walk`` (NB,) slots of each of NB = B * nt tiles (tile
     b is tile b % nt of frame b // nt), ``rows_at(tiles, slots)`` the
     rows (n, ..., ROW_W) of those slots of those tiles — the row source.
     The minimum key over each run is found ``REF_CHUNK`` slots at a time,
     over the tiles whose run reaches the chunk; then the winner's row is
-    fetched again and its edge values recomputed.  Every quantity is the
-    kernel's expression in the kernel's order, so the recomputed edge
-    values equal those of the walk.  Returns (best keys (NB, P) int32,
-    winner rows (NB, P, ROW_W), winner edge values [e0, e1, e2]); a sky
-    pixel's row and edge values are those of slot 0 and mean nothing."""
+    fetched again and its values recomputed.  Every quantity is the
+    kernel's expression in the kernel's order, so the recomputed values
+    equal those of the walk.
+
+    With ``mxu`` the rows are affine (:func:`build_table_mxu`): edges,
+    depth and attributes are the planes :func:`_affine` of the pixel
+    coordinates; ``mxu=2`` rounds the coordinates to bfloat16 first (the
+    caller rounds the table).  Returns (best keys (NB, P) int32, attr)
+    with ``attr(d)`` the winners' attribute d, (NB, P); a sky pixel's
+    attributes are those of slot 0 and mean nothing."""
     nb = n_walk.shape[0]
     P = tile_w * tile_h
     ntx = (width + tile_w - 1) // tile_w
@@ -500,6 +690,15 @@ def _walk(n_walk, rows_at, nt: int, width: int, tile_w: int, tile_h: int,
     p = torch.arange(P, dtype=i32, device=dev)
     X = ((t % ntx * tile_w)[:, None] + p % tile_w).to(torch.float32)
     Y = ((t // ntx * tile_h)[:, None] + p // tile_w).to(torch.float32)
+    if mxu == 2:
+        X, Y = bf16_round(X), bf16_round(Y)
+
+    def planes(r, x, y):
+        """e0, e1, e2 and the depth of rows r at pixels (x, y)."""
+        if mxu:
+            return [_affine(r, x, y, q) for q in range(4)]
+        e0, e1, e2 = _edges(r, x, y)
+        return [e0, e1, e2, e0 * r[..., 9] + e1 * r[..., 10] + e2 * r[..., 11]]
 
     best = torch.full((nb, P), SKY_KEY, dtype=i32, device=dev)
     kmax = int(n_walk.max()) if nb else 0
@@ -507,8 +706,7 @@ def _walk(n_walk, rows_at, nt: int, width: int, tile_w: int, tile_h: int,
         act = torch.nonzero(n_walk > base).squeeze(1)
         j = base + torch.arange(REF_CHUNK, dtype=i32, device=dev)  # (ck,)
         r = rows_at(act, j.expand(act.shape[0], -1))[:, :, None, :]
-        e0, e1, e2 = _edges(r, X[act][:, None, :], Y[act][:, None, :])
-        zz = e0 * r[..., 9] + e1 * r[..., 10] + e2 * r[..., 11]
+        e0, e1, e2, zz = planes(r, X[act][:, None, :], Y[act][:, None, :])
         cov = (e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0)
         if z_clip:
             cov = cov & (zz >= 0.0) & (zz <= 1.0)
@@ -519,7 +717,10 @@ def _walk(n_walk, rows_at, nt: int, width: int, tile_w: int, tile_h: int,
 
     slot = torch.where(best != SKY_KEY, best & IDX_MASK, 0)
     r = rows_at(b, slot)                                 # (NB, P, 32)
-    return best, r, _edges(r, X, Y)
+    if mxu:
+        return best, lambda d: _affine(r, X, Y, 4 + d)
+    e = _edges(r, X, Y)
+    return best, lambda d: _channel(r, e, d)
 
 
 def _frame_of(tiles, nt: int, slots):
@@ -528,14 +729,17 @@ def _frame_of(tiles, nt: int, slots):
 
 
 def _pairs_walk(sorted_pad, starts, counts, table, width, tile_w, tile_h,
-                z_clip):
-    """:func:`_walk` over the sorted pair array (K1, K3, K2b, K2a), one
-    frame or B frames (leading B); outputs keep the leading shape."""
+                z_clip, mxu=0):
+    """:func:`_walk` over the sorted pair array (K1, K3, K2b, K2a and the
+    matrix-unit walk), one frame or B frames (leading B); the keys keep
+    the leading shape.  ``mxu=2`` rounds the table to bfloat16."""
     nt = counts.shape[-1]
     spad, nrows = sorted_pad.shape[-1], table.shape[-2]
     sp = sorted_pad.reshape(-1)
     st = starts.reshape(-1)
     tb = table.reshape(-1, ROW_W)
+    if mxu == 2:
+        tb = bf16_round(tb)
 
     def rows_at(tiles, slots):
         f = _frame_of(tiles, nt, slots)
@@ -543,9 +747,9 @@ def _pairs_walk(sorted_pad, starts, counts, table, width, tile_w, tile_h,
         tri = (sp[f * spad + idx] & IDX_MASK).clamp(max=nrows - 1)
         return tb[f * nrows + tri]
 
-    best, r, e = _walk(counts.reshape(-1), rows_at, nt, width, tile_w,
-                       tile_h, z_clip)
-    return best.reshape(counts.shape + best.shape[1:]), r, e
+    best, attr = _walk(counts.reshape(-1), rows_at, nt, width, tile_w,
+                       tile_h, z_clip, mxu)
+    return best.reshape(counts.shape + best.shape[1:]), attr
 
 
 def _channel(r, e, d: int):
@@ -556,34 +760,43 @@ def _channel(r, e, d: int):
             + e2 * r[..., 14 + 2 * D + d])
 
 
-def _texel_index(r, e, tex_dims):
-    """vi * tw + ui of the winner's clamped-nearest texel (K2b's and K3's
-    epilogue, ``pallas_raster.py:361-366``).  The divisor is a tensor:
-    CUDA torch divides by a Python scalar as a reciprocal multiply."""
+def _texel_index(attr, tex_dims):
+    """vi * tw + ui of the winner's clamped-nearest texel from its
+    attributes ``attr(d)`` (K2b's and K3's epilogue,
+    ``pallas_raster.py:361-366``).  The divisor is a tensor: CUDA torch
+    divides by a Python scalar as a reciprocal multiply."""
     th, tw = tex_dims
-    den = _channel(r, e, 2)
+    den = attr(2)
     safe = torch.where(den != 0.0, den, 1.0)
-    ui = _to_i32(_channel(r, e, 0) / safe * tw).clamp(0, tw - 1)
-    vi = _to_i32(_channel(r, e, 1) / safe * th).clamp(0, th - 1)
+    ui = _to_i32(attr(0) / safe * tw).clamp(0, tw - 1)
+    vi = _to_i32(attr(1) / safe * th).clamp(0, th - 1)
     return vi * tw + ui
 
 
-def _u8_epilogue(best, r, e, packed_bg, opaque: bool):
-    """K1's and K6's packed u8 RGBA of the winners, packed bg for sky."""
-    q = [_quant_u8(_channel(r, e, d)) for d in range(3 if opaque else 4)]
+def _u8_epilogue(best, attr, packed_bg, opaque: bool):
+    """K1's and K6's packed u8 RGBA of the winners' attributes
+    ``attr(d)``, packed bg for sky."""
+    q = [_quant_u8(attr(d)) for d in range(3 if opaque else 4)]
     a8 = _ALPHA_255 if opaque else q[3] << 24
     packed = q[0] | (q[1] << 8) | (q[2] << 16) | a8
     return torch.where(best != SKY_KEY, packed.reshape(best.shape),
                        packed_bg)
 
 
-def _keys_f32_epilogue(best, r, e):
-    """K2a's and K5's outputs: the keys, and each attribute of the winner
-    (0 for sky) stacked as (..., D, P)."""
+def _keys_f32_epilogue(best, attr):
+    """K2a's and K5's outputs: the keys, and each attribute ``attr(d)``
+    of the winner (0 for sky) stacked as (..., D, P)."""
     hit = best != SKY_KEY
-    rgba = torch.stack([torch.where(hit, _channel(r, e, d).reshape(
-        best.shape), 0.0) for d in range(D)], dim=-2)
+    rgba = torch.stack([torch.where(hit, attr(d).reshape(best.shape), 0.0)
+                        for d in range(D)], dim=-2)
     return best, rgba
+
+
+def _tex_u8_epilogue(best, attr, tex_packed, tex_dims, packed_bg):
+    """K3's packed texel of the winners, packed bg for sky."""
+    texel = tex_packed[_texel_index(attr, tex_dims).long()]
+    return torch.where(best != SKY_KEY, texel.reshape(best.shape),
+                       packed_bg)
 
 
 def raster_tiles_flat_u8_reference(sorted_pad, starts, counts, table,
@@ -591,9 +804,9 @@ def raster_tiles_flat_u8_reference(sorted_pad, starts, counts, table,
                                    tile_h: int, *, opaque: bool,
                                    z_clip: bool):
     """Plain torch version of K1, same values bit for bit."""
-    best, r, e = _pairs_walk(sorted_pad, starts, counts, table, width,
+    best, attr = _pairs_walk(sorted_pad, starts, counts, table, width,
                              tile_w, tile_h, z_clip)
-    return _u8_epilogue(best, r, e, packed_bg, opaque)
+    return _u8_epilogue(best, attr, packed_bg, opaque)
 
 
 def raster_tiles_tex_u8_reference(sorted_pad, starts, counts, table,
@@ -601,30 +814,56 @@ def raster_tiles_tex_u8_reference(sorted_pad, starts, counts, table,
                                   width: int, tile_w: int, tile_h: int, *,
                                   z_clip: bool):
     """Plain torch version of K3, same values bit for bit."""
-    best, r, e = _pairs_walk(sorted_pad, starts, counts, table, width,
+    best, attr = _pairs_walk(sorted_pad, starts, counts, table, width,
                              tile_w, tile_h, z_clip)
-    texel = tex_packed[_texel_index(r, e, tex_dims).long()]
-    return torch.where(best != SKY_KEY, texel.reshape(best.shape),
-                       packed_bg)
+    return _tex_u8_epilogue(best, attr, tex_packed, tex_dims, packed_bg)
 
 
 def raster_tiles_tex_idx_reference(sorted_pad, starts, counts, table,
                                    tex_dims, width: int, tile_w: int,
                                    tile_h: int, *, z_clip: bool):
     """Plain torch version of K2b, same values bit for bit."""
-    best, r, e = _pairs_walk(sorted_pad, starts, counts, table, width,
+    best, attr = _pairs_walk(sorted_pad, starts, counts, table, width,
                              tile_w, tile_h, z_clip)
     return torch.where(best != SKY_KEY,
-                       _texel_index(r, e, tex_dims).reshape(best.shape), -1)
+                       _texel_index(attr, tex_dims).reshape(best.shape), -1)
 
 
 def raster_tiles_keys_f32_reference(sorted_pad, starts, counts, table,
                                     width: int, tile_w: int, tile_h: int,
                                     *, z_clip: bool):
     """Plain torch version of K2a, same values bit for bit."""
-    best, r, e = _pairs_walk(sorted_pad, starts, counts, table, width,
+    best, attr = _pairs_walk(sorted_pad, starts, counts, table, width,
                              tile_w, tile_h, z_clip)
-    return _keys_f32_epilogue(best, r, e)
+    return _keys_f32_epilogue(best, attr)
+
+
+def raster_tiles_flat_u8_mxu_reference(sorted_pad, starts, counts, table,
+                                       packed_bg, width: int, tile_w: int,
+                                       tile_h: int, *, opaque: bool,
+                                       z_clip: bool, mxu: int):
+    """Plain torch version of K1-mxu over an affine table
+    (:func:`build_table_mxu`): each plane (a_x x + a_y y) + c with every
+    operation rounded on its own, table and coordinates first rounded to
+    bfloat16 with ``mxu=2``; then K1's coverage, z test, key, strict
+    minimum and u8 epilogue on those planes, the channels the winner's
+    planes 4 + d.  The kernel accumulates on the tensor cores and is held
+    to this within a tolerance, not bit for bit."""
+    best, attr = _pairs_walk(sorted_pad, starts, counts, table, width,
+                             tile_w, tile_h, z_clip, _check_mxu(mxu))
+    return _u8_epilogue(best, attr, packed_bg, opaque)
+
+
+def raster_tiles_tex_u8_mxu_reference(sorted_pad, starts, counts, table,
+                                      tex_packed, tex_dims, packed_bg,
+                                      width: int, tile_w: int, tile_h: int,
+                                      *, z_clip: bool, mxu: int):
+    """Plain torch version of K3's matrix-unit walk: the walk of
+    :func:`raster_tiles_flat_u8_mxu_reference`, then K3's texel epilogue
+    on the winner's planes 4..6."""
+    best, attr = _pairs_walk(sorted_pad, starts, counts, table, width,
+                             tile_w, tile_h, z_clip, _check_mxu(mxu))
+    return _tex_u8_epilogue(best, attr, tex_packed, tex_dims, packed_bg)
 
 
 def raster_tiles_bins_f32_reference(bins, counts, table, width: int,
@@ -639,10 +878,10 @@ def raster_tiles_bins_f32_reference(bins, counts, table, width: int,
         tri = bn[tiles.reshape(f.shape), slots.clamp(max=K - 1)]
         return tb[f * nrows + tri.clamp(0, nrows - 1)]
 
-    best, r, e = _walk(counts.reshape(-1).clamp(max=K), rows_at, nt, width,
+    best, attr = _walk(counts.reshape(-1).clamp(max=K), rows_at, nt, width,
                        tile_w, tile_h, True)
-    return _keys_f32_epilogue(best.reshape(counts.shape + best.shape[1:]), r,
-                              e)
+    return _keys_f32_epilogue(best.reshape(counts.shape + best.shape[1:]),
+                              attr)
 
 
 def raster_tiles_rows_u8_reference(rows, starts, counts, packed_bg,
@@ -657,10 +896,10 @@ def raster_tiles_rows_u8_reference(rows, starts, counts, packed_bg,
         idx = (st[tiles].reshape(f.shape) + slots).clamp(max=cap - 1)
         return rw[f * cap + idx]
 
-    best, r, e = _walk(counts.reshape(-1), rows_at, nt, width, tile_w,
+    best, attr = _walk(counts.reshape(-1), rows_at, nt, width, tile_w,
                        tile_h, False)
-    return _u8_epilogue(best.reshape(counts.shape + best.shape[1:]), r, e,
-                        packed_bg, True)
+    return _u8_epilogue(best.reshape(counts.shape + best.shape[1:]), attr,
+                    packed_bg, True)
 
 
 def render_binned_pallas_flat(sorted_pad, starts, counts, table, bg,
@@ -696,13 +935,21 @@ def render_binned_pallas_flat_batch_u8(sorted_pads, starts, counts, tables,
                                        bg, width: int, height: int,
                                        tile_w: int, tile_h: int, *,
                                        opaque: bool = False,
-                                       z_clip: bool = True):
+                                       z_clip: bool = True, mxu: int = 0):
     """B frames through K1 in one launch, detiled: (B, H, W, 4) uint8 —
     counterpart of ``pallas_raster.render_binned_pallas_flat_batch_u8``
-    (``:1010-1045``); inputs as :func:`render_binned_pallas_flat_batch`."""
-    packed = raster_tiles_flat_u8(sorted_pads, starts, counts, tables,
-                                  pack_bg(bg), width, tile_w, tile_h,
-                                  opaque=opaque, z_clip=z_clip)
+    (``:1010-1045``); inputs as :func:`render_binned_pallas_flat_batch`.
+    With ``mxu`` the tables are affine (:func:`build_table_mxu`) and the
+    launch is K1-mxu's."""
+    kw = dict(opaque=opaque, z_clip=z_clip)
+    if mxu:
+        packed = raster_tiles_flat_u8_mxu(sorted_pads, starts, counts,
+                                          tables, pack_bg(bg), width, tile_w,
+                                          tile_h, mxu=mxu, **kw)
+    else:
+        packed = raster_tiles_flat_u8(sorted_pads, starts, counts, tables,
+                                      pack_bg(bg), width, tile_w, tile_h,
+                                      **kw)
     return detile_packed(packed, width, height, tile_w, tile_h)
 
 

@@ -331,7 +331,8 @@ def _walk_before(sorted_pad, starts, counts, table, width, tile_w, tile_h,
         best = torch.minimum(best, torch.where(cov, keys, tr.SKY_KEY).amin(1))
     slot = torch.where(best != tr.SKY_KEY, best & tr.IDX_MASK, 0)
     r = rows_at(slot)
-    return best, r, tt._edges(r, X, Y)
+    e = tt._edges(r, X, Y)
+    return best, lambda d: tt._channel(r, e, d)
 
 
 @pytest.mark.parametrize("opaque,z_clip", [(True, False), (False, True)])
@@ -342,14 +343,14 @@ def test_row_source_leaves_k1_k2a_bit_identical(opaque, z_clip):
                             capacity=96, z_clip=z_clip)
     walk = (prep["sorted_pad"], prep["starts"], prep["counts"],
             prep["table"])
-    best, r, e = _walk_before(*walk, W, TW, TH, z_clip)
+    best, attr = _walk_before(*walk, W, TW, TH, z_clip)
     bgp = tt.pack_bg(torch.from_numpy(BG))
     assert torch.equal(
         tt.raster_tiles_flat_u8(*walk, bgp, W, TW, TH, opaque=opaque,
                                 z_clip=z_clip),
-        tt._u8_epilogue(best, r, e, bgp, opaque))
+        tt._u8_epilogue(best, attr, bgp, opaque))
     keys, rgba = tt.raster_tiles_keys_f32(*walk, W, TW, TH, z_clip=z_clip)
-    want_k, want_r = tt._keys_f32_epilogue(best, r, e)
+    want_k, want_r = tt._keys_f32_epilogue(best, attr)
     assert torch.equal(keys, want_k)
     assert torch.equal(rgba.view(torch.int32), want_r.view(torch.int32))
 
@@ -366,13 +367,13 @@ def test_row_source_leaves_k3_bit_identical():
         z_clip=True)
     walk = (prep["sorted_pad"], prep["starts"], prep["counts"],
             prep["table"])
-    best, r, e = _walk_before(*walk, 64, 32, 8, True)
+    best, attr = _walk_before(*walk, 64, 32, 8, True)
     packed = tr.pack_texture_u8(tex)
     bgp = tt.pack_bg(torch.zeros(4))
     got = tt.raster_tiles_tex_u8(*walk, packed, (24, 40), bgp, 64, 32, 8,
                                  z_clip=True)
     want = torch.where(best != tr.SKY_KEY,
-                       packed[tt._texel_index(r, e, (24, 40)).long()], bgp)
+                       packed[tt._texel_index(attr, (24, 40)).long()], bgp)
     assert torch.equal(got, want)
     assert (best != tr.SKY_KEY).float().mean() > 0.2
 

@@ -72,11 +72,12 @@ def test_cuda_device_raises_without_a_card(monkeypatch):
     ("near_clip", True)])
 def test_tpu_knobs_raise_type_error(knob, value):
     verts, faces, colors = interop.mesh_to_torch(*_tri(), "cpu")
-    if knob == "near_clip":
-        # a parameter of the single-frame entry now (the JAX entry has
-        # it); the loop entry and the pipeline, like JAX's loop, do not
+    if knob in ("near_clip", "wf", "mxu"):
+        # parameters of the single-frame entry now (the JAX entry has
+        # them: wf walks K1-wf, mxu K1-mxu); the loop entry and the
+        # pipeline, like JAX's loop, do not
         frame, ovf = tr.render_gouraud_u8(verts, faces, colors, 16, 16,
-                                          near_clip=True)
+                                          **{knob: value})
         assert frame.shape == (16, 16, 4) and not bool(ovf)
         assert frame[..., 3].any()
     else:
@@ -97,16 +98,36 @@ def test_tpu_knobs_raise_type_error(knob, value):
     ("out8", True), ("ktail", 8), ("wide_split", True), ("mxu", 1)])
 def test_gouraud_pallas_tpu_knobs_raise_type_error(knob, value):
     # the float entries refuse the TPU layout knobs; kcc is accepted and
-    # changes no value
+    # changes no value.  wf and mxu are taken on the flat u8 route (the
+    # batch entry takes mxu only, as JAX's) and refused with a ValueError
+    # on the others, as the JAX entries assert
     verts, faces, colors = interop.mesh_to_torch(*_tri(), "cpu")
-    for kw in (dict(), dict(flat=True, u8=True)):
-        with pytest.raises(TypeError):
+    u8 = dict(flat=True, u8=True)
+    eye = torch.eye(4)[None]
+    if knob in ("wf", "mxu"):
+        frame, _, ovf = tr.render_gouraud_pallas(verts, faces, colors, 16,
+                                                 16, **u8, **{knob: value})
+        assert frame.shape == (16, 16, 4) and not bool(ovf)
+        with pytest.raises(ValueError):
             tr.render_gouraud_pallas(verts, faces, colors, 16, 16,
-                                     **kw, **{knob: value})
-        with pytest.raises(TypeError):
+                                     **{knob: value})
+    else:
+        for kw in (dict(), u8):
+            with pytest.raises(TypeError):
+                tr.render_gouraud_pallas(verts, faces, colors, 16, 16,
+                                         **kw, **{knob: value})
+    if knob == "mxu":
+        frames, _, ovf = tr.render_gouraud_pallas_batch(
+            verts, faces, colors, 16, 16, eye, **u8, mxu=value)
+        assert frames.shape == (1, 16, 16, 4) and not bool(ovf)
+        with pytest.raises(ValueError):
             tr.render_gouraud_pallas_batch(verts, faces, colors, 16, 16,
-                                           torch.eye(4)[None], **kw,
-                                           **{knob: value})
+                                           eye, mxu=value)
+    else:
+        for kw in (dict(), u8):
+            with pytest.raises(TypeError):
+                tr.render_gouraud_pallas_batch(verts, faces, colors, 16, 16,
+                                               eye, **kw, **{knob: value})
     a = tr.render_gouraud_pallas(verts, faces, colors, 16, 16, kcc=8)
     b = tr.render_gouraud_pallas(verts, faces, colors, 16, 16)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
@@ -156,3 +177,14 @@ def test_canvas_tpu_knobs_raise_type_error(knob, value):
         port.RenderContext(16, 16, True, device="cpu", **{knob: value})
     # nor does the port's config carry them
     assert not hasattr(config, f"set_{knob}")
+
+
+def test_atlas_store_needs_a_device():
+    # no public function of the port falls to the CPU when no device is
+    # named: the atlas store takes its device as a required argument
+    from libnativecpurenderer_tpu_torch import atlas
+    with pytest.raises(TypeError):
+        atlas.get_store(torch.float32)
+    store = atlas.get_store(None, "cpu")
+    assert store.dtype == config.default_dtype()
+    assert store.atlas.device == torch.device("cpu")
