@@ -21,6 +21,11 @@ raising:
      other instantiations (1, 2, 8 and 16 pixels a thread, the JAX
      entry's default 128x16 among them), one of them with runs longer
      than the capacity (a flagged overflow, whose reads stay in bounds);
+     then K1's split walk on runs at its boundaries (testing.crafted_runs:
+     1, S, S + 1, 2S, 2S + 1 and 1024 slots with NaN rows, a run read past
+     the pair array, runs overlapping past the item list's capacity) at
+     the kernel's S; mesh_10k's run statistics (longest, mean, tiles over
+     S, items);
   4. mesh main path: MeshVideoPipeline over 48 frames, batch 16, into a
      tiled sink and into a plain sink, after 3 timed runs of each whose
      sink drops the frames; no overflow, K1 launched once per frame,
@@ -28,7 +33,11 @@ raising:
      and one frame equal to the same frame rendered on the CPU by the
      plain versions;
   5. mesh times: K1 and plain ms/frame (CUDA events), pipeline frames/s,
-     peak device memory;
+     peak device memory; K1's split walk beside K1-wf with wf=1 (the old
+     walk, fma_tile), in turns (the stream held by a sleep while the
+     calls queue, so device time alone), one frame a launch and 4 frames
+     in one, at 32x32 and 128x16, beside the bound, with ptxas registers
+     and blocks an SM of both walks;
   6. k4 vs plain: at 1920x1080, in float32 and float64, K4 and its plain
      version on (a) the two arithmetic runs of bench.py's 60-command
      canvas frame over a nonzero framebuffer and (b) a seeded 64-command
@@ -58,7 +67,8 @@ raising:
      texture and one with crafted uv rows (huge, negative, tiny or zero
      denominators, NaN), fed to K3, K2b and K2a and to their plain
      versions on the card; packed texels, texel indices, keys and the
-     float attributes' bits must be equal;
+     float attributes' bits must be equal; K3's split walk on phase 3's
+     boundary runs;
  11. textured main paths: MeshVideoPipeline(uvs=, tex_u8=) on its
      default device over 48 frames, batch 16, into a tiled and a plain
      sink, after 3 timed runs into a sink that drops the frames: no
@@ -71,7 +81,10 @@ raising:
      launch a frame;
  12. textured times: K3, K2b and K2a and their plain versions ms/frame
      (CUDA events; K3 and K2b at 32x32 tiles, K2a at render_textured's
-     shapes) beside each bound, the device time by kernel, host
+     shapes) beside each bound; K3's split walk beside K2b (the old walk)
+     in turns (calls queued behind a sleep), one frame a launch and 4 in
+     one, at 32x32 and 128x16,
+     with registers and blocks an SM; the device time by kernel, host
      launches and syncs a frame and the busy share (profiler, 16
      frames), pipeline frames/s, peak device memory;
  13. k5 / k6 vs plain: at 1920x1080 on mesh_10k for 4 cameras, K5 on
@@ -202,10 +215,23 @@ def camera(mesh, k: float, step: float):
     return (proj @ view @ mesh.rotation_y(k * step)).astype(np.float32)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device ms per call of fn over reps calls, after one warm-up."""
+def cuda_ms(fn, reps: int, queued: bool = False) -> float:
+    """Mean device ms per call of fn over reps calls, after one warm-up.
+    With ``queued`` the stream first sleeps for longer than the host
+    takes to queue the calls (1.5 x a synced call's wall time, at most
+    0.1 s; torch.cuda._sleep counts cycles, taken at 2 GHz, above the
+    H100's clock), so the events time the device's work back to back and
+    not the host's launches; without it (the kernel table's times, as in
+    every earlier run) a call the host queues slower than the device runs
+    it is timed at the host's rate."""
     fn()
     torch.cuda.synchronize()
+    if queued:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ahead_s = min(0.1, 1.5 * reps * (time.perf_counter() - t))
+        torch.cuda._sleep(int(ahead_s * 2e9))
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
@@ -332,6 +358,68 @@ def walk_bound(preps, epi_ops: int, out_bytes_px: int, extra_bytes: int = 0,
                        out_bytes_px)
 
 
+def run_stats(preps) -> str:
+    """The runs of these frames' preps against the split walk's S: the
+    longest, the mean, the empty runs, the tiles longer than S, and the
+    items the plan lists (none for an empty run, one for a run of up to S
+    slots, ceil(count / S) for a longer one), each over the frames."""
+    from libnativecpurenderer_tpu_torch.ops.tile_raster import SEG as seg
+    cs = [p[2].reshape(-1).long().cpu() for p in preps]
+    items = [int(torch.where(c > seg, (c + seg - 1) // seg,
+                             (c > 0).long()).sum()) for c in cs]
+    return (f"longest {[int(c.max()) for c in cs]}, mean "
+            f"{[round(float(c.float().mean()), 2) for c in cs]}, empty "
+            f"{[int((c == 0).sum()) for c in cs]}, tiles over "
+            f"S={seg} {[int((c > seg).sum()) for c in cs]} of "
+            f"{cs[0].numel()}, items {items}")
+
+
+def split_cases(dev, bgp):
+    """Inputs at the split walk's boundaries (testing.crafted_runs, one
+    row of 32x32 tiles) at the kernel's S: runs of 1, S, S + 1, 2S, 2S + 1
+    and 1024 slots with NaN rows, the same with the last run read 300
+    slots past the pair array (an overflowed run), and every tile's run
+    the whole pair array (runs that overlap, so the item list would
+    outgrow its capacity and the plan makes every tile one item).
+    Returns [(label, walk args of K1 without opaque/z_clip)]."""
+    from libnativecpurenderer_tpu_torch.ops.tile_raster import SEG as seg
+    from libnativecpurenderer_tpu_torch.testing import crafted_runs
+    cases = []
+    lengths = [1, seg, seg + 1, 2 * seg, 2 * seg + 1, 1024]
+    for label, past in (("boundaries", 0), ("run past the array", 300)):
+        sp, st, ct, tb, w = crafted_runs(lengths, seed=seg, past_end=past)
+        cases.append((f"{label} S={seg}", tuple(
+            x.to(dev) for x in (sp, st, ct, tb)) + (bgp, w, 32, 32)))
+    sp, st, ct, tb, w = crafted_runs(lengths, seed=seg)
+    n = int(ct.sum())
+    cases.append((f"overlapping runs S={seg}", (
+        sp.to(dev), torch.zeros_like(st).to(dev),
+        torch.full_like(ct, n).to(dev), tb.to(dev), bgp, w, 32, 32)))
+    return cases
+
+
+def occupancy(_kernels, tex: bool, p: int, z_clip: bool) -> str:
+    """ptxas registers and resident blocks an SM of K1's (K3's) split walk
+    and of the old walk it is timed beside, K1-wf's kernel (K2b's), at
+    tiles of p pixels."""
+    new = _kernels.tile_raster_occupancy(True, tex, p, z_clip)
+    old = _kernels.tile_raster_occupancy(False, tex, p, z_clip)
+    return (f"split walk {new[0]} registers, {new[1]} blocks an SM; old "
+            f"walk ({'K2b' if tex else 'K1-wf'}) {old[0]} registers, "
+            f"{old[1]} blocks an SM")
+
+
+def in_turns(fns: dict, reps: int = 10) -> dict:
+    """Mean device ms a call of each of fns (name -> call), timed twice in
+    turns (a b .. b a), CUDA events with the calls queued behind a sleep
+    (:func:`cuda_ms` with ``queued``): name -> [first, second]."""
+    names = list(fns)
+    out = {n: [] for n in names}
+    for n in names + names[::-1]:
+        out[n].append(cuda_ms(fns[n], reps, queued=True))
+    return out
+
+
 def build_kernels(_kernels) -> float:
     """Build every kernel library of the port in parallel (one nvcc per
     source), load them, print the ptxas summary; returns the seconds."""
@@ -407,7 +495,28 @@ def mesh_phases(dev, card: str) -> dict:
         cfg = dict(tile_w=tw, tile_h=th, capacity=cap, span_x=8, span_y=8)
         max_err = max(max_err, k1_vs_plain(
             cams[2], opaque, z_clip, cfg, True if cap < 1024 else None)[1])
-    if tile_raster.raster_tiles_flat_u8.launches != 5 + len(OTHER_SHAPES):
+    # the split walk's boundary runs
+    cases = split_cases(dev, preps[0][4])
+    for label, args in cases:
+        for opaque, z_clip in ((True, False), (False, True)):
+            got = tile_raster.raster_tiles_flat_u8(
+                *args, opaque=opaque, z_clip=z_clip)
+            want = tile_raster.raster_tiles_flat_u8_reference(
+                *args, opaque=opaque, z_clip=z_clip)
+            torch.cuda.synchronize()
+            bad = same_bits(got, want)
+            print(f"[k1 vs plain] split walk, {label}, opaque={opaque} "
+                  f"z_clip={z_clip}: {bad} of {got.numel()} packed pixels "
+                  f"differ; runs {args[2].tolist()}, "
+                  f"{float((want != args[4]).float().mean()):.3f} covered",
+                  flush=True)
+            if bad:
+                raise AssertionError(f"K1 differs from its plain version at "
+                                     f"{label}")
+    print(f"[k1 runs] mesh_10k 1080p, 32x32, the 4 cameras: "
+          f"{run_stats(preps)}", flush=True)
+    n_k1 = 5 + len(OTHER_SHAPES) + 2 * len(cases)
+    if tile_raster.raster_tiles_flat_u8.launches != n_k1:
         raise AssertionError("a K1 comparison did not launch the kernel")
 
     def run_pipeline(sink, n, tiled):
@@ -476,10 +585,60 @@ def mesh_phases(dev, card: str) -> dict:
             tile_raster.raster_tiles_flat_u8_reference(*a, opaque=True,
                                                        z_clip=False)
 
-    saved = tile_raster.raster_tiles_flat_u8.launches
+    k1, wf_k = tile_raster.raster_tiles_flat_u8, tile_raster.raster_tiles_flat_u8_wf
+    saved = k1.launches, wf_k.launches
     k1_ms = cuda_ms(k1_all, 10) / len(preps)
     plain_ms = cuda_ms(plain_all, 2) / len(preps)
-    tile_raster.raster_tiles_flat_u8.launches = saved
+
+    # the split walk beside the old one, in turns: K1-wf with wf=1 walks
+    # fma_tile, K1's tile body before the split, one tile a claim (the
+    # same time as K1's old grid kernel); one frame a launch and the 4
+    # frames in one launch, at the video shape and at render_gouraud_u8's
+    # defaults (128x16, capacity 512, span (8, 8), opaque off, z test on)
+    from libnativecpurenderer_tpu_torch.ops import _kernels
+    gdef = defaults(raster3d.render_gouraud_u8)
+    d_preps = []
+    for mvp in cams:
+        p = raster3d.prepare_frame(verts, faces, colors, WIDTH, HEIGHT,
+                                   torch.from_numpy(mvp).to(dev),
+                                   z_clip=True, pre=pre, **gdef)
+        if bool(p["overflow"]):
+            raise AssertionError("a 128x16 prep overflows")
+        d_preps.append((p["sorted_pad"], p["starts"], p["counts"],
+                        p["table"], p["packed_bg"], WIDTH, gdef["tile_w"],
+                        gdef["tile_h"]))
+    turns = {}
+    for label, (pp, cfg, opaque, z_clip) in {
+            "32x32": (preps, PROD, True, False),
+            "128x16": (d_preps, gdef, False, True)}.items():
+        kw = dict(opaque=opaque, z_clip=z_clip)
+        four = tuple(torch.stack([a[i] for a in pp]) for i in range(4)) \
+            + pp[0][4:]
+        n = len(pp)
+        bad = same_bits(k1(*four, **kw), wf_k(*four, wf=1, **kw))
+        if bad:
+            raise AssertionError("K1 and K1-wf differ")
+        t = in_turns({
+            "K1": lambda: [k1(*a, **kw) for a in pp],
+            "K1-wf 1": lambda: [wf_k(*a, wf=1, **kw) for a in pp],
+            "K1 batch": lambda: k1(*four, **kw),
+            "K1-wf 1 batch": lambda: wf_k(*four, wf=1, **kw)})
+        t = {k: [v / n for v in vs] for k, vs in t.items()}
+        turns[label] = t
+        b = walk_bound(pp, 0, 4, tile=cfg)
+        be = walk_bound(pp, U8_EPI_OPS, 4, tile=cfg)
+        print(f"[mesh times] {card}: split walk vs old walk at {label} "
+              f"({cfg}, opaque={opaque}, z_clip={z_clip}), ms/frame in "
+              f"turns (CUDA events, calls queued behind a sleep, mean of 4 "
+              f"cameras; 'batch' = the 4 frames in one launch): "
+              + "; ".join(f"{k} {v}" for k, v in t.items())
+              + f"; bound {b[0]} ms/frame by {b[1]} (walk only; with the "
+              f"u8 epilogue {be[0]}), K1 at {b[0] / min(t['K1']):.4f} "
+              f"of it one frame a launch, {be[0] / min(t['K1 batch']):.4f}"
+              f" of the epilogue bound batched; "
+              f"{occupancy(_kernels, False, cfg['tile_w'] * cfg['tile_h'], z_clip)}",
+              flush=True)
+    k1.launches, wf_k.launches = saved
 
     # K1's bound on these 4 frames: the walk alone (its epilogue is not
     # counted, as in the bounds first reported for it)
@@ -602,6 +761,25 @@ def textured_phases(dev, card: str) -> list:
                                  f"disagree at {label}")
         if variant is None and persp and z_clip:
             preps.append(walk)
+    # K3's split walk on the boundary runs
+    for label, args in split_cases(dev, bgp):
+        sp, st, ct, tb, _, w, tw, th = args
+        for z_clip in (True, False):
+            targs = (sp, st, ct, tb, tex_packed, tex_dims, bgp, w, tw, th)
+            got = tile_raster.raster_tiles_tex_u8(*targs, z_clip=z_clip)
+            want = tile_raster.raster_tiles_tex_u8_reference(
+                *targs, z_clip=z_clip)
+            torch.cuda.synchronize()
+            bad = same_bits(got, want)
+            print(f"[tex vs plain] K3 split walk, {label}, z_clip={z_clip}: "
+                  f"{bad} of {got.numel()} pixels' texels differ; "
+                  f"{float((want != bgp).float().mean()):.3f} covered",
+                  flush=True)
+            if bad:
+                raise AssertionError(f"K3 differs from its plain version at "
+                                     f"{label}")
+    print(f"[tex runs] textured mesh_10k 1080p, 32x32, the 4 cameras: "
+          f"{run_stats(preps)}", flush=True)
 
     # 11. the main paths, each kernel's launches counted from zero
     def run_pipeline(sink, n, tiled, surface=None):
@@ -756,6 +934,44 @@ def textured_phases(dev, card: str) -> list:
                  for w in pp]
         ms[name] = (cuda_ms(lambda: [c() for c in kern], 10) / len(pp),
                     cuda_ms(lambda: [c() for c in plain], 2) / len(pp))
+    # K3's split walk beside K2b, the old walk with K3's epilogue but the
+    # texel load, in turns: one frame a launch and the 4 frames in one
+    # launch, at 32x32 and at 128x16 (capacity 512, span (8, 8))
+    from libnativecpurenderer_tpu_torch.ops import _kernels
+    shape16 = dict(tile_w=128, tile_h=16, capacity=512, span_x=8, span_y=8)
+    tex_turns = {}
+    for label, (pp, shape) in {
+            "32x32": (preps, cfg),
+            "128x16": ([(lambda p: (p["sorted_pad"], p["starts"],
+                                    p["counts"], p["table"]))(
+                prep(m, shape=shape16)) for m in cams], shape16)}.items():
+        tw, th = shape["tile_w"], shape["tile_h"]
+        four = tuple(torch.stack([w[i] for w in pp]) for i in range(4))
+        n = len(pp)
+        t = in_turns({
+            "K3": lambda: [tile_raster.raster_tiles_tex_u8(
+                *w, tex_packed, tex_dims, bgp, WIDTH, tw, th, z_clip=True)
+                for w in pp],
+            "K2b": lambda: [tile_raster.raster_tiles_tex_idx(
+                *w, tex_dims, WIDTH, tw, th, z_clip=True) for w in pp],
+            "K3 batch": lambda: tile_raster.raster_tiles_tex_u8(
+                *four, tex_packed, tex_dims, bgp, WIDTH, tw, th,
+                z_clip=True),
+            "K2b batch": lambda: tile_raster.raster_tiles_tex_idx(
+                *four, tex_dims, WIDTH, tw, th, z_clip=True)})
+        t = {k: [v / n for v in vs] for k, vs in t.items()}
+        tex_turns[label] = t
+        b = walk_bound(pp, K3_EPI_OPS, 4, 4 * tex_packed.numel(), tile=shape)
+        print(f"[tex times] {card}: K3's split walk vs K2b (the old walk) "
+              f"at {label} ({shape}), ms/frame in turns (CUDA events, calls "
+              f"queued behind a sleep, mean of 4 cameras; 'batch' = the 4 "
+              f"frames in one launch): "
+              + "; ".join(f"{k} {v}" for k, v in t.items())
+              + f"; K3 bound {b[0]} ms/frame by {b[1]}, K3 at "
+              f"{b[0] / min(t['K3']):.4f} of it one frame a launch, "
+              f"{b[0] / min(t['K3 batch']):.4f} batched; "
+              f"{occupancy(_kernels, True, tw * th, True)}; runs "
+              f"{run_stats(pp)}", flush=True)
     for kk in kernels:
         kk.launches = 0
     pipe = MeshVideoPipeline(DropSink(), WIDTH, HEIGHT, verts_np, faces_np,
@@ -919,7 +1135,8 @@ def gouraud_phases(dev, card: str) -> list:
     k2a = tile_raster.raster_tiles_keys_f32
     saved.append(k2a.launches)
     fb = [raster3d.prepare_frame(verts, faces, colors, WIDTH, HEIGHT, mvp,
-                                 pre=pre, **batch) for mvp in mvps]
+                                 pre=pre, exact_c=False, **batch)
+          for mvp in mvps]
     if any(bool(p["overflow"]) for p in fb):
         raise AssertionError("the K2a batch preps overflow")
     k2a_args = tuple(torch.stack([p[n] for p in fb])

@@ -10,8 +10,10 @@ reference it is tested against.  Slices so far:
   * textured mesh -> u8 frame: the same walk in the same CUDA source with
     texel epilogues (u8 texels, texel indices, float attributes and
     depth keys), and the textured half of ``MeshVideoPipeline``
-    (``render_textured_u8_batch`` is ``render_textured_u8_loop`` under
-    the JAX batch entry's defaults, not a path of its own);
+    (``render_textured_u8_batch`` with ``mxu=0`` is
+    ``render_textured_u8_loop`` under the JAX batch entry's defaults;
+    with ``mxu=1|2`` it is one launch of K3's matrix-unit walk over the
+    B frames);
   * the 2D canvas: ``RenderContext`` records draw calls on the host and
     its flush runs arithmetic command runs through a hand-written CUDA
     kernel (``csrc/canvas_span.cu``) and texture blits as torch ops;
@@ -20,7 +22,13 @@ reference it is tested against.  Slices so far:
     materialised bins, the flat f32 and u8 kernels, the kernel over rows
     gathered in pair order), ``near_clip`` on the binned entries, and the
     tensor-op paths ``render_gouraud`` (naive), ``render_gouraud_binned``,
-    ``render_textured_binned`` and ``render_blended``.
+    ``render_textured_binned`` and ``render_blended``;
+  * the ``wf=`` and ``mxu=`` routes of the u8 entries: ``wf=n`` of
+    ``render_gouraud_u8`` and ``render_gouraud_pallas(flat=True,
+    u8=True)`` walks with the persistent kernel K1-wf; ``mxu=1|2`` of
+    those two, of ``render_gouraud_pallas_batch``'s u8 route and of
+    ``render_textured_u8_batch`` walks an affine table on the tensor
+    cores (K1-mxu, K3's matrix-unit walk).
 Nothing here imports JAX.
 """
 

@@ -89,17 +89,59 @@
 // box only, so it walks more pairs at its 128x16 tiles than K2a.  The
 // runs are skewed (the longest holds ~220-250 triangles against a mean
 // of ~13), so the suspected bound is the tail of blocks that walk the
-// longest runs.
+// longest runs: one launch of 4 frames ran K1 at ~0.054 ms a frame.
 //
-// Design.  One block of 256 threads per tile; each thread owns
-// PPT = ceil(P / 256) pixels (4 at 32x32) and keeps its best key, its
-// winner's edge values and row in registers.  The run's rows (the 12 walk
-// columns) are staged through shared memory 32 at a time, each read by
-// all threads as a broadcast.  Only the winner is shaded, after the walk:
-// its attribute columns are read once from the (L2-resident) table.  No
-// tensor cores or TMA: nothing here is a matrix product or a large tile
-// copy.  A long run stays in one block; splitting long runs across blocks
-// is the lever if the tail is the bound.
+// The one-block-a-tile walk (fma_tile: K2b, K2a, K5, K6, K1-wf; K1-wf,
+// and K2b on K3's rows, are what chip_smoke.py times the split walk
+// against).  One block of 256 threads per tile; each thread owns PPT =
+// ceil(P / 256) pixels (4 at 32x32) and keeps its best key, its
+// winner's edge values and row in registers.  The run's rows
+// (the 12 walk columns) are staged through shared memory 32 at a time,
+// each read by all threads as a broadcast, two __syncthreads() a chunk.
+// Only the winner is shaded, after the walk: its attribute columns are
+// read once from the (L2-resident) table.  A long run stays in one block.
+//
+// The split walk (K1 and K3).  The tail is inside a tile, so no order of
+// claims cures it (K1-wf): the long run itself is cut.
+//   * Items.  A run of count <= S slots is one item; a longer one is
+//     ceil(count / S) items, item s walking slots [s S, min((s + 1) S,
+//     count)) with row_of's clamps (an overflowed run still reads in
+//     bounds).  S is the compile-time constant SEG (64); the merge below
+//     gives the same values for every S, which the plain mirror of the
+//     split walk (tests/test_torch_walk_split.py) holds for S = 1..128.
+//   * Merge by key, exactly.  A key is (zq << 18) | slot and slots are
+//     unique within a run, so the keys of one tile are unique and the
+//     minimum over the items' minima is the sequential strict minimum,
+//     whichever item finishes first.  Each item of a long tile does
+//     atomicMin (signed, the walk's `key < best` order) into the tile's
+//     row of the output, which the plan filled with SKY_KEY (the outputs
+//     are (B nt, P) int32, so no key scratch); after __threadfence() it
+//     counts its arrival on the tile's counter, and the last to arrive
+//     reads the merged keys (through L2) and runs the epilogue over them.
+//   * Only the key a pixel during the walk.  The winner's row is
+//     row_of(key & IDX_MASK) and its edges are recomputed in the
+//     epilogue with the walk's own __fmul_rn/__fadd_rn order at that
+//     pixel, so they are the walk's bits; brow and be0..be2 no longer
+//     live through the walk.
+//   * Scheduling on the device.  A plan kernel (block 0: a scan of the
+//     counts) lists the items, long tiles' first, in scratch sized by
+//     static shapes (B nt + B ids_len / S items) and zeroes the counters;
+//     its other blocks write the background into the tiles whose run is
+//     empty (most of a frame: no walk claims them).  A persistent walk,
+//     its grid the blocks the card holds at once, claims items from a
+//     counter.  No host sync; one wrapper call.
+//   * Staging.  Each row's columns 0..27 (the 12 walk columns and the
+//     attributes) are seven 16-byte cp.async (rows are 128-byte aligned)
+//     into one of two shared buffers; while a block walks one item, the
+//     next item's rows are in flight, so one __syncthreads() guards an
+//     item, and a run staged at once finds its winners' attributes in
+//     shared memory for the epilogue.
+//   * Not used: TMA copies boxes, and the rows are gathered by triangle
+//     id; the tensor cores do not round each sum (K1-mxu) and this walk
+//     is bit-equal to its plain version.
+//   * Settled by timing on an H100 (PERF.md): S = 64 and 5 blocks an SM
+//     at 32x32.  At 32x32 only ~450 of 2040 runs are not empty, so one
+//     frame is about one item a resident block.
 //
 // K1-wf.  The TPU's programs each walked wf consecutive tiles and copied
 // their id blocks into SMEM themselves, so no id window bound a program.
@@ -160,6 +202,9 @@ constexpr int D = 4;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int CHUNK = 32;       // triangle rows staged per pass
+constexpr int SEG = 64;         // split walk: slots an item walks at most
+constexpr int STAGE_COLS = 28;  // split walk: row columns staged (walk and
+                                // attributes: 0..27)
 constexpr int MAX_GROUPS = 8;   // MMA walk: 16-pixel groups a warp per pass
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -233,9 +278,10 @@ __device__ __forceinline__ int texel_index(const float* a, float e0,
                   th);
 }
 
-// K1's tile body (and K3's, K2b's, K2a's, K5's, K6's): block-wide walk of
-// tile b's run and the epilogue; the grid and the persistent kernels call
-// it, so their values cannot drift apart.
+// The one-block-a-tile body of K2b, K2a, K5, K6 and K1-wf (U8_GOURAUD,
+// TEX_IDX or KEYS_F32): block-wide walk of tile b's run and the
+// epilogue; the grid and the persistent kernels call it, so their values
+// cannot drift apart.
 template <int PPT, bool ZCLIP, int EPI, int SRC>
 __device__ __forceinline__ void fma_tile(const Walk& w, const Epi& ep,
                                          const int b) {
@@ -306,7 +352,7 @@ __device__ __forceinline__ void fma_tile(const Walk& w, const Epi& ep,
     }
   }
 
-  const int bgp = (EPI == U8_GOURAUD || EPI == TEX_U8) ? *ep.packed_bg : 0;
+  const int bgp = EPI == U8_GOURAUD ? *ep.packed_bg : 0;
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
     const int p = threadIdx.x + k * THREADS;
@@ -326,11 +372,6 @@ __device__ __forceinline__ void fma_tile(const Walk& w, const Epi& ep,
                        ((unsigned)q[2] << 16) | (a8 << 24));
       }
       ep.out[o] = packed;
-    } else if constexpr (EPI == TEX_U8) {
-      ep.out[o] = hit ? __ldg(ep.tex + texel_index(a, be0[k], be1[k],
-                                                   be2[k], ep.tex_w,
-                                                   ep.tex_h))
-                      : bgp;
     } else if constexpr (EPI == TEX_IDX) {
       ep.out[o] = hit ? texel_index(a, be0[k], be1[k], be2[k], ep.tex_w,
                                     ep.tex_h)
@@ -348,6 +389,320 @@ template <int PPT, bool ZCLIP, int EPI, int SRC>
 __global__ void __launch_bounds__(THREADS)
 tile_raster_kernel(const Walk w, const Epi ep) {
   fma_tile<PPT, ZCLIP, EPI, SRC>(w, ep, blockIdx.x);
+}
+
+// ---- K1 and K3: the split walk ----
+
+// The work list of one split launch, in scratch the wrapper allocates.
+struct Plan {
+  int2* items;    // (cap) items (tile b, segment s), long tiles' first
+  int cap;        // B * nt + (B * ids_len) / SEG: enough for runs that
+                  // partition each frame's pairs
+  int* counters;  // [0] claims, [1] items listed, [2] split on (the list
+                  // fit in cap), [3 + b] items of tile b finished
+};
+
+// items of a run of `count` slots: one up to SEG, else ceil(count / SEG)
+__device__ __forceinline__ int segments(int count) {
+  return count <= SEG ? 1 : count / SEG + (count % SEG != 0);
+}
+
+// Slots [lo, hi) of the run of tile b that item segment s walks, and the
+// items of that tile (k); with the split off every tile is one item.
+__device__ __forceinline__ void item_range(const Walk& w, bool split, int b,
+                                           int s, int& lo, int& hi, int& k) {
+  const int count = w.counts[b];
+  k = split ? segments(count) : 1;
+  lo = k > 1 ? s * SEG : 0;
+  hi = s == k - 1 ? count : lo + SEG;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Start copying columns 0..27 (the walk's and the attributes') of the
+// rows of slots [lo, lo + n) of tile b's run into rows: seven 16-byte
+// cp.async a row (rows are 128-byte aligned), the pair ids read once a
+// row by neighbouring threads.  The caller waits (cp_async_wait_all) and
+// syncs.
+constexpr int STAGE_CHUNKS = STAGE_COLS / 4;
+__device__ __forceinline__ void stage_rows(const Walk& w, int b, int lo,
+                                           int n,
+                                           float (*rows)[STAGE_COLS]) {
+  const int f = b / w.nt;
+  const int start = w.starts[b];
+  for (int i = threadIdx.x; i < STAGE_CHUNKS * n; i += THREADS) {
+    const int r = i / STAGE_CHUNKS;
+    const int c = i - STAGE_CHUNKS * r;
+    const int row = row_of<PAIRS>(w, b, f, start, lo + r);
+    cp_async16(&rows[r][4 * c], w.table + (size_t)row * ROW_W + 4 * c);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// e_i of a row at pixel (x, y), the walk's own expression
+__device__ __forceinline__ float edge(const float* r, int i, float x,
+                                      float y) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(r[3 * i], x), __fmul_rn(r[3 * i + 1], y)),
+                   r[3 * i + 2]);
+}
+
+// K1's or K3's value of pixel (x, y) of tile b whose winning key is key:
+// the winner's row is found again from the key's slot (in staged, the
+// shared rows of the whole run, when it was staged at once; else in the
+// table) and its edges recomputed in the walk's order, so they are the
+// walk's bits.
+template <int EPI>
+__device__ __forceinline__ int split_value(const Walk& w, const Epi& ep,
+                                           int b, int key, float x, float y,
+                                           int bgp,
+                                           const float (*staged)[STAGE_COLS]) {
+  if (key == SKY_KEY) return bgp;
+  const float* r;
+  if (staged) {
+    r = staged[key & IDX_MASK];
+  } else {
+    const int row = row_of<PAIRS>(w, b, b / w.nt, w.starts[b],
+                                  key & IDX_MASK);
+    r = w.table + (size_t)row * ROW_W;
+  }
+  const float e0 = edge(r, 0, x, y), e1 = edge(r, 1, x, y),
+              e2 = edge(r, 2, x, y);
+  const float* a = r + ATTR_COL;
+  if constexpr (EPI == U8_GOURAUD) {
+    // channel d in byte d; alpha 255 with opaque
+    unsigned packed = ep.opaque ? 255u << 24 : 0u;
+    for (int d = 0; d < (ep.opaque ? 3 : 4); ++d)
+      packed |= (unsigned)quant_u8(attr(a, e0, e1, e2, d)) << (8 * d);
+    return (int)packed;
+  } else {
+    return __ldg(ep.tex + texel_index(a, e0, e1, e2, ep.tex_w, ep.tex_h));
+  }
+}
+
+// The plan: block 0 lists the items of the tiles whose run is not empty
+// (long tiles' first, in tile order; with more items than cap, which runs
+// that partition their frames' pairs never need, every such tile becomes
+// one whole item) and zeroes the claim counter; every block zeroes the
+// arrival counters of its tiles, fills the output rows of long tiles with
+// SKY_KEY, the start of their atomicMin merge, and those of empty tiles
+// with the background, their whole epilogue (no walk claims them).
+__device__ __forceinline__ long long block_exclusive_sum(long long v,
+                                                         long long* total) {
+  __shared__ long long s_warp[WARPS];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  long long x = v;
+  for (int d = 1; d < 32; d <<= 1) {
+    const long long y = __shfl_up_sync(FULL, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) s_warp[warp] = x;
+  __syncthreads();
+  long long before = 0, all = 0;
+  for (int i = 0; i < WARPS; ++i) {
+    if (i < warp) before += s_warp[i];
+    all += s_warp[i];
+  }
+  __syncthreads();  // s_warp is reused by the next call
+  *total = all;
+  return before + x - v;
+}
+
+__global__ void __launch_bounds__(THREADS)
+split_plan_kernel(const Walk w, const Plan pl, const int* packed_bg, int* out,
+                  int nblocks) {
+  const int P = w.tile_w * w.tile_h;
+  if (blockIdx.x == 0) {
+    const int per = (nblocks + THREADS - 1) / THREADS;
+    const int b0 = min((int)threadIdx.x * per, nblocks);
+    const int b1 = min(b0 + per, nblocks);
+    // items of long tiles, long tiles, short (non-empty) tiles
+    long long n_items = 0, n_long = 0, n_short = 0;
+    for (int b = b0; b < b1; ++b) {
+      const int c = w.counts[b];
+      if (c > SEG) {
+        n_items += segments(c);
+        ++n_long;
+      } else if (c > 0) {
+        ++n_short;
+      }
+    }
+    long long t_items, t_long, t_short;
+    long long o_items = block_exclusive_sum(n_items, &t_items);
+    long long o_long = block_exclusive_sum(n_long, &t_long);
+    long long o_short = block_exclusive_sum(n_short, &t_short);
+    const bool split = t_items + t_short <= pl.cap;
+    o_short += split ? t_items : t_long;
+    for (int b = b0; b < b1; ++b) {
+      const int c = w.counts[b];
+      if (c > SEG && split) {
+        for (int s = 0, k = segments(c); s < k; ++s)
+          pl.items[o_items++] = make_int2(b, s);
+      } else if (c > SEG) {
+        pl.items[o_long++] = make_int2(b, 0);
+      } else if (c > 0) {
+        pl.items[o_short++] = make_int2(b, 0);
+      }
+    }
+    if (threadIdx.x == 0) {
+      pl.counters[0] = 0;
+      pl.counters[1] = (int)((split ? t_items : t_long) + t_short);
+      pl.counters[2] = split;
+    }
+  }
+  const int bgp = *packed_bg;
+  for (int b = blockIdx.x; b < nblocks; b += gridDim.x) {
+    if (threadIdx.x == 0) pl.counters[3 + b] = 0;
+    const int c = w.counts[b];
+    if (c > SEG || c <= 0)
+      for (int p = threadIdx.x; p < P; p += THREADS)
+        out[(size_t)b * P + p] = c > 0 ? SKY_KEY : bgp;
+  }
+}
+
+// The persistent split walk: blocks claim items in list order; while a
+// block walks one item, the rows of the next are in flight to the other
+// shared buffer.  Each thread keeps only its pixels' best keys.  A tile
+// of one item runs its epilogue at once; the items of a long tile merge
+// their keys into the tile's output row with atomicMin, and the last to
+// finish (its arrival counter, after __threadfence) runs the epilogue.
+// Blocks an SM the register budget is cut for: 5 at up to 4 pixels a
+// thread (48 registers; 6, at 40, spilled K1's epilogue and ran no
+// faster on the card, 4 no faster either), 4 at 8 (64 registers).
+template <int PPT>
+constexpr int split_min_blocks() {
+  return PPT <= 4 ? 5 : PPT <= 8 ? 4 : 2;
+}
+
+template <int PPT, bool ZCLIP, int EPI>
+__global__ void __launch_bounds__(THREADS, split_min_blocks<PPT>())
+tile_raster_split_kernel(const Walk w, const Epi ep, const Plan pl) {
+  __shared__ __align__(16) float s_rows[2][SEG][STAGE_COLS];
+  __shared__ int s_claim[2];
+  __shared__ int s_last;
+  const int n_items = pl.counters[1];
+  const bool split = pl.counters[2] != 0;
+  const int P = w.tile_w * w.tile_h;
+  const int bgp = *ep.packed_bg;
+
+  if (threadIdx.x == 0) s_claim[0] = atomicAdd(pl.counters, 1);
+  __syncthreads();
+  if (s_claim[0] >= n_items) return;
+  int2 it = pl.items[s_claim[0]];
+  {
+    int lo, hi, k;
+    item_range(w, split, it.x, it.y, lo, hi, k);
+    stage_rows(w, it.x, lo, max(0, min(hi - lo, SEG)), s_rows[0]);
+  }
+  for (int turn = 1, buf = 0;; ++turn, buf ^= 1) {
+    if (threadIdx.x == 0) s_claim[turn & 1] = atomicAdd(pl.counters, 1);
+    cp_async_wait_all();
+    __syncthreads();  // this item's rows are in; the other buffer is free
+    const int nxt = s_claim[turn & 1];
+    int2 nit = make_int2(0, 0);
+    if (nxt < n_items) {
+      nit = pl.items[nxt];
+      int lo, hi, k;
+      item_range(w, split, nit.x, nit.y, lo, hi, k);
+      stage_rows(w, nit.x, lo, max(0, min(hi - lo, SEG)), s_rows[buf ^ 1]);
+    }
+
+    const int b = it.x;
+    int lo, hi, k;
+    item_range(w, split, b, it.y, lo, hi, k);
+    const int t = b % w.nt;
+    const int ox = (t % w.ntx) * w.tile_w;
+    const int oy = (t / w.ntx) * w.tile_h;
+    float px[PPT], py[PPT];
+    int best[PPT];
+#pragma unroll
+    for (int q = 0; q < PPT; ++q) {
+      const int p = threadIdx.x + q * THREADS;
+      px[q] = (float)(ox + p % w.tile_w);
+      py[q] = (float)(oy + p / w.tile_w);
+      best[q] = SKY_KEY;
+    }
+    // an item holds at most SEG slots unless the split is off
+    for (int base = lo, n = max(0, min(hi - lo, SEG)); n > 0;) {
+      for (int j = 0; j < n; ++j) {
+        // the 12 walk columns as three 16-byte shared loads
+        const float4* v = reinterpret_cast<const float4*>(s_rows[buf][j]);
+        const float4 v0 = v[0], v1 = v[1], v2 = v[2];
+        const float row[WALK_COLS] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y,
+                                      v1.z, v1.w, v2.x, v2.y, v2.z, v2.w};
+        const int slot = base + j;
+#pragma unroll
+        for (int q = 0; q < PPT; ++q) {
+          const float e0 = edge(row, 0, px[q], py[q]);
+          const float e1 = edge(row, 1, px[q], py[q]);
+          const float e2 = edge(row, 2, px[q], py[q]);
+          const float zz = __fadd_rn(__fadd_rn(__fmul_rn(e0, row[9]),
+                                               __fmul_rn(e1, row[10])),
+                                     __fmul_rn(e2, row[11]));
+          bool cov = (e0 >= 0.0f) && (e1 >= 0.0f) && (e2 >= 0.0f);
+          if (ZCLIP) cov = cov && (zz >= 0.0f) && (zz <= 1.0f);
+          const unsigned zq =
+              (unsigned)__float2int_rz(__fmul_rn(zz, (float)Z_LEVELS));
+          const int key = (int)((zq << IDX_BITS) | (unsigned)slot);
+          if (cov && key < best[q]) best[q] = key;
+        }
+      }
+      base += n;
+      if (base >= hi) break;
+      n = min(hi - base, SEG);
+      __syncthreads();  // the buffer is no longer read
+      stage_rows(w, b, base, n, s_rows[buf]);
+      cp_async_wait_all();
+      __syncthreads();
+    }
+
+    bool last = k == 1;
+    if (!last) {
+#pragma unroll
+      for (int q = 0; q < PPT; ++q) {
+        const int p = threadIdx.x + q * THREADS;
+        if (p < P && best[q] != SKY_KEY)
+          atomicMin(ep.out + (size_t)b * P + p, best[q]);
+      }
+      __threadfence();
+      __syncthreads();
+      if (threadIdx.x == 0)
+        s_last = atomicAdd(pl.counters + 3 + b, 1) == k - 1;
+      __syncthreads();
+      last = s_last;
+      if (last) {
+        __threadfence();
+#pragma unroll
+        for (int q = 0; q < PPT; ++q) {
+          const int p = threadIdx.x + q * THREADS;
+          if (p < P) best[q] = __ldcg(ep.out + (size_t)b * P + p);
+        }
+      }
+    }
+    if (last) {
+      // a run walked in one stage has every winner's row in s_rows
+      const bool staged = k == 1 && hi <= SEG;
+#pragma unroll
+      for (int q = 0; q < PPT; ++q) {
+        const int p = threadIdx.x + q * THREADS;
+        if (p < P)
+          ep.out[(size_t)b * P + p] = split_value<EPI>(
+              w, ep, b, best[q], px[q], py[q], bgp,
+              staged ? s_rows[buf] : nullptr);
+      }
+    }
+    if (nxt >= n_items) return;
+    it = nit;
+  }
 }
 
 // ---- K1-mxu: the walk on the tensor cores ----
@@ -737,6 +1092,90 @@ int launch_wf(int nblocks, int z_clip, int wf, int* next, const Walk& w,
                                                   s));
 }
 
+// The split walk (K1, K3): the plan, then the persistent walk, its grid
+// at most the blocks the card holds at once and never more than cap.
+template <int EPI, int PPT, bool ZC>
+cudaError_t launch_split_n(int nblocks, const Walk& w, const Epi& ep,
+                           const Plan& pl, cudaStream_t s) {
+  const auto kernel = tile_raster_split_kernel<PPT, ZC, EPI>;
+  // the device's SMs and this kernel's resident blocks, asked once a
+  // device (a launch then costs the host two kernel launches only)
+  static int cached_dev = -1, sms = 0, per_sm = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && dev != cached_dev) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        THREADS, 0);
+    if (e == cudaSuccess) cached_dev = dev;
+  }
+  if (e != cudaSuccess) return e;
+  split_plan_kernel<<<min(nblocks, 4 * sms), THREADS, 0, s>>>(
+      w, pl, ep.packed_bg, ep.out, nblocks);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int resident = sms * (per_sm > 0 ? per_sm : 1);
+  kernel<<<min(pl.cap, resident), THREADS, 0, s>>>(w, ep, pl);
+  return cudaGetLastError();
+}
+
+template <int EPI, bool ZC>
+cudaError_t launch_split_z(int nblocks, const Walk& w, const Epi& ep,
+                           const Plan& pl, cudaStream_t s) {
+  switch (fma_ppt(w.tile_w * w.tile_h)) {
+    case 1: return launch_split_n<EPI, 1, ZC>(nblocks, w, ep, pl, s);
+    case 2: return launch_split_n<EPI, 2, ZC>(nblocks, w, ep, pl, s);
+    case 4: return launch_split_n<EPI, 4, ZC>(nblocks, w, ep, pl, s);
+    case 8: return launch_split_n<EPI, 8, ZC>(nblocks, w, ep, pl, s);
+    default: return launch_split_n<EPI, 16, ZC>(nblocks, w, ep, pl, s);
+  }
+}
+
+template <int EPI>
+int launch_split(int nblocks, int z_clip, const Walk& w, const Epi& ep,
+                 const Plan& pl, void* stream) {
+  if (const int e = check<EPI, PAIRS>(w, ep, nblocks)) return e < 0 ? 0 : e;
+  if (pl.items == nullptr || pl.counters == nullptr || pl.cap < nblocks)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return (int)(z_clip ? launch_split_z<EPI, true>(nblocks, w, ep, pl, s)
+                      : launch_split_z<EPI, false>(nblocks, w, ep, pl, s));
+}
+
+// Registers a thread and resident blocks an SM of K1's or K3's split walk,
+// or of the fma_tile kernel it is timed beside: K1-wf's for K1, K2b's
+// grid kernel for K3.
+template <typename K>
+int blocks_per_sm(K kernel, int* regs) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  int n = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, THREADS, 0);
+  if (e != cudaSuccess) return -(int)e;
+  *regs = a.numRegs;
+  return n;
+}
+
+template <int EPI, bool ZC>
+int occupancy_z(int split, int P, int* regs) {
+#define OCC(N)                                                            \
+  if (split) return blocks_per_sm(tile_raster_split_kernel<N, ZC, EPI>, regs); \
+  if constexpr (EPI == TEX_U8)                                              \
+    return blocks_per_sm(tile_raster_kernel<N, ZC, TEX_IDX, PAIRS>, regs);  \
+  else                                                                      \
+    return blocks_per_sm(tile_raster_wf_kernel<false, N, ZC>, regs)
+  switch (fma_ppt(P)) {
+    case 1: OCC(1);
+    case 2: OCC(2);
+    case 4: OCC(4);
+    case 8: OCC(8);
+    default: OCC(16);
+  }
+#undef OCC
+}
+
 }  // namespace
 
 // Every entry takes the walk's arguments first: the ids (sorted pairs or
@@ -753,21 +1192,44 @@ int launch_wf(int nblocks, int z_clip, int wf, int* next, const Walk& w,
 
 extern "C" {
 
-// K1: out (B * nt, P) packed u8 RGBA, rows from sorted pairs.
+// The split walk's scratch: items (cap int2, cap at least B * nt +
+// (B * ids_len) / SEG for the split to be on), counters (3 + nblocks
+// ints); none needs to be initialised.
+#define SPLIT_ARGS int *items, int cap, int *counters
+#define PLAN {reinterpret_cast<int2*>(items), cap, counters}
+
+// K1: out (B * nt, P) packed u8 RGBA, rows from sorted pairs, through
+// the split walk (two launches: the plan, the walk).
 int tile_raster_u8(WALK_ARGS, const int* packed_bg, int opaque, int* out,
-                   void* stream) {
+                   SPLIT_ARGS, void* stream) {
   const Walk w = WALK;
   const Epi ep = {packed_bg, opaque, nullptr, 0, 0, out, nullptr, 0};
-  return launch<U8_GOURAUD, PAIRS>(nblocks, z_clip, w, ep, stream);
+  const Plan pl = PLAN;
+  return launch_split<U8_GOURAUD>(nblocks, z_clip, w, ep, pl, stream);
 }
 
 // K3: out (B * nt, P) packed u8 texels of the (tex_h x tex_w) packed
-// texture.
+// texture, through the split walk.
 int tile_raster_tex_u8(WALK_ARGS, const int* tex, int tex_w, int tex_h,
-                       const int* packed_bg, int* out, void* stream) {
+                       const int* packed_bg, int* out, SPLIT_ARGS,
+                       void* stream) {
   const Walk w = WALK;
   const Epi ep = {packed_bg, 0, tex, tex_w, tex_h, out, nullptr, 0};
-  return launch<TEX_U8, PAIRS>(nblocks, z_clip, w, ep, stream);
+  const Plan pl = PLAN;
+  return launch_split<TEX_U8>(nblocks, z_clip, w, ep, pl, stream);
+}
+
+// Registers (*regs) and resident blocks an SM (returned; negative: a
+// cudaError_t) of K1's (tex 0) or K3's (tex 1) kernel for tiles of
+// tile_p pixels: the split walk (split 1) or the old walk, fma_tile, as
+// K1-wf's kernel (tex 0) or K2b's (tex 1) runs it (split 0).
+int tile_raster_occupancy(int split, int tex, int tile_p, int z_clip,
+                          int* regs) {
+  if (tex)
+    return z_clip ? occupancy_z<TEX_U8, true>(split, tile_p, regs)
+                  : occupancy_z<TEX_U8, false>(split, tile_p, regs);
+  return z_clip ? occupancy_z<U8_GOURAUD, true>(split, tile_p, regs)
+                : occupancy_z<U8_GOURAUD, false>(split, tile_p, regs);
 }
 
 // K2b: out (B * nt, P) texel indices, -1 for sky.

@@ -28,12 +28,12 @@ def as_device(dev) -> torch.device:
     return dev
 
 
-def mesh_to_torch(verts, faces, colors, device):
+def mesh_to_torch(verts, faces, colors, device, dtype=None):
     """Mesh arrays -> (verts (V, 3) float, faces (F, 3) int64,
-    colors (V, 4) float) on ``device``, floats in
-    ``config.default_dtype()``."""
+    colors (V, 4) float) on ``device``, floats in ``dtype`` (default
+    ``config.default_dtype()``)."""
     dev = as_device(device)
-    dtype = config.default_dtype()
+    dtype = dtype or config.default_dtype()
 
     def f(a):
         return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
@@ -43,12 +43,12 @@ def mesh_to_torch(verts, faces, colors, device):
             f(colors))
 
 
-def textured_mesh_to_torch(verts, faces, uvs, tex_u8, device):
+def textured_mesh_to_torch(verts, faces, uvs, tex_u8, device, dtype=None):
     """Textured mesh arrays -> (verts (V, 3) float, faces (F, 3) int64,
     uvs (V, 2) float, tex_u8 (th, tw, 4) uint8) on ``device``, floats in
-    ``config.default_dtype()``."""
+    ``dtype`` (default ``config.default_dtype()``)."""
     dev = as_device(device)
-    dtype = config.default_dtype()
+    dtype = dtype or config.default_dtype()
     tex = np.asarray(tex_u8)
     if tex.ndim != 3 or tex.shape[-1] != 4:
         raise ValueError(f"texture must be (th, tw, 4), got {tex.shape}")

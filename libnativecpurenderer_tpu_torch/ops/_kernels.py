@@ -86,8 +86,10 @@ def tile_raster() -> ctypes.CDLL:
         # tile_w, tile_h, z_clip; then each entry's epilogue; then the
         # stream
         walk = [p, i, p, p, i, i, p, i, i, i, i, i]
-        for entry, epilogue in (("tile_raster_u8", [p, i, p]),
-                                ("tile_raster_tex_u8", [p, i, i, p, p]),
+        split = [p, i, p]   # the split walk's items, cap, counters
+        for entry, epilogue in (("tile_raster_u8", [p, i, p] + split),
+                                ("tile_raster_tex_u8",
+                                 [p, i, i, p, p] + split),
                                 ("tile_raster_tex_idx", [i, i, p]),
                                 ("tile_raster_keys_f32", [p, p]),
                                 ("tile_raster_bins_f32", [p, p]),
@@ -99,6 +101,8 @@ def tile_raster() -> ctypes.CDLL:
             fn = getattr(lib, entry)
             fn.argtypes = walk + epilogue + [p]
             fn.restype = ctypes.c_int
+        lib.tile_raster_occupancy.argtypes = [i, i, i, i, p]
+        lib.tile_raster_occupancy.restype = ctypes.c_int
         lib.tile_raster_error_string.argtypes = [ctypes.c_int]
         lib.tile_raster_error_string.restype = ctypes.c_char_p
         _libs["tile_raster"] = lib
@@ -130,6 +134,22 @@ def launch_canvas_span(fb, width, height, kinds, params, n, is_double,
         raise RuntimeError(
             f"canvas_span launch failed: cudaError {err} "
             f"({lib.canvas_span_error_string(err).decode()})")
+
+
+def tile_raster_occupancy(split: bool, tex: bool, tile_p: int,
+                          z_clip: bool) -> tuple[int, int]:
+    """(registers a thread, resident blocks an SM) of K1's (K3's with
+    ``tex``) kernel for tiles of ``tile_p`` pixels: the split walk, or
+    with ``split=False`` the one-block-a-tile walk as K1-wf's (K2b's)
+    kernel runs it."""
+    lib = tile_raster()
+    regs = ctypes.c_int(0)
+    n = lib.tile_raster_occupancy(int(split), int(tex), tile_p, int(z_clip),
+                                  ctypes.byref(regs))
+    if n < 0:
+        raise RuntimeError(f"tile_raster_occupancy failed: cudaError {-n} "
+                           f"({lib.tile_raster_error_string(-n).decode()})")
+    return regs.value, n
 
 
 def launch_tile_raster(entry: str, *args) -> None:

@@ -194,21 +194,35 @@ def setup_triangles_clipped(verts, faces, mvp, attrs, width: int,
     return ({"sxy": sxy, "z": fz, "valid": valid, "inv_w": inv_w}, attrs2)
 
 
-def edge_coeffs(sxy, z, valid):
+def edge_coeffs(sxy, z, valid, exact_c: bool = False):
     """Edge-function coefficients (``raster3d.py:215-237``).
 
     Edge i is opposite vertex i: e_i(x, y) = A_i x + B_i y + C_i equals
     the barycentric weight of vertex i times the signed doubled area.
     Returns (A, B, C) each (F, 3), inv_area (F,), sign (F,) and valid
-    (F,) with degenerate triangles cleared."""
+    (F,) with degenerate triangles cleared.
+
+    With ``exact_c`` the constants ``x1 y2 - x2 y1`` are formed in
+    float64, where the product of two float32 coordinates is exact, and
+    rounded back to the coordinates' dtype.  In float32 the two rounded
+    products cancel; that error put the u8 entries' frames further from
+    the float64 oracle than JAX's, whose XLA:CPU program contracts the
+    difference (``tests/test_torch_mesh_scale.py``).  The u8 entries take
+    it; the float entries keep JAX's float32 expression, which their
+    float contracts with JAX pin.  A float64 frame is the same either
+    way."""
     x0, y0 = sxy[:, 0, 0], sxy[:, 0, 1]
     x1, y1 = sxy[:, 1, 0], sxy[:, 1, 1]
     x2, y2 = sxy[:, 2, 0], sxy[:, 2, 1]
     A = torch.stack([y1 - y2, y2 - y0, y0 - y1], -1)
     B = torch.stack([x2 - x1, x0 - x2, x1 - x0], -1)
-    C = torch.stack([x1 * y2 - x2 * y1,
-                     x2 * y0 - x0 * y2,
-                     x0 * y1 - x1 * y0], -1)
+    c = sxy.to(torch.float64) if exact_c else sxy
+    cx0, cy0 = c[:, 0, 0], c[:, 0, 1]
+    cx1, cy1 = c[:, 1, 0], c[:, 1, 1]
+    cx2, cy2 = c[:, 2, 0], c[:, 2, 1]
+    C = torch.stack([cx1 * cy2 - cx2 * cy1,
+                     cx2 * cy0 - cx0 * cy2,
+                     cx0 * cy1 - cx1 * cy0], -1).to(sxy.dtype)
     area2 = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0)
     nz = area2.abs() > 1e-12
     valid = valid & nz
@@ -544,18 +558,18 @@ def detile_u8_host(tiles, width: int, height: int, tile_w: int,
 
 
 def _setup_edges(verts, faces, mvp, width: int, height: int, *, v4f=None,
-                 attrs=None, near_clip: bool = False):
+                 attrs=None, near_clip: bool = False, exact_c: bool = False):
     """Projection (with ``near_clip``, :func:`setup_triangles_clipped`,
-    which clips the (F, 3, D) ``attrs`` alongside) and edge setup:
-    (tri, attrs, (A, B, C, zsc, inv_area, sign, valid)), zsc the vertex z
-    scaled by inv_area."""
+    which clips the (F, 3, D) ``attrs`` alongside) and edge setup
+    (``exact_c``: see :func:`edge_coeffs`): (tri, attrs, (A, B, C, zsc,
+    inv_area, sign, valid)), zsc the vertex z scaled by inv_area."""
     if near_clip:
         tri, attrs = setup_triangles_clipped(verts, faces, mvp, attrs, width,
                                              height, v4f=v4f)
     else:
         tri = setup_triangles(verts, faces, mvp, width, height, v4f=v4f)
     A, B, C, inv_area, sign, valid = edge_coeffs(tri["sxy"], tri["z"],
-                                                 tri["valid"])
+                                                 tri["valid"], exact_c)
     return tri, attrs, (A, B, C, tri["z"] * inv_area[:, None], inv_area,
                         sign, valid)
 
@@ -563,7 +577,7 @@ def _setup_edges(verts, faces, mvp, width: int, height: int, *, v4f=None,
 def _prep_geometry(verts, faces, mvp, width: int, height: int, *,
                    tile_w: int, tile_h: int, capacity: int, span_x: int,
                    span_y: int, z_clip: bool, v4f=None, attrs=None,
-                   near_clip: bool = False):
+                   near_clip: bool = False, exact_c: bool = False):
     """What the Gouraud and textured per-frame preps share: projection
     (near-clipped with ``near_clip``), edges and gatherless binning, with
     ``z_clip=False``'s check that every valid vertex z lies in [0, 1]
@@ -573,7 +587,7 @@ def _prep_geometry(verts, faces, mvp, width: int, height: int, *,
     {sorted_pad, starts, counts, overflow})."""
     tri, attrs, edges = _setup_edges(verts, faces, mvp, width, height,
                                      v4f=v4f, attrs=attrs,
-                                     near_clip=near_clip)
+                                     near_clip=near_clip, exact_c=exact_c)
     A, B, C, _, _, sign, valid = edges
     sorted_pad, starts, counts, overflow = bin_triangles_flat(
         tri["sxy"], valid, width, height, tile_w, tile_h, capacity,
@@ -592,7 +606,8 @@ def prepare_frame(verts, faces, vtx_colors, width: int, height: int,
                   mvp=None, *, tile_w: int = 128, tile_h: int = 16,
                   capacity: int = 512, bg=None, span_x: int = 8,
                   span_y: int = 8, z_clip: bool = True, pre=None,
-                  near_clip: bool = False, mxu: int = 0):
+                  near_clip: bool = False, mxu: int = 0,
+                  exact_c: bool = True):
     """Per-frame prep of :func:`render_gouraud_u8`, everything before the
     tile kernel (``raster3d.py:895-934``): returns a dict with the
     kernel's inputs ``sorted_pad``, ``starts``, ``counts``, ``table``,
@@ -600,7 +615,9 @@ def prepare_frame(verts, faces, vtx_colors, width: int, height: int,
     ``z_clip=False`` also carries the vertex-z check (see
     :func:`_prep_geometry`).  ``near_clip`` clips at the near plane (two
     table rows a face).  With ``mxu`` the table is the matrix-unit
-    walk's affine one (``tile_raster.build_table_mxu``)."""
+    walk's affine one (``tile_raster.build_table_mxu``).  ``exact_c``
+    (see :func:`edge_coeffs`) is the u8 entries' table; the float
+    entries pass ``exact_c=False``."""
     from . import tile_raster
     dtype = verts.dtype
     if mvp is None:
@@ -614,7 +631,7 @@ def prepare_frame(verts, faces, vtx_colors, width: int, height: int,
     _, attrs, edges, prep = _prep_geometry(
         verts, faces, mvp, width, height, tile_w=tile_w, tile_h=tile_h,
         capacity=capacity, span_x=span_x, span_y=span_y, z_clip=z_clip,
-        v4f=v4f, attrs=attrs, near_clip=near_clip)
+        v4f=v4f, attrs=attrs, near_clip=near_clip, exact_c=exact_c)
     build = tile_raster.build_table_mxu if mxu else tile_raster.build_table
     prep["table"] = build(*edges, attrs)
     prep["packed_bg"] = tile_raster.pack_bg(bg)
@@ -635,22 +652,23 @@ def prepare_textured_frame(verts, faces, fuv, width: int, height: int,
                            mvp, *, tile_w: int, tile_h: int, capacity: int,
                            span_x: int, span_y: int,
                            perspective_correct: bool, z_clip: bool,
-                           v4f=None, mxu: int = 0):
+                           v4f=None, mxu: int = 0, exact_c: bool = True):
     """Per-frame prep of the textured entries, everything before the tile
     kernel — counterpart of ``_tex_prep`` (``raster3d.py:1208-1250``).
     ``fuv`` is ``uvs[faces]``, (F, 3, 2).  The row table carries the
     attributes [u/w, v/w, 1/w, 1], or [u, v, 1, 1] without
     ``perspective_correct``; with ``mxu`` it is the affine table of the
-    matrix-unit walk (``tile_raster.build_table_mxu``).  Returns a dict
-    with ``sorted_pad``, ``starts``, ``counts``, ``table`` and the device
-    ``overflow`` flag
-    (with ``z_clip=False`` also the vertex-z check, see
+    matrix-unit walk (``tile_raster.build_table_mxu``); ``exact_c`` as in
+    :func:`prepare_frame` (``render_textured`` passes False).  Returns a
+    dict with
+    ``sorted_pad``, ``starts``, ``counts``, ``table`` and the device
+    ``overflow`` flag (with ``z_clip=False`` also the vertex-z check, see
     :func:`_prep_geometry`)."""
     from . import tile_raster
     tri, _, edges, prep = _prep_geometry(
         verts, faces, mvp, width, height, tile_w=tile_w, tile_h=tile_h,
         capacity=capacity, span_x=span_x, span_y=span_y, z_clip=z_clip,
-        v4f=v4f)
+        v4f=v4f, exact_c=exact_c)
     if perspective_correct:
         iw = tri["inv_w"][..., None]
         attrs = torch.cat([fuv * iw, iw, torch.ones_like(iw)], dim=-1)
@@ -908,7 +926,7 @@ def render_textured(verts, faces, uvs, tex, width: int, height: int,
     prep = prepare_textured_frame(
         verts, faces, uvs[faces], width, height, mvp, tile_w=tile_w,
         tile_h=tile_h, capacity=capacity, span_x=span_x, span_y=span_y,
-        perspective_correct=perspective_correct, z_clip=True)
+        perspective_correct=perspective_correct, z_clip=True, exact_c=False)
     keys, uvq = tile_raster.render_binned_pallas_flat(
         prep["sorted_pad"], prep["starts"], prep["counts"], prep["table"],
         torch.zeros(4, dtype=dtype, device=dev), width, height, tile_w,
@@ -1094,7 +1112,8 @@ def render_gouraud_pallas(verts, faces, vtx_colors, width: int, height: int,
         prep = prepare_frame(verts, faces, vtx_colors, width, height, mvp,
                              tile_w=tile_w, tile_h=tile_h, capacity=capacity,
                              bg=bg, span_x=span_x, span_y=span_y,
-                             z_clip=z_clip, pre=pre, near_clip=near_clip)
+                             z_clip=z_clip, pre=pre, near_clip=near_clip,
+                             exact_c=False)
         keys, rgba = tile_raster.render_binned_pallas_flat(
             prep["sorted_pad"], prep["starts"], prep["counts"],
             prep["table"], bg, width, height, tile_w, tile_h)
@@ -1160,7 +1179,7 @@ def render_gouraud_pallas_batch(verts, faces, vtx_colors, width: int,
     if flat:
         preps = [prepare_frame(verts, faces, vtx_colors, width, height, m,
                                bg=bg, z_clip=z_clip, pre=pre, mxu=mxu,
-                               **cfg)
+                               exact_c=u8, **cfg)
                  for m in mvps]
         sps, starts, counts, tables = (
             torch.stack([p[k] for p in preps])

@@ -67,6 +67,8 @@ ROW_W = 32      # padded row width
 D = 4           # attributes per vertex
 MAX_P = 4096    # pixels per tile the kernel takes (16 per thread)
 REF_CHUNK = 16  # run slots the plain versions evaluate per pass
+SEG = 64        # K1's and K3's split walk: run slots an item walks (S),
+                # the kernel's compile-time SEG
 _ALPHA_255 = -(1 << 24)   # 255 << 24 as an int32
 
 
@@ -272,6 +274,22 @@ def _check_tex_tile(tile_w: int, tile_h: int) -> int:
     return P
 
 
+def _split_scratch(sorted_pad, counts, table):
+    """The split walk's launch arguments (K1, K3): the item list (int2 a
+    slot) sized for runs that partition each frame's pairs,
+    B * nt + B * ids_len // SEG items, its size and the counters (3 +
+    B * nt ints), in one uninitialised allocation (the kernel's plan
+    fills it)."""
+    if table.data_ptr() % 16:
+        raise ValueError("the table must be 16-byte aligned (its rows are "
+                         "copied 16 bytes at a time)")
+    nb = counts.numel()
+    cap = nb + (nb // counts.shape[-1]) * sorted_pad.shape[-1] // SEG
+    scratch = torch.empty(2 * cap + 3 + nb, dtype=torch.int32,
+                          device=table.device)
+    return scratch, cap, scratch.data_ptr() + 8 * cap
+
+
 def _on_cpu(table, kernel: str) -> bool:
     """True for CPU tensors (run the plain version), False for CUDA ones
     (launch the kernel); raises for any other device."""
@@ -322,8 +340,11 @@ def raster_tiles_flat_u8(sorted_pad, starts, counts, table, packed_bg,
     255) truncation, alpha 255 with ``opaque``; tiles' slots no triangle
     covers get ``packed_bg[0]``.
 
-    CUDA tensors launch the kernel on the current stream (no sync);
-    CPU tensors run :func:`raster_tiles_flat_u8_reference`."""
+    CUDA tensors launch the kernel on the current stream (no sync): the
+    split walk, a run cut into items of at most :data:`SEG` slots whose
+    keys merge exactly (a plan kernel, then the walk: one call, counted
+    once in ``launches``).  CPU tensors run
+    :func:`raster_tiles_flat_u8_reference`."""
     _check_inputs(sorted_pad, starts, counts, table, tile_w, tile_h,
                   packed_bg=packed_bg)
     if _on_cpu(table, "K1"):
@@ -334,7 +355,7 @@ def raster_tiles_flat_u8(sorted_pad, starts, counts, table, packed_bg,
                       device=table.device)
     _launch("tile_raster_u8", sorted_pad, starts, counts, counts.shape[-1],
             table, width, tile_w, tile_h, z_clip, packed_bg, int(opaque),
-            out)
+            out, *_split_scratch(sorted_pad, counts, table))
     raster_tiles_flat_u8.launches += 1
     return out
 
@@ -359,8 +380,9 @@ def raster_tiles_tex_u8(sorted_pad, starts, counts, table, tex_packed,
     loads directly.  Like the JAX launcher it takes only tiles of
     P % 128 == 0 and P >= 256 pixels.
 
-    CUDA tensors launch the kernel on the current stream (no sync);
-    CPU tensors run :func:`raster_tiles_tex_u8_reference`."""
+    CUDA tensors launch the kernel on the current stream (no sync), K1's
+    split walk (see :func:`raster_tiles_flat_u8`); CPU tensors run
+    :func:`raster_tiles_tex_u8_reference`."""
     P = _check_tex_tile(tile_w, tile_h)
     _check_inputs(sorted_pad, starts, counts, table, tile_w, tile_h,
                   packed_bg=packed_bg, tex_packed=tex_packed,
@@ -374,7 +396,8 @@ def raster_tiles_tex_u8(sorted_pad, starts, counts, table, tex_packed,
                       device=table.device)
     _launch("tile_raster_tex_u8", sorted_pad, starts, counts,
             counts.shape[-1], table, width, tile_w, tile_h, z_clip,
-            tex_packed, tw, th, packed_bg, out)
+            tex_packed, tw, th, packed_bg, out,
+            *_split_scratch(sorted_pad, counts, table))
     raster_tiles_tex_u8.launches += 1
     return out
 

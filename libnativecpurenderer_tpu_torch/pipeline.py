@@ -43,7 +43,9 @@ class MeshVideoPipeline:
     keyword arguments of ``render_gouraud_u8_loop`` or
     ``render_textured_u8_loop`` (tile shape, capacity, spans, bg, and
     opaque or perspective_correct, z_clip); others raise ``TypeError``
-    here.  Without a card the default ``device="cuda"`` raises."""
+    here.  The mesh is rendered in float32, whatever
+    ``config.default_dtype()`` is, as in the JAX pipeline.  Without a
+    card the default ``device="cuda"`` raises."""
 
     def __init__(self, cap, width: int, height: int, verts, faces,
                  colors=None, uvs=None, tex_u8=None, batch: int = 16,
@@ -60,12 +62,14 @@ class MeshVideoPipeline:
         self.height = height
         self.batch = batch
         self.device = interop.as_device(device)
+        # float32 whatever config.default_dtype() says, as the JAX
+        # pipeline casts its mesh (pipeline.py:251-257 there)
         if textured:
-            self._mesh = interop.textured_mesh_to_torch(verts, faces, uvs,
-                                                        tex_u8, self.device)
+            self._mesh = interop.textured_mesh_to_torch(
+                verts, faces, uvs, tex_u8, self.device, torch.float32)
         else:
             self._mesh = interop.mesh_to_torch(verts, faces, colors,
-                                               self.device)
+                                               self.device, torch.float32)
         has_tiled = hasattr(cap, "put_frame_tiled_u8")
         self._tiled = has_tiled if tiled is None else (bool(tiled)
                                                        and has_tiled)

@@ -27,3 +27,43 @@ def crafted_uv_table(table):
                                              device=t.device)] = math.nan
     t[rows[kind == 4][:, None], den] = 0.0
     return t
+
+
+def crafted_runs(lengths, tile_w: int = 32, tile_h: int = 32, seed: int = 0,
+                 nan_share: float = 0.1, past_end: int = 0):
+    """One row of ``len(lengths)`` tiles whose runs hold exactly
+    ``lengths`` triangles each, for the split walk's boundaries: seeded
+    triangles around their tile (most cover some of it, at depths partly
+    outside [0, 1]), ``nan_share`` of them invalid (NaN rows), the pair
+    array in the binning's layout (tile-major, padded to a multiple of
+    64 plus two guard blocks with the pad row's pair).  ``past_end``
+    slots are added to the last run's count, so its reads run off the
+    pair array and are clamped, as an overflowed run's.  Returns
+    (sorted_pad, starts, counts, table, width) on the CPU; the frame is
+    ``width`` x ``tile_h``, its attributes in [0, 1] (the third in
+    [0.5, 1.5], a texel denominator)."""
+    from .ops import raster3d, tile_raster
+    rng = np.random.default_rng(seed)
+    nt = len(lengths)
+    F = int(sum(lengths))
+    tile = np.repeat(np.arange(nt), lengths)
+    sx = (tile * tile_w)[:, None] + rng.uniform(-tile_w, 2 * tile_w, (F, 3))
+    sy = rng.uniform(-tile_h, 2 * tile_h, (F, 3))
+    sxy = torch.from_numpy(np.round(np.stack([sx, sy], -1) * 256.0)
+                           / 256.0).float()
+    z = torch.from_numpy(rng.uniform(-0.2, 1.2, (F, 3))).float()
+    valid = torch.from_numpy(rng.random(F) >= nan_share)
+    A, B, C, inv_area, sign, valid = raster3d.edge_coeffs(sxy, z, valid)
+    attrs = torch.from_numpy(rng.uniform(0.0, 1.0, (F, 3, 4))).float()
+    attrs[..., 2] += 0.5
+    table = tile_raster.build_table(A, B, C, z * inv_area[:, None],
+                                    inv_area, sign, valid, attrs)
+    ids = (torch.from_numpy(tile).int() << raster3d.IDX_BITS) | torch.arange(
+        F, dtype=torch.int32)
+    spad = -(-F // 64) * 64 + 128
+    pad = torch.full((spad - F,), (nt << raster3d.IDX_BITS) | F,
+                     dtype=torch.int32)
+    counts = torch.tensor(lengths, dtype=torch.int32)
+    starts = (torch.cumsum(counts, 0) - counts).int()
+    counts[-1] += past_end
+    return torch.cat([ids, pad]), starts, counts, table, nt * tile_w

@@ -82,6 +82,21 @@ def test_setup_and_edges_match_jax(cam):
                           ej, eq):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a),
                                       err_msg=name)
+    # the u8 entries' exact_c: C is the float64 difference of the exact
+    # products rounded once to float32, bit for bit; eager JAX rounds each
+    # product and the difference, within 1 ulp of the larger product of
+    # it (measured: 1.0 on all five cameras), which is many ulps of a C
+    # that cancels.  A, B, inv_area, sign and valid stay exact
+    ex = tr.edge_coeffs(tq["sxy"], tq["z"], tq["valid"], exact_c=True)
+    s = np.asarray(tj["sxy"]).astype(np.float64)
+    x, y = s[..., 0], s[..., 1]
+    p, q = x[:, [1, 2, 0]] * y[:, [2, 0, 1]], x[:, [2, 0, 1]] * y[:, [1, 2, 0]]
+    np.testing.assert_array_equal(ex[2].numpy(), (p - q).astype(np.float32))
+    ulp = np.spacing(np.maximum(np.abs(p), np.abs(q)).astype(np.float32))
+    assert (np.abs(ex[2].numpy().astype(np.float64) - np.asarray(ej[2]))
+            <= ulp).all()
+    for i in (0, 1, 3, 4, 5):
+        np.testing.assert_array_equal(ex[i].numpy(), eq[i].numpy())
 
 
 def test_table_matches_jax():

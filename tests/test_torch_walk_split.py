@@ -1,0 +1,215 @@
+"""The split walk of K1 and K3 (``csrc/tile_raster.cu``), as a plain
+mirror on the CPU: each tile's run cut into items of at most S slots
+(one item up to S), each item's minimum key over its own slots, the
+minima merged by ``min`` (the kernel's atomicMin), the winner's row found
+again from ``key & IDX_MASK`` and its edges recomputed, then K1's and
+K3's epilogues.  Keys are unique within a tile (their low bits are the
+run slot), so the merged minimum is the walk's strict sequential
+minimum for every S; these tests hold the mirror to the plain versions
+``raster_tiles_flat_u8_reference`` and ``raster_tiles_tex_u8_reference``
+bit for bit, for the kernel's S (``tile_raster.SEG``) and others around
+it, on seeded runs at the split's boundaries (1, S, S + 1, 2S, 2S + 1
+and 1024 slots), a run whose reads run off the pair array (an
+overflowed run), NaN rows, and ``mesh_10k`` at a small frame.  Also the
+plan's item list at the kernel's S: every slot of every run walked by
+exactly one item, no item for an empty run, long tiles' items first,
+within the capacity the wrapper allocates (``_split_scratch``, one frame
+or several).  The kernel itself is held to the plain versions on the
+card by ``chip_smoke.py`` (phases 3 and 10).
+"""
+
+import re
+from pathlib import Path
+
+
+import numpy as np
+import pytest
+import torch
+
+from libnativecpurenderer_tpu_torch import interop
+from libnativecpurenderer_tpu_torch.models import mesh
+from libnativecpurenderer_tpu_torch.ops import raster3d as r3
+from libnativecpurenderer_tpu_torch.ops import tile_raster as tt
+from libnativecpurenderer_tpu_torch.testing import crafted_runs
+
+torch.set_num_threads(1)
+
+SEGS = [1, 7, 32, 64, 128]
+TEX = torch.from_numpy(np.random.default_rng(5).integers(
+    0, 256, (48, 64, 4)).astype(np.uint8))
+BGP = tt.pack_bg(torch.tensor([0.2, 0.4, 0.6, 0.0]))
+
+
+def plan(counts, seg: int):
+    """The plan kernel's list: (items [(tile, lo, hi)], long tiles'
+    first, and each tile's item count).  An empty run is no item: the
+    plan writes its tile's background itself."""
+    counts = counts.reshape(-1).tolist()
+    long_items, short_items, k_of = [], [], []
+    for b, c in enumerate(counts):
+        k = 0 if c <= 0 else 1 if c <= seg else -(-c // seg)
+        k_of.append(k)
+        for s in range(k):
+            lo = s * seg if k > 1 else 0
+            hi = c if s == k - 1 else lo + seg
+            (long_items if k > 1 else short_items).append((b, lo, hi))
+    return long_items + short_items, k_of
+
+
+def _pixels(b, nt, width, tile_w, tile_h):
+    t = b % nt
+    ntx = (width + tile_w - 1) // tile_w
+    p = torch.arange(tile_w * tile_h)
+    x = (t % ntx * tile_w + p % tile_w).float()
+    y = (t // ntx * tile_h + p // tile_w).float()
+    return x, y
+
+
+def _rows(sorted_pad, starts, table, b, nt, slots):
+    f = b // nt
+    spad, nrows = sorted_pad.shape[-1], table.shape[-2]
+    idx = (starts.reshape(-1)[b] + slots).clamp(max=spad - 1)
+    tri = (sorted_pad.reshape(-1, spad)[f][idx.long()] & r3.IDX_MASK).clamp(
+        max=nrows - 1)
+    return table.reshape(-1, nrows, tt.ROW_W)[f][tri.long()]
+
+
+def split_walk(sorted_pad, starts, counts, table, width, tile_w, tile_h,
+               z_clip, seg):
+    """(best keys (NB, P), attr) of the split walk: per item its minimum
+    key, merged by min; attr(d) the winners' attribute d recomputed from
+    their rows."""
+    nt = counts.shape[-1]
+    nb = counts.numel()
+    P = tile_w * tile_h
+    best = torch.full((nb, P), r3.SKY_KEY, dtype=torch.int32)
+    items, _ = plan(counts, seg)
+    for b, lo, hi in items:
+        if hi <= lo:
+            continue
+        x, y = _pixels(b, nt, width, tile_w, tile_h)
+        slots = torch.arange(lo, hi, dtype=torch.int32)
+        r = _rows(sorted_pad, starts, table, b, nt, slots)[:, None, :]
+        e0, e1, e2 = tt._edges(r, x, y)
+        zz = e0 * r[..., 9] + e1 * r[..., 10] + e2 * r[..., 11]
+        cov = (e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0)
+        if z_clip:
+            cov = cov & (zz >= 0.0) & (zz <= 1.0)
+        keys = ((zz * r3.Z_LEVELS).to(torch.int32) << r3.IDX_BITS) \
+            | slots[:, None]
+        keys = torch.where(cov, keys, r3.SKY_KEY)
+        best[b] = torch.minimum(best[b], keys.amin(0))
+    slot = torch.where(best != r3.SKY_KEY, best & r3.IDX_MASK, 0)
+    xs, ys, rows = [], [], []
+    for b in range(nb):
+        x, y = _pixels(b, nt, width, tile_w, tile_h)
+        xs.append(x)
+        ys.append(y)
+        rows.append(_rows(sorted_pad, starts, table, b, nt, slot[b]))
+    X, Y, R = torch.stack(xs), torch.stack(ys), torch.stack(rows)
+    e = tt._edges(R, X, Y)
+    return (best.reshape(counts.shape + (P,)),
+            lambda d: tt._channel(R, e, d))
+
+
+def _boundary_case(seg, past_end=0):
+    lengths = [1, seg, seg + 1, 2 * seg, 2 * seg + 1, 1024]
+    return crafted_runs(lengths, seed=seg, past_end=past_end)
+
+
+def _mesh_case():
+    v, f, c = mesh.mesh_10k()
+    verts, faces, colors = interop.mesh_to_torch(v, f, c, "cpu",
+                                                 torch.float32)
+    m = (mesh.perspective(1.0, 256 / 160, 0.1, 10.0)
+         @ mesh.look_at([0.0, 0.6, 3.2], [0, 0, 0], [0, 1, 0])
+         @ mesh.rotation_y(0.45)).astype(np.float32)
+    prep = r3.prepare_frame(verts, faces, colors, 256, 160,
+                            torch.from_numpy(m), tile_w=32, tile_h=32,
+                            capacity=4096, span_x=9, span_y=6, z_clip=True)
+    assert not bool(prep["overflow"])
+    return (prep["sorted_pad"], prep["starts"], prep["counts"],
+            prep["table"], 256)
+
+
+CASES = {"boundaries": lambda s: _boundary_case(s),
+         "past the pair array": lambda s: _boundary_case(s, past_end=300),
+         "mesh_10k": lambda s: _mesh_case()}
+
+
+@pytest.mark.parametrize("seg", SEGS)
+@pytest.mark.parametrize("case", list(CASES))
+def test_split_u8_equals_plain_walk(case, seg):
+    sp, st, ct, table, width = CASES[case](seg)
+    if case == "boundaries":
+        assert int(torch.isnan(table[:-1, 0]).sum()) > 0
+    for opaque, z_clip in ((True, False), (False, True)):
+        best, attr = split_walk(sp, st, ct, table, width, 32, 32, z_clip,
+                                seg)
+        got = tt._u8_epilogue(best, attr, BGP, opaque)
+        want = tt.raster_tiles_flat_u8_reference(
+            sp, st, ct, table, BGP, width, 32, 32, opaque=opaque,
+            z_clip=z_clip)
+        assert (want != BGP).float().mean() > 0.2
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("seg", SEGS)
+@pytest.mark.parametrize("case", list(CASES))
+def test_split_tex_u8_equals_plain_walk(case, seg):
+    sp, st, ct, table, width = CASES[case](seg)
+    packed = r3.pack_texture_u8(TEX)
+    best, attr = split_walk(sp, st, ct, table, width, 32, 32, True, seg)
+    got = tt._tex_u8_epilogue(best, attr, packed, (48, 64), BGP)
+    want = tt.raster_tiles_tex_u8_reference(sp, st, ct, table, packed,
+                                            (48, 64), BGP, width, 32, 32,
+                                            z_clip=True)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _frames(seeds):
+    """Boundary cases at the kernel's S from several seeds, stacked as
+    B frames (a leading B on each input, as a batched launch takes)."""
+    cases = [crafted_runs([1, tt.SEG, tt.SEG + 1, 2 * tt.SEG,
+                           2 * tt.SEG + 1, 1024], seed=s) for s in seeds]
+    return tuple(torch.stack([c[i] for c in cases]) for i in range(4))
+
+
+PLAN_CASES = {
+    "boundaries": lambda: CASES["boundaries"](tt.SEG)[:4],
+    "past the pair array":
+        lambda: CASES["past the pair array"](tt.SEG)[:4],
+    "mesh_10k": lambda: _mesh_case()[:4],
+    "3 frames": lambda: _frames([1, 2, 3])}
+
+
+@pytest.mark.parametrize("case", list(PLAN_CASES))
+def test_plan_walks_every_slot_once_within_capacity(case):
+    # the item list the plan kernel writes fits the wrapper's scratch
+    # when the runs partition each frame's pairs, as the binning's do, so
+    # the split is on for the main path (here also with a run read 300
+    # slots past the pair array, which the array's padding absorbs)
+    sp, st, ct, table = PLAN_CASES[case]()
+    _, cap, _ = tt._split_scratch(sp, ct, table)
+    items, k_of = plan(ct, tt.SEG)
+    assert len(items) <= cap
+    assert cap >= ct.numel()
+    walked = {}
+    for b, lo, hi in items:
+        assert hi - lo <= tt.SEG or k_of[b] == 1
+        walked.setdefault(b, []).extend(range(lo, hi))
+    for b, c in enumerate(ct.reshape(-1).tolist()):
+        assert sorted(walked.get(b, [])) == list(range(c))
+        assert (b in walked) == (c > 0)
+    n_long = sum(k for k in k_of if k > 1)
+    assert n_long > 0
+    assert all(k_of[b] > 1 for b, _, _ in items[:n_long])
+    assert all(k_of[b] == 1 for b, _, _ in items[n_long:])
+
+
+def test_seg_is_the_kernels():
+    # the wrapper sizes the item list with SEG; the kernel cuts runs at
+    # its own compile-time SEG
+    src = (Path(tt.__file__).resolve().parent.parent / "csrc"
+           / "tile_raster.cu").read_text()
+    assert re.findall(r"constexpr int SEG = (\d+);", src) == [str(tt.SEG)]
