@@ -25,7 +25,8 @@ reference it is tested against.  Slices so far:
     ``render_textured_binned`` and ``render_blended``;
   * the ``wf=`` and ``mxu=`` routes of the u8 entries: ``wf=n`` of
     ``render_gouraud_u8`` and ``render_gouraud_pallas(flat=True,
-    u8=True)`` walks with the persistent kernel K1-wf; ``mxu=1|2`` of
+    u8=True)`` walks with K1-wf, K1's split walk claiming n items at a
+    time; ``mxu=1|2`` of
     those two, of ``render_gouraud_pallas_batch``'s u8 route and of
     ``render_textured_u8_batch`` walks an affine table on the tensor
     cores (K1-mxu, K3's matrix-unit walk).

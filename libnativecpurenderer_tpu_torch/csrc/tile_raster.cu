@@ -16,11 +16,11 @@
 //   _make_kernel_dynrows (:1176-1267), rows pre-gathered in pair order:
 //     U8_GOURAUD (K6)  raster_tiles_dynrows (:1294), opaque, no z test;
 //   the wf branch of raster_tiles_flat (:739, kernel_wf :624-655):
-//     K1-wf, K1's walk from a persistent grid (below);
+//     K1-wf, K1's split walk claiming wf items at a time (below);
 //   the mxu branch of _make_kernel_flat (:242-250,285-301,326-327) over
 //   build_table_mxu's affine table (:1474-1505), in the launches at :739,
-//   :793 and :895: K1-mxu, the walk on the tensor cores (below), with the
-//   U8_GOURAUD or TEX_U8 epilogue.
+//   :793 and :895: K1-mxu, the split walk with its planes on the tensor
+//   cores (wgmma, below), with the U8_GOURAUD or TEX_U8 epilogue.
 // Plain versions and wrappers: ops/tile_raster.py (raster_tiles_*).
 //
 // The walk.  For tile t, pixel slot p at integer coordinates
@@ -91,9 +91,9 @@
 // of ~13), so the suspected bound is the tail of blocks that walk the
 // longest runs: one launch of 4 frames ran K1 at ~0.054 ms a frame.
 //
-// The one-block-a-tile walk (fma_tile: K2b, K2a, K5, K6, K1-wf; K1-wf,
-// and K2b on K3's rows, are what chip_smoke.py times the split walk
-// against).  One block of 256 threads per tile; each thread owns PPT =
+// The one-block-a-tile walk (fma_tile: K2b, K2a, K5, K6; K2b on K3's
+// rows is what chip_smoke.py times K3's split walk against).  One block
+// of 256 threads per tile; each thread owns PPT =
 // ceil(P / 256) pixels (4 at 32x32) and keeps its best key, its
 // winner's edge values and row in registers.  The run's rows
 // (the 12 walk columns) are staged through shared memory 32 at a time,
@@ -101,8 +101,10 @@
 // Only the winner is shaded, after the walk: its attribute columns are
 // read once from the (L2-resident) table.  A long run stays in one block.
 //
-// The split walk (K1 and K3).  The tail is inside a tile, so no order of
-// claims cures it (K1-wf): the long run itself is cut.
+// The split walk (K1, K3, K1-wf, K1-mxu and K3's mxu walk).  The tail is
+// inside a tile, so no order of claims cures it: the long run itself is
+// cut.  One scheduler (the plan and the claim loop below) drives both
+// walks of an item, the FMA walk and the MMA walk.
 //   * Items.  A run of count <= S slots is one item; a longer one is
 //     ceil(count / S) items, item s walking slots [s S, min((s + 1) S,
 //     count)) with row_of's clamps (an overflowed run still reads in
@@ -118,72 +120,90 @@
 //     are (B nt, P) int32, so no key scratch); after __threadfence() it
 //     counts its arrival on the tile's counter, and the last to arrive
 //     reads the merged keys (through L2) and runs the epilogue over them.
+//     This holds for keys the tensor cores computed too: they are unique
+//     in a tile for the same reason.
 //   * Only the key a pixel during the walk.  The winner's row is
-//     row_of(key & IDX_MASK) and its edges are recomputed in the
-//     epilogue with the walk's own __fmul_rn/__fadd_rn order at that
-//     pixel, so they are the walk's bits; brow and be0..be2 no longer
-//     live through the walk.
+//     row_of(key & IDX_MASK) and its values are recomputed in the
+//     epilogue in the plain version's rounding order at that pixel: the
+//     edges with the walk's own __fmul_rn/__fadd_rn order (FMA walk), or
+//     the affine attribute planes on the CUDA cores (MMA walk), so no
+//     attribute goes through the tensor cores.
 //   * Scheduling on the device.  A plan kernel (block 0: a scan of the
 //     counts) lists the items, long tiles' first, in scratch sized by
 //     static shapes (B nt + B ids_len / S items) and zeroes the counters;
 //     its other blocks write the background into the tiles whose run is
 //     empty (most of a frame: no walk claims them).  A persistent walk,
-//     its grid the blocks the card holds at once, claims items from a
-//     counter.  No host sync; one wrapper call.
-//   * Staging.  Each row's columns 0..27 (the 12 walk columns and the
-//     attributes) are seven 16-byte cp.async (rows are 128-byte aligned)
-//     into one of two shared buffers; while a block walks one item, the
-//     next item's rows are in flight, so one __syncthreads() guards an
-//     item, and a run staged at once finds its winners' attributes in
-//     shared memory for the epilogue.
-//   * Not used: TMA copies boxes, and the rows are gathered by triangle
-//     id; the tensor cores do not round each sum (K1-mxu) and this walk
-//     is bit-equal to its plain version.
+//     its grid the blocks the card holds at once (never more than
+//     ceil(cap / wf)), claims wf consecutive items at a time from a
+//     counter and walks them in list order: K1 and K3 are wf = 1, K1-wf
+//     any wf (the TPU's programs each walked wf consecutive tiles; here
+//     the grain is items, so a long run is still cut).  Whether a claim
+//     is one item or wf is a template parameter, so K1 and K3 carry no
+//     grain in their registers.  The values are the same for every wf
+//     and every order of claims.  No host sync; one wrapper call.
+//   * Staging.  Each row's columns 0..27 (FMA walk: the 12 walk columns
+//     and the attributes) or 0..31 (MMA walk: planes 0..3 at 0..15, the
+//     attribute planes 4..7 at 16..31) are 16-byte cp.async (rows are
+//     128-byte aligned) into one of two shared buffers; while a block
+//     walks one item, the next item's rows are in flight, so one
+//     __syncthreads() guards an item, and a run staged at once finds its
+//     winners' rows in shared memory for the epilogue.
 //   * Settled by timing on an H100 (PERF.md): S = 64 and 5 blocks an SM
-//     at 32x32.  At 32x32 only ~450 of 2040 runs are not empty, so one
-//     frame is about one item a resident block.
+//     at 32x32 for the FMA walk.  At 32x32 only ~450 of 2040 runs are not
+//     empty, so one frame is about one item a resident block.
 //
-// K1-wf.  The TPU's programs each walked wf consecutive tiles and copied
-// their id blocks into SMEM themselves, so no id window bound a program.
-// Here a persistent grid of at most (SMs x resident blocks a SM, from
-// cudaOccupancyMaxActiveBlocksPerMultiprocessor) blocks claims wf
-// consecutive tiles at a time from a counter (atomicAdd; zeroed on the
-// launch's stream before each launch) and walks them one after another
-// with K1's own tile body (fma_tile), so its values are K1's for any wf.
-// Tiles are claimed in index order; longest-run-first is a later lever.
-//
-// K1-mxu.  The TPU kernel evaluated a chunk's 4 + nacc affine planes
-// (a_x, a_y, c, 0) . (x, y, 1, 0) as (kcc, 4) x (4, P) products on its
-// matrix unit.  Here each warp issues mma.sync.m16n8k16 (bf16 operands,
-// float32 accumulators): M = 16 pixels, N = the 8 planes of one triangle
-// (3 edges, depth, 4 attributes), K = 16 cross terms.  Pixel coordinates
-// split exactly into bf16 parts, x = xh + xl (integers below 65536), and
-// each coefficient into three, a = a0 + a1 + a2 (exact for a float32 away
-// from underflow); K holds the 6 x terms, 6 y terms, c0..c2 against 1 and
-// one 0.  With mxu=1 every product is exact and only the accumulation
-// rounds (near float32, the TPU's HIGHEST); with mxu=2 only the hi x hi
-// terms remain, the TPU's one DEFAULT pass, which rounds the coordinates
-// and coefficients to bf16 themselves.  What the MMA path rounds: the
-// tensor cores add the products in float32 in an order and with rounding
-// that are not IEEE round-to-nearest per addition, so the planes can
-// differ from the plain version's ((a_x x + a_y y) + c) by an ulp or so;
-// the kernel is held to it within a tolerance (chip_smoke.py), not bit
-// for bit.  -fmad=false governs the CUDA-core arithmetic only.  Pixel A
-// fragments stay in registers for the walk; a chunk's split B fragments
-// (32 triangles x 32 lanes x 2 words, 8 KiB) are staged in shared memory
-// already in fragment order, so each lane loads its 8 bytes with one
-// conflict-free uint2 read (no ldmatrix needed).  A lane of quad q holds
-// planes 2q, 2q + 1 of pixels g and g + 8: lanes 0 and 1 trade their
-// halves (shfl xor 1) to test coverage and form the key, lanes 2 and 3
-// (the attributes) take the key from them (shfl xor 2) and keep the
-// winner's attributes, and the epilogue joins their halves (shfl xor 1).
-// A warp holds up to 8 groups of 16 pixels a pass; larger tiles walk the
-// run again a pass at a time.  Slots past the run are not walked (K1's
-// rule); pad pixels of a group past P are computed and not stored; NaN
-// rows keep NaN in their first part and zero parts, so they never cover.
-// Bound on an H100: 8 planes x 16 products x 2 = 256 tensor-core
-// operations a (pixel, triangle) against 989 T/s dense bf16, and ~9
-// CUDA-core operations (coverage, key, minimum) at 33.5 T/s.
+// The MMA walk (K1-mxu, K3's mxu walk).  The TPU kernel evaluated a
+// chunk's 4 + nacc affine planes (a_x, a_y, c, 0) . (x, y, 1, 0) as
+// (kcc, 4) x (4, P) products on its matrix unit.  Here a warpgroup (4
+// warps) issues wgmma.mma_async m64n64k16 (bf16 operands, float32
+// accumulators): M = 64 pixels, N = 4 walk planes (3 edges, depth) x 16
+// triangles, K = 16 cross terms, waited for at once.  What bounds the
+// walk is the lanes' key work, not the product (PERF.md: two half-width
+// products in flight, or a deeper pipeline, ran no faster; a product in
+// flight across a branch makes ptxas serialize every product of the
+// function).  Pixel coordinates split exactly into bf16 parts, x = xh +
+// xl (integers below 65536), and each coefficient into three, a = a0 +
+// a1 + a2 (exact for a float32 away from underflow); K holds xh xl xh xl
+// xh xl | yh yl .. | 1 1 1 | 0 against
+// ax0 ax0 ax1 ax1 ax2 ax2 | ay0 ay0 .. | c0 c1 c2 | 0.  With mxu=1 every
+// product is exact and only the accumulation rounds (near float32, the
+// TPU's HIGHEST); with mxu=2 only the first parts remain, the TPU's one
+// DEFAULT pass, which rounds the coordinates and coefficients to bf16
+// themselves.  The tensor cores add the products in float32 in an order
+// and with rounding that are not IEEE round-to-nearest per addition, so a
+// plane can differ from the plain version's ((a_x x + a_y y) + c) by an
+// ulp or so, and a coverage test or key with it: the walk is held to its
+// plain version within a share of pixels (chip_smoke.py), not bit for
+// bit.  -fmad=false governs the CUDA-core arithmetic only.
+//   * A, the pixels, in registers: a warp's 16 rows in the m16n8k16
+//     layout (lane 4g + q: rows g and g + 8, k 2q, 2q + 1 and + 8), built
+//     from the tile's origin for each group of 64 pixels.
+//   * B, the item's planes, in shared memory in the layout wgmma reads
+//     (K-major, no swizzle: core matrices of 8 columns x 16 bytes, the
+//     two K halves 128 bytes apart (LBO), column groups 256 (SBO)), one
+//     2 KiB operand a 16 triangles, built once a stage: one thread a
+//     (triangle, plane) splits its three coefficients once and writes its
+//     column's two 16-byte halves.  Slots past the item, up to a multiple
+//     of 16, are NaN columns and never cover.  One B serves every 64-pixel
+//     group of the tile.
+//   * Columns so that each lane holds whole triangles.  Lane 4g + q of
+//     warp w holds accumulator rows 16w + g and + 8 at columns 8i + 2q
+//     and + 1; B's column 8i + c is plane 2 (i % 2) + c % 2 of triangle
+//     4 (i / 2) + c / 2, so a lane holds e0, e1, e2 and z of triangles
+//     4k + q (k = 0..3) at its two pixels: coverage, z test, quantisation
+//     and key run once a (pixel, triangle), on one lane, with no shuffle
+//     in the walk; two shfl_xor (1, 2) take the minimum across the quad at
+//     the end of a pixel group.  Keys are unique, so nothing is lost.
+//   * A stage's best key a pixel goes to shared memory (its owner lane
+//     keeps the minimum over a long run's stages); the merge and the
+//     epilogue are the FMA walk's.
+//   * Bound on an H100: 4 planes x 16 products x 2 = 128 tensor-core
+//     operations a (pixel, triangle) against 989 T/s dense bf16, and ~9
+//     CUDA-core operations (coverage, key, minimum) at 33.5 T/s; the
+//     CUDA cores bound it, and the key loop is ~7 instructions a (pixel,
+//     triangle) against the FMA walk's ~26 (key_min).  Blocks an SM: see
+//     split_min_blocks.  Pixel coordinates by mask and shift where the
+//     tile width is a power of two (pixel_xy).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -203,9 +223,12 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int CHUNK = 32;       // triangle rows staged per pass
 constexpr int SEG = 64;         // split walk: slots an item walks at most
-constexpr int STAGE_COLS = 28;  // split walk: row columns staged (walk and
-                                // attributes: 0..27)
-constexpr int MAX_GROUPS = 8;   // MMA walk: 16-pixel groups a warp per pass
+constexpr int STAGE_COLS = 28;  // FMA split walk: row columns staged (walk
+                                // and attributes: 0..27)
+constexpr int B_OPERAND = 2048; // MMA walk: bytes of one B operand (K 16 x
+                                // N 64 bf16: 16 triangles x 4 planes)
+constexpr int GROUP_PX = 64;    // MMA walk: pixels of one product (M)
+constexpr int WARPGROUPS = THREADS / 128;
 constexpr unsigned FULL = 0xffffffffu;
 
 enum Epilogue { U8_GOURAUD, TEX_U8, TEX_IDX, KEYS_F32 };
@@ -231,7 +254,8 @@ struct Epi {
   int tex_w, tex_h;
   int* out;       // packed u8, texel index or key: (B * nt, P)
   float* rgba;    // KEYS_F32: (B * nt, D, P)
-  int mxu;        // the MMA walk: 1 exact parts, 2 one bf16 pass
+  int mxu;        // 0 the FMA walk; the MMA walk: 1 exact parts, 2 one
+                  // bf16 pass
 };
 
 // Row (of the whole (B * nrows, 32) array) of slot j of block b's run.
@@ -252,6 +276,20 @@ __device__ __forceinline__ int row_of(const Walk& w, int b, int f,
 
 __device__ __forceinline__ int quant_u8(float v) {
   return __float2int_rz(fminf(fmaxf(__fmul_rn(v, 255.0f), 0.0f), 255.0f));
+}
+
+// Pixel (x, y) of slot p of the tile at (ox, oy), tile_w wide: a mask
+// and a shift when tile_w is a power of two (every production shape),
+// else a division (tile_w is the same for the whole launch).
+__device__ __forceinline__ void pixel_xy(int p, int ox, int oy, int tile_w,
+                                         float& x, float& y) {
+  if ((tile_w & (tile_w - 1)) == 0) {
+    x = (float)(ox + (p & (tile_w - 1)));
+    y = (float)(oy + (p >> (__ffs(tile_w) - 1)));
+  } else {
+    x = (float)(ox + p % tile_w);
+    y = (float)(oy + p / tile_w);
+  }
 }
 
 // (e0 a[d] + e1 a[D + d]) + e2 a[2 D + d]
@@ -278,10 +316,8 @@ __device__ __forceinline__ int texel_index(const float* a, float e0,
                   th);
 }
 
-// The one-block-a-tile body of K2b, K2a, K5, K6 and K1-wf (U8_GOURAUD,
-// TEX_IDX or KEYS_F32): block-wide walk of tile b's run and the
-// epilogue; the grid and the persistent kernels call it, so their values
-// cannot drift apart.
+// The one-block-a-tile body of K2b, K2a, K5 and K6 (U8_GOURAUD, TEX_IDX
+// or KEYS_F32): block-wide walk of tile b's run and the epilogue.
 template <int PPT, bool ZCLIP, int EPI, int SRC>
 __device__ __forceinline__ void fma_tile(const Walk& w, const Epi& ep,
                                          const int b) {
@@ -391,7 +427,9 @@ tile_raster_kernel(const Walk w, const Epi ep) {
   fma_tile<PPT, ZCLIP, EPI, SRC>(w, ep, blockIdx.x);
 }
 
-// ---- K1 and K3: the split walk ----
+// ---- The split walk: K1, K3, K1-wf, K1-mxu and K3's mxu walk ----
+
+enum Walker { WALK_FMA, WALK_MMA };
 
 // The work list of one split launch, in scratch the wrapper allocates.
 struct Plan {
@@ -428,20 +466,19 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Start copying columns 0..27 (the walk's and the attributes') of the
-// rows of slots [lo, lo + n) of tile b's run into rows: seven 16-byte
-// cp.async a row (rows are 128-byte aligned), the pair ids read once a
-// row by neighbouring threads.  The caller waits (cp_async_wait_all) and
-// syncs.
-constexpr int STAGE_CHUNKS = STAGE_COLS / 4;
+// Start copying columns 0..COLS-1 of the rows of slots [lo, lo + n) of
+// tile b's run into rows: COLS / 4 16-byte cp.async a row (rows are
+// 128-byte aligned), the pair ids read once a row by neighbouring
+// threads.  The caller waits (cp_async_wait_all) and syncs.
+template <int COLS>
 __device__ __forceinline__ void stage_rows(const Walk& w, int b, int lo,
-                                           int n,
-                                           float (*rows)[STAGE_COLS]) {
+                                           int n, float (*rows)[COLS]) {
+  constexpr int CHUNKS = COLS / 4;
   const int f = b / w.nt;
   const int start = w.starts[b];
-  for (int i = threadIdx.x; i < STAGE_CHUNKS * n; i += THREADS) {
-    const int r = i / STAGE_CHUNKS;
-    const int c = i - STAGE_CHUNKS * r;
+  for (int i = threadIdx.x; i < CHUNKS * n; i += THREADS) {
+    const int r = i / CHUNKS;
+    const int c = i - CHUNKS * r;
     const int row = row_of<PAIRS>(w, b, f, start, lo + r);
     cp_async16(&rows[r][4 * c], w.table + (size_t)row * ROW_W + 4 * c);
   }
@@ -455,16 +492,35 @@ __device__ __forceinline__ float edge(const float* r, int i, float x,
                    r[3 * i + 2]);
 }
 
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// (a_x x + a_y y) + c of the affine plane c[0..2] at (x, y), each
+// operation rounded on its own; mxu=2 first rounds the coefficients to
+// bf16 (the caller the coordinates), as the plain version rounds the table
+__device__ __forceinline__ float affine(const float* c, float x, float y,
+                                        int mxu) {
+  float ax = c[0], ay = c[1], cc = c[2];
+  if (mxu != 1) {
+    ax = bf16_round(ax);
+    ay = bf16_round(ay);
+    cc = bf16_round(cc);
+  }
+  return __fadd_rn(__fadd_rn(__fmul_rn(ax, x), __fmul_rn(ay, y)), cc);
+}
+
 // K1's or K3's value of pixel (x, y) of tile b whose winning key is key:
 // the winner's row is found again from the key's slot (in staged, the
 // shared rows of the whole run, when it was staged at once; else in the
-// table) and its edges recomputed in the walk's order, so they are the
-// walk's bits.
-template <int EPI>
+// table) and its attributes recomputed on the CUDA cores in the plain
+// version's order: the FMA walk's edges (the walk's own bits) and their
+// interpolation, or the MMA walk's affine planes 4 + d.
+template <int EPI, bool MMA, int COLS>
 __device__ __forceinline__ int split_value(const Walk& w, const Epi& ep,
                                            int b, int key, float x, float y,
                                            int bgp,
-                                           const float (*staged)[STAGE_COLS]) {
+                                           const float (*staged)[COLS]) {
   if (key == SKY_KEY) return bgp;
   const float* r;
   if (staged) {
@@ -474,17 +530,34 @@ __device__ __forceinline__ int split_value(const Walk& w, const Epi& ep,
                                   key & IDX_MASK);
     r = w.table + (size_t)row * ROW_W;
   }
-  const float e0 = edge(r, 0, x, y), e1 = edge(r, 1, x, y),
-              e2 = edge(r, 2, x, y);
-  const float* a = r + ATTR_COL;
+  float e0 = 0.0f, e1 = 0.0f, e2 = 0.0f;
+  if constexpr (MMA) {
+    if (ep.mxu != 1) {   // one bf16 pass rounds the coordinates too
+      x = bf16_round(x);
+      y = bf16_round(y);
+    }
+  } else {
+    e0 = edge(r, 0, x, y);
+    e1 = edge(r, 1, x, y);
+    e2 = edge(r, 2, x, y);
+  }
+  // the winner's attribute d at (x, y)
+  const auto value = [&](int d) {
+    if constexpr (MMA)
+      return affine(r + 4 * (4 + d), x, y, ep.mxu);
+    else
+      return attr(r + ATTR_COL, e0, e1, e2, d);
+  };
   if constexpr (EPI == U8_GOURAUD) {
     // channel d in byte d; alpha 255 with opaque
     unsigned packed = ep.opaque ? 255u << 24 : 0u;
     for (int d = 0; d < (ep.opaque ? 3 : 4); ++d)
-      packed |= (unsigned)quant_u8(attr(a, e0, e1, e2, d)) << (8 * d);
+      packed |= (unsigned)quant_u8(value(d)) << (8 * d);
     return (int)packed;
   } else {
-    return __ldg(ep.tex + texel_index(a, e0, e1, e2, ep.tex_w, ep.tex_h));
+    const float den = value(2);
+    return __ldg(ep.tex + texel_of(value(0), value(1), den, ep.tex_w,
+                                   ep.tex_h));
   }
 }
 
@@ -569,24 +642,299 @@ split_plan_kernel(const Walk w, const Plan pl, const int* packed_bg, int* out,
   }
 }
 
-// The persistent split walk: blocks claim items in list order; while a
-// block walks one item, the rows of the next are in flight to the other
-// shared buffer.  Each thread keeps only its pixels' best keys.  A tile
-// of one item runs its epilogue at once; the items of a long tile merge
-// their keys into the tile's output row with atomicMin, and the last to
-// finish (its arrival counter, after __threadfence) runs the epilogue.
-// Blocks an SM the register budget is cut for: 5 at up to 4 pixels a
-// thread (48 registers; 6, at 40, spilled K1's epilogue and ran no
-// faster on the card, 4 no faster either), 4 at 8 (64 registers).
-template <int PPT>
+// The FMA walk of one stage: slots base .. base + n - 1 of a run, their
+// rows in rows; each thread keeps its PPT pixels' best keys.
+template <int PPT, bool ZCLIP>
+__device__ __forceinline__ void fma_stage(const float (*rows)[STAGE_COLS],
+                                          int n, int base, const float* px,
+                                          const float* py, int* best) {
+  for (int j = 0; j < n; ++j) {
+    // the 12 walk columns as three 16-byte shared loads
+    const float4* v = reinterpret_cast<const float4*>(rows[j]);
+    const float4 v0 = v[0], v1 = v[1], v2 = v[2];
+    const float row[WALK_COLS] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y,
+                                  v1.z, v1.w, v2.x, v2.y, v2.z, v2.w};
+    const int slot = base + j;
+#pragma unroll
+    for (int q = 0; q < PPT; ++q) {
+      const float e0 = edge(row, 0, px[q], py[q]);
+      const float e1 = edge(row, 1, px[q], py[q]);
+      const float e2 = edge(row, 2, px[q], py[q]);
+      const float zz = __fadd_rn(__fadd_rn(__fmul_rn(e0, row[9]),
+                                           __fmul_rn(e1, row[10])),
+                                 __fmul_rn(e2, row[11]));
+      bool cov = (e0 >= 0.0f) && (e1 >= 0.0f) && (e2 >= 0.0f);
+      if (ZCLIP) cov = cov && (zz >= 0.0f) && (zz <= 1.0f);
+      const unsigned zq =
+          (unsigned)__float2int_rz(__fmul_rn(zz, (float)Z_LEVELS));
+      const int key = (int)((zq << IDX_BITS) | (unsigned)slot);
+      if (cov && key < best[q]) best[q] = key;
+    }
+  }
+}
+
+// ---- the MMA walk's pieces ----
+
+// two bf16 values in one register, lo in the low half
+__device__ __forceinline__ unsigned bf16_pair(float lo, float hi) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
+
+// a = p[0] + p[1] + p[2] in bf16 parts (8 significant bits each cover
+// float32's 24); mxu=2 keeps p[0] alone.  A non-finite p[0] keeps zero
+// parts, so a NaN row stays NaN (and never covers).
+__device__ __forceinline__ void split3(float a, int mxu, float p[3]) {
+  p[0] = bf16_round(a);
+  p[1] = p[2] = 0.0f;
+  if (mxu == 1 && isfinite(p[0])) {
+    const float r = __fsub_rn(a, p[0]);
+    p[1] = bf16_round(r);
+    p[2] = bf16_round(__fsub_rn(r, p[1]));
+  }
+}
+
+// Column k of A for the pixel x = xh + xl, y = yh + yl:
+// xh xl xh xl xh xl | yh yl yh yl yh yl | 1 1 1 | 0
+__device__ __forceinline__ float a_col(int k, float xh, float xl, float yh,
+                                       float yl) {
+  if (k < 6) return (k & 1) ? xl : xh;
+  if (k < 12) return (k & 1) ? yl : yh;
+  return k < 15 ? 1.0f : 0.0f;
+}
+
+// This lane's A registers for the pixels p0 and p0 + 8 of a tile at
+// (ox, oy): rows g and g + 8, k 2q, 2q + 1 (registers 0, 1) and 2q + 8,
+// 2q + 9 (registers 2, 3), the m16n8k16 layout a warp's rows of wgmma's
+// A take.  One pass (mxu=2) multiplies the rounded coordinates alone.
+__device__ __forceinline__ void a_frag(int p0, int ox, int oy, int tile_w,
+                                       int mxu, unsigned a[4]) {
+  const int k = 2 * (threadIdx.x & 3);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float x, y;
+    pixel_xy(p0 + 8 * h, ox, oy, tile_w, x, y);
+    const float xh = bf16_round(x), yh = bf16_round(y);
+    const float xl = mxu == 1 ? __fsub_rn(x, xh) : 0.0f;
+    const float yl = mxu == 1 ? __fsub_rn(y, yh) : 0.0f;
+    a[h] = bf16_pair(a_col(k, xh, xl, yh, yl), a_col(k + 1, xh, xl, yh, yl));
+    a[2 + h] = bf16_pair(a_col(k + 8, xh, xl, yh, yl),
+                         a_col(k + 9, xh, xl, yh, yl));
+  }
+}
+
+// Writes the B column of plane pl (0..3: e0, e1, e2, z) of slot j of a
+// stage, from its staged row (live) or as a NaN column that never covers
+// (a slot past the stage): the coefficients (a_x, a_y, c) = row[4 pl ..]
+// split once into bf16 parts, K rows ax0 ax0 ax1 ax1 ax2 ax2 ay0 ay0 |
+// ay1 ay1 ay2 ay2 c0 c1 c2 0 as two 16-byte stores.  Slot j is triangle
+// t = j % 16 of operand j / 16, column n = 8 i + c with i = 2 (t / 4) +
+// pl / 2 and c = 2 (t % 4) + pl % 2; K-major without swizzle, so column n
+// is row n % 8 of the core matrices (n / 8, K half), 128 bytes each, at
+// (2 (n / 8) + half) x 128 bytes.
+__device__ __forceinline__ void build_b(const float* row, int j, int pl,
+                                        bool live, int mxu,
+                                        unsigned char* s_b) {
+  float ax[3], ay[3], c[3];
+  if (live) {
+    split3(row[4 * pl], mxu, ax);
+    split3(row[4 * pl + 1], mxu, ay);
+    split3(row[4 * pl + 2], mxu, c);
+  } else {
+    ax[0] = __int_as_float(0x7fc00000);
+    ax[1] = ax[2] = ay[0] = ay[1] = ay[2] = c[0] = c[1] = c[2] = 0.0f;
+  }
+  const int t = j & 15;
+  const int i = 2 * (t >> 2) + (pl >> 1);
+  const int cc = 2 * (t & 3) + (pl & 1);
+  unsigned char* col = s_b + (j >> 4) * B_OPERAND + 2 * i * 128 + cc * 16;
+  *reinterpret_cast<uint4*>(col) =
+      make_uint4(bf16_pair(ax[0], ax[0]), bf16_pair(ax[1], ax[1]),
+                 bf16_pair(ax[2], ax[2]), bf16_pair(ay[0], ay[0]));
+  *reinterpret_cast<uint4*>(col + 128) =
+      make_uint4(bf16_pair(ay[1], ay[1]), bf16_pair(ay[2], ay[2]),
+                 bf16_pair(c[0], c[1]), bf16_pair(c[2], 0.0f));
+}
+
+// wgmma's shared-memory descriptor of the B operand at s_b: start address
+// >> 4, LBO 128 bytes (the two K halves), SBO 256 bytes (column groups of
+// 8), no swizzle
+__device__ __forceinline__ uint64_t b_desc(const unsigned char* s_b) {
+  const uint64_t a = (unsigned)__cvta_generic_to_shared(s_b);
+  return ((a >> 4) & 0x3FFF) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(256 >> 4) << 32);
+}
+
+// Stores of this thread to shared memory become visible to wgmma (the
+// async proxy); then a barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The accumulators are pinned here: no read moves above the wait, no
+// write below the issue.
+__device__ __forceinline__ void fence_acc(float d[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d = A (64 x 16, this warpgroup's registers) x B (16 x 64, desc: 16
+// triangles), from zero (scale-d 0): issued, committed and waited for.
+// Lane 4g + q of warp w then holds d[4 i + 2 h + c] = row 16 w + g + 8 h,
+// column 8 i + 2 q + c.
+__device__ __forceinline__ void wgmma_64x64(float d[32], const unsigned a[4],
+                                            uint64_t desc) {
+  fence_acc(d);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(0));
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_acc(d);
+}
+
+// e0, e1, e2 and z of this lane's triangle 4k + q (k = 0..3) of a product
+// at its pixel row g + 8h (columns 8 (2k) + 2q + c: planes c;
+// 8 (2k + 1) + 2q + c: planes 2 + c)
+__device__ __forceinline__ void lane_planes(const float d[32], int k, int h,
+                                            float e[4]) {
+  e[0] = d[8 * k + 2 * h];
+  e[1] = d[8 * k + 2 * h + 1];
+  e[2] = d[8 * k + 4 + 2 * h];
+  e[3] = d[8 * k + 5 + 2 * h];
+}
+
+// K1's coverage test and key on a slot's planes, kept in best when it is
+// covered and lower, in the fewest instructions (the key loop is what
+// bounds the MMA walk): the slot is added to the shifted depth, one
+// instruction with the same bits as K1's or (a slot is below
+// 2^IDX_BITS, which the keys' uniqueness in a tile already needs), and
+// the minimum is taken under the coverage predicate.
+template <bool ZCLIP>
+__device__ __forceinline__ void key_min(const float e[4], int slot,
+                                        int& best) {
+  bool cov = (e[0] >= 0.0f) && (e[1] >= 0.0f) && (e[2] >= 0.0f);
+  if (ZCLIP) cov = cov && (e[3] >= 0.0f) && (e[3] <= 1.0f);
+  const unsigned zq =
+      (unsigned)__float2int_rz(__fmul_rn(e[3], (float)Z_LEVELS));
+  const int key = (int)((zq << IDX_BITS) + (unsigned)slot);
+  if (cov) best = min(best, key);
+}
+
+// The keys of this lane's triangles 4k + q (k = 0..3) of product j
+// (slots 16 j ..) of a stage at its two pixels, kept in best0 (row g) and
+// best1 (row g + 8); slots past the stage are NaN columns and never cover.
+template <bool ZCLIP>
+__device__ __forceinline__ void product_keys(const float d[32], int j,
+                                             int base, int q, int& best0,
+                                             int& best1) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int slot = base + 16 * j + 4 * k + q;
+    float e[4];
+    lane_planes(d, k, 0, e);
+    key_min<ZCLIP>(e, slot, best0);
+    lane_planes(d, k, 1, e);
+    key_min<ZCLIP>(e, slot, best1);
+  }
+}
+
+// The MMA walk of one stage: slots base .. base + n - 1 of a run, their
+// affine rows in rows.  The block builds the stage's B operands (one
+// thread a (slot, plane), NaN columns up to a multiple of 16 slots); each
+// warpgroup takes every WARPGROUPS-th group of 64 pixels and multiplies
+// it by each operand of 16 triangles, and each lane keys its triangles
+// 4k + q at its two pixels; the quad's minimum goes to s_best[p] (kept
+// as the minimum over the stages of a run when not first), by lane q = 0
+// for row g and q = 1 for row g + 8.  Pixels of a group past P are
+// computed and not stored.
+template <bool ZCLIP>
+__device__ __forceinline__ void mma_stage(const float (*rows)[ROW_W], int n,
+                                          int base, bool first, int ox,
+                                          int oy, int tile_w, int P, int mxu,
+                                          unsigned char* s_b, int* s_best) {
+  const int n16 = (n + 15) & ~15;
+  for (int i = threadIdx.x; i < 4 * n16; i += THREADS)
+    build_b(rows[i >> 2], i >> 2, i & 3, (i >> 2) < n, mxu, s_b);
+  fence_proxy_async();
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int q = lane & 3;
+  const int p_lane = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+  const uint64_t desc = b_desc(s_b);
+  constexpr int STEP = B_OPERAND >> 4;   // one operand, in the descriptor
+  float d[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.0f;
+  for (int pg = threadIdx.x >> 7; pg * GROUP_PX < P; pg += WARPGROUPS) {
+    const int p0 = pg * GROUP_PX + p_lane;
+    unsigned a[4];
+    a_frag(p0, ox, oy, tile_w, mxu, a);
+    int best0 = SKY_KEY, best1 = SKY_KEY;
+    for (int j = 0; 16 * j < n; ++j) {
+      wgmma_64x64(d, a, desc + (uint64_t)(j * STEP));
+      product_keys<ZCLIP>(d, j, base, q, best0, best1);
+    }
+    best0 = min(best0, __shfl_xor_sync(FULL, best0, 1));
+    best0 = min(best0, __shfl_xor_sync(FULL, best0, 2));
+    best1 = min(best1, __shfl_xor_sync(FULL, best1, 1));
+    best1 = min(best1, __shfl_xor_sync(FULL, best1, 2));
+    const int p = p0 + 8 * (q & 1);
+    const int v = q & 1 ? best1 : best0;
+    if (q < 2 && p < P) s_best[p] = first ? v : min(s_best[p], v);
+  }
+}
+
+// Blocks an SM the register budget is cut for, chosen by timing on an
+// H100 (PERF.md).  FMA walk: 5 at up to 4 pixels a thread (48 registers;
+// 6, at 40, spilled K1's epilogue and ran no faster on the card, 4 no
+// faster either), 4 at 8 (64 registers).  MMA walk: 3 at up to 8 (80
+// registers, no spill; 4 ran 128x16 tiles faster one frame a launch but
+// spilled K1-mxu's, 2 ran no faster), 2 at 16.
+template <int PPT, int WALKER>
 constexpr int split_min_blocks() {
+  if (WALKER == WALK_MMA) return PPT <= 8 ? 3 : 2;
   return PPT <= 4 ? 5 : PPT <= 8 ? 4 : 2;
 }
 
-template <int PPT, bool ZCLIP, int EPI>
-__global__ void __launch_bounds__(THREADS, split_min_blocks<PPT>())
-tile_raster_split_kernel(const Walk w, const Epi ep, const Plan pl) {
-  __shared__ __align__(16) float s_rows[2][SEG][STAGE_COLS];
+// The persistent split walk: blocks claim one item at a time, or with
+// GRAIN wf consecutive items, and walk them in list order; while a block
+// walks one item, the rows of the next are in flight to the other shared
+// buffer.  Each thread keeps only its pixels' best keys (the MMA walk's
+// pass through s_best).  A tile of one item runs its epilogue at once;
+// the items of a long tile merge their keys into the tile's output row
+// with atomicMin, and the last to finish (its arrival counter, after
+// __threadfence) runs the epilogue.  GRAIN is a template parameter so
+// that K1 and K3 (one item a claim) keep no claim's bounds in registers:
+// at their 48-register budget the runtime grain's two registers spilled
+// and slowed them on an H100 (PERF.md).
+template <int PPT, bool ZCLIP, int EPI, int WALKER, bool GRAIN>
+__global__ void __launch_bounds__(THREADS, split_min_blocks<PPT, WALKER>())
+tile_raster_split_kernel(const Walk w, const Epi ep, const Plan pl,
+                         const int wf) {
+  constexpr bool MMA = WALKER == WALK_MMA;
+  constexpr int COLS = MMA ? ROW_W : STAGE_COLS;
+  __shared__ __align__(128) float s_rows[2][SEG][COLS];
+  __shared__ __align__(128) unsigned char s_b[MMA ? SEG / 16 * B_OPERAND : 16];
+  __shared__ int s_best[MMA ? PPT * THREADS : 1];
   __shared__ int s_claim[2];
   __shared__ int s_last;
   const int n_items = pl.counters[1];
@@ -594,17 +942,29 @@ tile_raster_split_kernel(const Walk w, const Epi ep, const Plan pl) {
   const int P = w.tile_w * w.tile_h;
   const int bgp = *ep.packed_bg;
 
-  if (threadIdx.x == 0) s_claim[0] = atomicAdd(pl.counters, 1);
+  int end = 0;   // GRAIN, thread 0: the end of its block's claim
+  if (threadIdx.x == 0) {
+    s_claim[0] = atomicAdd(pl.counters, GRAIN ? wf : 1);
+    if constexpr (GRAIN) end = s_claim[0] + wf;
+  }
   __syncthreads();
-  if (s_claim[0] >= n_items) return;
-  int2 it = pl.items[s_claim[0]];
+  int cur = s_claim[0];
+  if (cur >= n_items) return;
+  int2 it = pl.items[cur];
   {
     int lo, hi, k;
     item_range(w, split, it.x, it.y, lo, hi, k);
-    stage_rows(w, it.x, lo, max(0, min(hi - lo, SEG)), s_rows[0]);
+    stage_rows<COLS>(w, it.x, lo, max(0, min(hi - lo, SEG)), s_rows[0]);
   }
   for (int turn = 1, buf = 0;; ++turn, buf ^= 1) {
-    if (threadIdx.x == 0) s_claim[turn & 1] = atomicAdd(pl.counters, 1);
+    if (threadIdx.x == 0) {
+      int nxt = cur + 1;
+      if (!GRAIN || nxt >= end) {   // the claim is walked: claim the next
+        nxt = atomicAdd(pl.counters, GRAIN ? wf : 1);
+        if constexpr (GRAIN) end = nxt + wf;
+      }
+      s_claim[turn & 1] = nxt;
+    }
     cp_async_wait_all();
     __syncthreads();  // this item's rows are in; the other buffer is free
     const int nxt = s_claim[turn & 1];
@@ -613,7 +973,8 @@ tile_raster_split_kernel(const Walk w, const Epi ep, const Plan pl) {
       nit = pl.items[nxt];
       int lo, hi, k;
       item_range(w, split, nit.x, nit.y, lo, hi, k);
-      stage_rows(w, nit.x, lo, max(0, min(hi - lo, SEG)), s_rows[buf ^ 1]);
+      stage_rows<COLS>(w, nit.x, lo, max(0, min(hi - lo, SEG)),
+                       s_rows[buf ^ 1]);
     }
 
     const int b = it.x;
@@ -622,7 +983,7 @@ tile_raster_split_kernel(const Walk w, const Epi ep, const Plan pl) {
     const int t = b % w.nt;
     const int ox = (t % w.ntx) * w.tile_w;
     const int oy = (t / w.ntx) * w.tile_h;
-    float px[PPT], py[PPT];
+    float px[PPT], py[PPT];   // the FMA walk's (the MMA walk's: below)
     int best[PPT];
 #pragma unroll
     for (int q = 0; q < PPT; ++q) {
@@ -633,36 +994,28 @@ tile_raster_split_kernel(const Walk w, const Epi ep, const Plan pl) {
     }
     // an item holds at most SEG slots unless the split is off
     for (int base = lo, n = max(0, min(hi - lo, SEG)); n > 0;) {
-      for (int j = 0; j < n; ++j) {
-        // the 12 walk columns as three 16-byte shared loads
-        const float4* v = reinterpret_cast<const float4*>(s_rows[buf][j]);
-        const float4 v0 = v[0], v1 = v[1], v2 = v[2];
-        const float row[WALK_COLS] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y,
-                                      v1.z, v1.w, v2.x, v2.y, v2.z, v2.w};
-        const int slot = base + j;
-#pragma unroll
-        for (int q = 0; q < PPT; ++q) {
-          const float e0 = edge(row, 0, px[q], py[q]);
-          const float e1 = edge(row, 1, px[q], py[q]);
-          const float e2 = edge(row, 2, px[q], py[q]);
-          const float zz = __fadd_rn(__fadd_rn(__fmul_rn(e0, row[9]),
-                                               __fmul_rn(e1, row[10])),
-                                     __fmul_rn(e2, row[11]));
-          bool cov = (e0 >= 0.0f) && (e1 >= 0.0f) && (e2 >= 0.0f);
-          if (ZCLIP) cov = cov && (zz >= 0.0f) && (zz <= 1.0f);
-          const unsigned zq =
-              (unsigned)__float2int_rz(__fmul_rn(zz, (float)Z_LEVELS));
-          const int key = (int)((zq << IDX_BITS) | (unsigned)slot);
-          if (cov && key < best[q]) best[q] = key;
-        }
-      }
+      if constexpr (MMA)
+        mma_stage<ZCLIP>(s_rows[buf], n, base, base == lo, ox, oy, w.tile_w,
+                         P, ep.mxu, s_b, s_best);
+      else
+        fma_stage<PPT, ZCLIP>(s_rows[buf], n, base, px, py, best);
       base += n;
       if (base >= hi) break;
       n = min(hi - base, SEG);
       __syncthreads();  // the buffer is no longer read
-      stage_rows(w, b, base, n, s_rows[buf]);
+      stage_rows<COLS>(w, b, base, n, s_rows[buf]);
       cp_async_wait_all();
       __syncthreads();
+    }
+    if constexpr (MMA) {
+      __syncthreads();  // every group's keys are in s_best
+#pragma unroll
+      for (int q = 0; q < PPT; ++q) {
+        const int p = threadIdx.x + q * THREADS;
+        if (p < P) best[q] = s_best[p];
+        // the coordinates only now: not live through the walk
+        pixel_xy(p, ox, oy, w.tile_w, px[q], py[q]);
+      }
     }
 
     bool last = k == 1;
@@ -695,264 +1048,54 @@ tile_raster_split_kernel(const Walk w, const Epi ep, const Plan pl) {
       for (int q = 0; q < PPT; ++q) {
         const int p = threadIdx.x + q * THREADS;
         if (p < P)
-          ep.out[(size_t)b * P + p] = split_value<EPI>(
+          ep.out[(size_t)b * P + p] = split_value<EPI, MMA, COLS>(
               w, ep, b, best[q], px[q], py[q], bgp,
               staged ? s_rows[buf] : nullptr);
       }
     }
     if (nxt >= n_items) return;
+    cur = nxt;
     it = nit;
   }
 }
 
-// ---- K1-mxu: the walk on the tensor cores ----
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// two bf16 values in one register, lo in the low half
-__device__ __forceinline__ unsigned bf16_pair(float lo, float hi) {
-  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
-         ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
-}
-
-// a = p[0] + p[1] + p[2] in bf16 parts (8 significant bits each cover
-// float32's 24); mxu=2 keeps p[0] alone.  A non-finite p[0] keeps zero
-// parts, so a NaN row stays NaN (and never covers).
-__device__ __forceinline__ void split3(float a, int mxu, float p[3]) {
-  p[0] = bf16_round(a);
-  p[1] = p[2] = 0.0f;
-  if (mxu == 1 && isfinite(p[0])) {
-    const float r = __fsub_rn(a, p[0]);
-    p[1] = bf16_round(r);
-    p[2] = bf16_round(__fsub_rn(r, p[1]));
-  }
-}
-
-// Row k of B (K = 16) for a plane with coefficient parts ax, ay, c:
-// ax0 ax0 ax1 ax1 ax2 ax2 | ay0 ay0 ay1 ay1 ay2 ay2 | c0 c1 c2 | 0
-__device__ __forceinline__ float b_row(int k, const float ax[3],
-                                       const float ay[3], const float c[3]) {
-  if (k < 6) return ax[k >> 1];
-  if (k < 12) return ay[(k - 6) >> 1];
-  return k < 15 ? c[k - 12] : 0.0f;
-}
-
-// Column k of A for the pixel x = xh + xl, y = yh + yl:
-// xh xl xh xl xh xl | yh yl yh yl yh yl | 1 1 1 | 0
-__device__ __forceinline__ float a_col(int k, float xh, float xl, float yh,
-                                       float yl) {
-  if (k < 6) return (k & 1) ? xl : xh;
-  if (k < 12) return (k & 1) ? yl : yh;
-  return k < 15 ? 1.0f : 0.0f;
-}
-
-// D (16 pixels x 8 planes) = A (16 x 16) B (16 x 8), float32 accumulators
-// from zero.  Thread (g = lane / 4, q = lane % 4) holds d[0..1] = planes
-// 2q, 2q + 1 of pixel g and d[2..3] those of pixel g + 8.
-__device__ __forceinline__ void mma_16x8x16(const unsigned a[4], unsigned b0,
-                                            unsigned b1, float d[4]) {
-  const float z = 0.0f;
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%10, %11, %12, %13};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "f"(z), "f"(z), "f"(z), "f"(z));
-}
-
-// K1's coverage test and key on a slot's planes; SKY_KEY when not covered
-template <bool ZCLIP>
-__device__ __forceinline__ int slot_key(float e0, float e1, float e2,
-                                        float zz, int slot) {
-  bool cov = (e0 >= 0.0f) && (e1 >= 0.0f) && (e2 >= 0.0f);
-  if (ZCLIP) cov = cov && (zz >= 0.0f) && (zz <= 1.0f);
-  const unsigned zq = (unsigned)__float2int_rz(__fmul_rn(zz, (float)Z_LEVELS));
-  return cov ? (int)((zq << IDX_BITS) | (unsigned)slot) : SKY_KEY;
-}
-
-// The matrix-unit walk of tile b's run over an affine table (PAIRS
-// source), with the U8_GOURAUD or TEX_U8 epilogue; G groups of 16 pixels
-// a warp per pass.
-template <int G, bool ZCLIP, int EPI>
-__device__ __forceinline__ void mma_tile(const Walk& w, const Epi& ep,
-                                         const int b) {
-  __shared__ __align__(16) unsigned s_frag[CHUNK][64];
-
-  const int f = b / w.nt;
-  const int t = b - f * w.nt;
-  const int P = w.tile_w * w.tile_h;
-  const int ox = (t % w.ntx) * w.tile_w;
-  const int oy = (t / w.ntx) * w.tile_h;
-  const int start = w.starts[b];
-  const int count = w.counts[b];
+// The MMA walk's layout probe: one warpgroup builds the B operand of the
+// n (<= 16) affine rows with build_b and A of the tile's first 64 pixels
+// (tile at (ox, oy), tile_w wide) with a_frag, as the walk does, runs the
+// product and writes what lane_planes reads, out[(p * 16 + t) * 4 +
+// plane], for pixel p and triangle t (slots past n: NaN columns).
+__global__ void __launch_bounds__(128)
+mma_probe_kernel(const float* rows, int n, int ox, int oy, int tile_w,
+                 int mxu, float* out) {
+  __shared__ __align__(128) float s_rows[16][ROW_W];
+  __shared__ __align__(128) unsigned char s_b[B_OPERAND];
+  for (int i = threadIdx.x; i < n * ROW_W; i += 128)
+    s_rows[i / ROW_W][i % ROW_W] = rows[i];
+  __syncthreads();
+  if (threadIdx.x < 64)
+    build_b(s_rows[threadIdx.x >> 2], threadIdx.x >> 2, threadIdx.x & 3,
+            (threadIdx.x >> 2) < n, mxu, s_b);
+  fence_proxy_async();
+  __syncthreads();
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int q = lane & 3;
-  const int bgp = *ep.packed_bg;
-
-  for (int pass = 0; pass < P; pass += WARPS * G * 16) {
-    unsigned afr[G][4];
-    int best[G][2];
-    float at[G][2][2];   // lanes q = 2, 3: the winner's planes 2q, 2q + 1
+  const int p0 = 16 * (threadIdx.x >> 5) + (lane >> 2);
+  unsigned a[4];
+  a_frag(p0, ox, oy, tile_w, mxu, a);
+  float d[32];
 #pragma unroll
-    for (int gi = 0; gi < G; ++gi) {
-      const int p0 = pass + (warp * G + gi) * 16 + g;
-      float xh[2], xl[2], yh[2], yl[2];
+  for (int i = 0; i < 32; ++i) d[i] = 0.0f;
+  wgmma_64x64(d, a, b_desc(s_b));
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int p = p0 + 8 * h;
-        const float x = (float)(ox + p % w.tile_w);
-        const float y = (float)(oy + p / w.tile_w);
-        // one pass (mxu=2) multiplies the rounded coordinates alone
-        xh[h] = bf16_round(x);
-        xl[h] = ep.mxu == 1 ? __fsub_rn(x, xh[h]) : 0.0f;
-        yh[h] = bf16_round(y);
-        yl[h] = ep.mxu == 1 ? __fsub_rn(y, yh[h]) : 0.0f;
-        best[gi][h] = SKY_KEY;
-        at[gi][h][0] = at[gi][h][1] = 0.0f;
-      }
-      const int k = 2 * q;
+  for (int k = 0; k < 4; ++k)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        afr[gi][h] = bf16_pair(a_col(k, xh[h], xl[h], yh[h], yl[h]),
-                               a_col(k + 1, xh[h], xl[h], yh[h], yl[h]));
-        afr[gi][2 + h] = bf16_pair(a_col(k + 8, xh[h], xl[h], yh[h], yl[h]),
-                                   a_col(k + 9, xh[h], xl[h], yh[h], yl[h]));
-      }
+    for (int h = 0; h < 2; ++h) {
+      float e[4];
+      lane_planes(d, k, h, e);
+      const int tri = 4 * k + (lane & 3);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        out[((p0 + 8 * h) * 16 + tri) * 4 + c] = e[c];
     }
-
-    for (int base = 0; base < count; base += CHUNK) {
-      const int n = min(CHUNK, count - base);
-      __syncthreads();  // the previous chunk's fragments are no longer read
-      // word 2 * l + hf of a slot: lane l's B register hf, rows
-      // 2 (l % 4) + 8 hf and + 1 of plane l / 4
-      for (int i = threadIdx.x; i < n * 64; i += THREADS) {
-        const int j = i >> 6;
-        const int word = i & 63;
-        const int fl = word >> 1;
-        const int k0 = 2 * (fl & 3) + 8 * (word & 1);
-        const int row = row_of<PAIRS>(w, b, f, start, base + j);
-        const float* pl = w.table + (size_t)row * ROW_W + 4 * (fl >> 2);
-        float ax[3], ay[3], c[3];
-        split3(pl[0], ep.mxu, ax);
-        split3(pl[1], ep.mxu, ay);
-        split3(pl[2], ep.mxu, c);
-        s_frag[j][word] = bf16_pair(b_row(k0, ax, ay, c),
-                                    b_row(k0 + 1, ax, ay, c));
-      }
-      __syncthreads();
-      for (int j = 0; j < n; ++j) {
-        const uint2 bf = reinterpret_cast<const uint2*>(s_frag[j])[lane];
-        const int slot = base + j;
-#pragma unroll
-        for (int gi = 0; gi < G; ++gi) {
-          float d[4], o[4];
-          mma_16x8x16(afr[gi], bf.x, bf.y, d);
-#pragma unroll
-          for (int m = 0; m < 4; ++m) o[m] = __shfl_xor_sync(FULL, d[m], 1);
-          const bool first = (q & 1) == 0;   // q = 0 holds e0 e1, q = 1 e2 z
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const float a0 = d[2 * h], a1 = d[2 * h + 1];
-            const float b0 = o[2 * h], b1 = o[2 * h + 1];
-            int key = slot_key<ZCLIP>(first ? a0 : b0, first ? a1 : b1,
-                                      first ? b0 : a0, first ? b1 : a1, slot);
-            const int from_edges = __shfl_xor_sync(FULL, key, 2);
-            if (q >= 2) key = from_edges;
-            if (key < best[gi][h]) {
-              best[gi][h] = key;
-              at[gi][h][0] = a0;
-              at[gi][h][1] = a1;
-            }
-          }
-        }
-      }
-    }
-
-#pragma unroll
-    for (int gi = 0; gi < G; ++gi) {
-      // lane q = 2 writes pixel p0, q = 3 pixel p0 + 8
-      const int h = q & 1;
-      const int p = pass + (warp * G + gi) * 16 + g + 8 * h;
-      int value;
-      if constexpr (EPI == U8_GOURAUD) {
-        unsigned part[2];
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const unsigned c0 = (unsigned)quant_u8(at[gi][hh][0]);
-          const unsigned c1 = ep.opaque && q == 3
-                                  ? 255u
-                                  : (unsigned)quant_u8(at[gi][hh][1]);
-          part[hh] = q == 2 ? (c0 | (c1 << 8)) : ((c0 << 16) | (c1 << 24));
-        }
-        const unsigned other0 = __shfl_xor_sync(FULL, part[0], 1);
-        const unsigned other1 = __shfl_xor_sync(FULL, part[1], 1);
-        const unsigned packed = h ? (part[1] | other1) : (part[0] | other0);
-        value = best[gi][h] != SKY_KEY ? (int)packed : bgp;
-      } else {
-        // q = 2 holds u, v and q = 3 1/w, 1 of both pixels: q = 2 takes
-        // 1/w of pixel p0, q = 3 takes u, v of pixel p0 + 8
-        const float s0 = __shfl_xor_sync(FULL, at[gi][0][0], 1);
-        const float s1 = __shfl_xor_sync(FULL, at[gi][1][0], 1);
-        const float s2 = __shfl_xor_sync(FULL, at[gi][1][1], 1);
-        const float u = h ? s1 : at[gi][0][0];
-        const float v = h ? s2 : at[gi][0][1];
-        const float den = h ? at[gi][1][0] : s0;
-        value = best[gi][h] != SKY_KEY
-                    ? __ldg(ep.tex + texel_of(u, v, den, ep.tex_w, ep.tex_h))
-                    : bgp;
-      }
-      if (q >= 2 && p < P) ep.out[(size_t)b * P + p] = value;
-    }
-  }
-}
-
-template <int G, bool ZCLIP, int EPI>
-__global__ void __launch_bounds__(THREADS)
-tile_raster_mma_kernel(const Walk w, const Epi ep) {
-  mma_tile<G, ZCLIP, EPI>(w, ep, blockIdx.x);
-}
-
-// ---- K1-wf: the persistent walk ----
-
-// Blocks claim wf consecutive tiles (of nblocks = B * nt) at a time from
-// *next and walk each with the FMA (K1) or the MMA (K1-mxu) tile body;
-// N is that body's pixels a thread or groups a warp.
-template <bool MMA, int N, bool ZCLIP>
-__global__ void __launch_bounds__(THREADS)
-tile_raster_wf_kernel(const Walk w, const Epi ep, int nblocks, int wf,
-                      int* next) {
-  __shared__ int s_first;
-  for (;;) {
-    __syncthreads();  // every thread has read the previous claim
-    if (threadIdx.x == 0) s_first = atomicAdd(next, wf);
-    __syncthreads();
-    const int first = s_first;
-    if (first >= nblocks) return;
-    const int last = min(first + wf, nblocks);
-    for (int b = first; b < last; ++b) {
-      __syncthreads();  // the shared rows are reused by the next tile
-      if constexpr (MMA)
-        mma_tile<N, ZCLIP, U8_GOURAUD>(w, ep, b);
-      else
-        fma_tile<N, ZCLIP, U8_GOURAUD, PAIRS>(w, ep, b);
-    }
-  }
-}
-
-template <int EPI, int SRC, int PPT>
-cudaError_t launch_ppt(int nblocks, bool z_clip, const Walk& w,
-                       const Epi& ep, cudaStream_t s) {
-  if (z_clip)
-    tile_raster_kernel<PPT, true, EPI, SRC><<<nblocks, THREADS, 0, s>>>(w,
-                                                                        ep);
-  else
-    tile_raster_kernel<PPT, false, EPI, SRC><<<nblocks, THREADS, 0, s>>>(w,
-                                                                         ep);
-  return cudaGetLastError();
 }
 
 // The checks every launch makes first: an error left pending by an
@@ -980,14 +1123,21 @@ int fma_ppt(int P) {
   return ppt <= 1 ? 1 : ppt <= 2 ? 2 : ppt <= 4 ? 4 : ppt <= 8 ? 8 : 16;
 }
 
-// 16-pixel groups a warp of the MMA walk holds per pass
-int mma_groups(int P) {
-  const int g = (P + WARPS * 16 - 1) / (WARPS * 16);
-  return g <= 1 ? 1 : g <= 2 ? 2 : g <= 4 ? 4 : MAX_GROUPS;
+template <int EPI, int SRC, int PPT>
+cudaError_t launch_ppt(int nblocks, bool z_clip, const Walk& w,
+                       const Epi& ep, cudaStream_t s) {
+  if (z_clip)
+    tile_raster_kernel<PPT, true, EPI, SRC><<<nblocks, THREADS, 0, s>>>(w,
+                                                                        ep);
+  else
+    tile_raster_kernel<PPT, false, EPI, SRC><<<nblocks, THREADS, 0, s>>>(w,
+                                                                         ep);
+  return cudaGetLastError();
 }
 
 // Launches epilogue EPI on source SRC over nblocks = B * nt tiles on
-// `stream`; returns the cudaError_t of the launch (0 on success).
+// `stream` with the one-block-a-tile walk; returns the cudaError_t of the
+// launch (0 on success).
 template <int EPI, int SRC>
 int launch(int nblocks, int z_clip, const Walk& w, const Epi& ep,
            void* stream) {
@@ -1003,101 +1153,13 @@ int launch(int nblocks, int z_clip, const Walk& w, const Epi& ep,
   }
 }
 
-template <int EPI, int G>
-cudaError_t launch_mma_g(int nblocks, bool z_clip, const Walk& w,
-                         const Epi& ep, cudaStream_t s) {
-  if (z_clip)
-    tile_raster_mma_kernel<G, true, EPI><<<nblocks, THREADS, 0, s>>>(w, ep);
-  else
-    tile_raster_mma_kernel<G, false, EPI><<<nblocks, THREADS, 0, s>>>(w, ep);
-  return cudaGetLastError();
-}
-
-// The MMA walk (K1-mxu) with epilogue EPI over nblocks = B * nt tiles.
-template <int EPI>
-int launch_mma(int nblocks, int z_clip, const Walk& w, const Epi& ep,
-               void* stream) {
-  if (const int e = check<EPI, PAIRS>(w, ep, nblocks)) return e < 0 ? 0 : e;
-  if (ep.mxu != 1 && ep.mxu != 2) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const bool zc = z_clip != 0;
-  switch (mma_groups(w.tile_w * w.tile_h)) {
-    case 1: return (int)launch_mma_g<EPI, 1>(nblocks, zc, w, ep, s);
-    case 2: return (int)launch_mma_g<EPI, 2>(nblocks, zc, w, ep, s);
-    case 4: return (int)launch_mma_g<EPI, 4>(nblocks, zc, w, ep, s);
-    default: return (int)launch_mma_g<EPI, MAX_GROUPS>(nblocks, zc, w, ep, s);
-  }
-}
-
-// The persistent grid: at most the blocks the card holds at once, never
-// more than there are claims; the claim counter zeroed on the stream.
-template <bool MMA, int N, bool ZCLIP>
-cudaError_t launch_wf_n(int nblocks, int wf, int* next, const Walk& w,
-                        const Epi& ep, cudaStream_t s) {
-  const auto kernel = tile_raster_wf_kernel<MMA, N, ZCLIP>;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      THREADS, 0);
-  if (e == cudaSuccess) e = cudaMemsetAsync(next, 0, sizeof(int), s);
-  if (e != cudaSuccess) return e;
-  const int claims = (nblocks + wf - 1) / wf;
-  const int resident = sms * (per_sm > 0 ? per_sm : 1);
-  const int grid = claims < resident ? claims : resident;
-  kernel<<<grid, THREADS, 0, s>>>(w, ep, nblocks, wf, next);
-  return cudaGetLastError();
-}
-
-template <bool MMA, bool ZCLIP>
-cudaError_t launch_wf_z(int nblocks, int wf, int* next, const Walk& w,
-                        const Epi& ep, cudaStream_t s) {
-  const int P = w.tile_w * w.tile_h;
-  if constexpr (MMA) {
-    switch (mma_groups(P)) {
-      case 1: return launch_wf_n<true, 1, ZCLIP>(nblocks, wf, next, w, ep, s);
-      case 2: return launch_wf_n<true, 2, ZCLIP>(nblocks, wf, next, w, ep, s);
-      case 4: return launch_wf_n<true, 4, ZCLIP>(nblocks, wf, next, w, ep, s);
-      default:
-        return launch_wf_n<true, MAX_GROUPS, ZCLIP>(nblocks, wf, next, w, ep,
-                                                    s);
-    }
-  } else {
-    switch (fma_ppt(P)) {
-      case 1: return launch_wf_n<false, 1, ZCLIP>(nblocks, wf, next, w, ep, s);
-      case 2: return launch_wf_n<false, 2, ZCLIP>(nblocks, wf, next, w, ep, s);
-      case 4: return launch_wf_n<false, 4, ZCLIP>(nblocks, wf, next, w, ep, s);
-      case 8: return launch_wf_n<false, 8, ZCLIP>(nblocks, wf, next, w, ep, s);
-      default:
-        return launch_wf_n<false, 16, ZCLIP>(nblocks, wf, next, w, ep, s);
-    }
-  }
-}
-
-// K1-wf (ep.mxu 0) or its MMA walk (ep.mxu 1 or 2), u8 epilogue.
-int launch_wf(int nblocks, int z_clip, int wf, int* next, const Walk& w,
-              const Epi& ep, void* stream) {
-  if (const int e = check<U8_GOURAUD, PAIRS>(w, ep, nblocks))
-    return e < 0 ? 0 : e;
-  if (wf < 1 || next == nullptr) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (ep.mxu)
-    return (int)(z_clip ? launch_wf_z<true, true>(nblocks, wf, next, w, ep, s)
-                        : launch_wf_z<true, false>(nblocks, wf, next, w, ep,
-                                                   s));
-  return (int)(z_clip ? launch_wf_z<false, true>(nblocks, wf, next, w, ep, s)
-                      : launch_wf_z<false, false>(nblocks, wf, next, w, ep,
-                                                  s));
-}
-
-// The split walk (K1, K3): the plan, then the persistent walk, its grid
-// at most the blocks the card holds at once and never more than cap.
-template <int EPI, int PPT, bool ZC>
+// The split walk: the plan, then the persistent walk, its grid at most
+// the blocks the card holds at once and never more than ceil(cap / wf),
+// the claims the longest list could fill.
+template <int EPI, int PPT, bool ZC, int WALKER, bool GRAIN>
 cudaError_t launch_split_n(int nblocks, const Walk& w, const Epi& ep,
-                           const Plan& pl, cudaStream_t s) {
-  const auto kernel = tile_raster_split_kernel<PPT, ZC, EPI>;
+                           const Plan& pl, int wf, cudaStream_t s) {
+  const auto kernel = tile_raster_split_kernel<PPT, ZC, EPI, WALKER, GRAIN>;
   // the device's SMs and this kernel's resident blocks, asked once a
   // device (a launch then costs the host two kernel launches only)
   static int cached_dev = -1, sms = 0, per_sm = 0;
@@ -1116,36 +1178,58 @@ cudaError_t launch_split_n(int nblocks, const Walk& w, const Epi& ep,
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int resident = sms * (per_sm > 0 ? per_sm : 1);
-  kernel<<<min(pl.cap, resident), THREADS, 0, s>>>(w, ep, pl);
+  kernel<<<min((pl.cap + wf - 1) / wf, resident), THREADS, 0, s>>>(w, ep, pl,
+                                                                 wf);
   return cudaGetLastError();
 }
 
-template <int EPI, bool ZC>
+template <int EPI, bool ZC, int WALKER, bool GRAIN>
 cudaError_t launch_split_z(int nblocks, const Walk& w, const Epi& ep,
-                           const Plan& pl, cudaStream_t s) {
+                           const Plan& pl, int wf, cudaStream_t s) {
+#define SPLIT_N(N) \
+  launch_split_n<EPI, N, ZC, WALKER, GRAIN>(nblocks, w, ep, pl, wf, s)
   switch (fma_ppt(w.tile_w * w.tile_h)) {
-    case 1: return launch_split_n<EPI, 1, ZC>(nblocks, w, ep, pl, s);
-    case 2: return launch_split_n<EPI, 2, ZC>(nblocks, w, ep, pl, s);
-    case 4: return launch_split_n<EPI, 4, ZC>(nblocks, w, ep, pl, s);
-    case 8: return launch_split_n<EPI, 8, ZC>(nblocks, w, ep, pl, s);
-    default: return launch_split_n<EPI, 16, ZC>(nblocks, w, ep, pl, s);
+    case 1: return SPLIT_N(1);
+    case 2: return SPLIT_N(2);
+    case 4: return SPLIT_N(4);
+    case 8: return SPLIT_N(8);
+    default: return SPLIT_N(16);
   }
+#undef SPLIT_N
 }
 
+template <int EPI, bool GRAIN>
+cudaError_t launch_split_g(int nblocks, bool z_clip, const Walk& w,
+                           const Epi& ep, const Plan& pl, int wf,
+                           cudaStream_t s) {
+#define SPLIT_Z(Z, W) \
+  launch_split_z<EPI, Z, W, GRAIN>(nblocks, w, ep, pl, wf, s)
+  return ep.mxu
+             ? (z_clip ? SPLIT_Z(true, WALK_MMA) : SPLIT_Z(false, WALK_MMA))
+             : (z_clip ? SPLIT_Z(true, WALK_FMA) : SPLIT_Z(false, WALK_FMA));
+#undef SPLIT_Z
+}
+
+// The FMA walk (ep.mxu 0) or the MMA walk (ep.mxu 1 or 2, an affine
+// table) with epilogue EPI, wf items a claim (only K1's epilogue takes
+// wf > 1, K1-wf).
 template <int EPI>
 int launch_split(int nblocks, int z_clip, const Walk& w, const Epi& ep,
-                 const Plan& pl, void* stream) {
+                 const Plan& pl, int wf, void* stream) {
   if (const int e = check<EPI, PAIRS>(w, ep, nblocks)) return e < 0 ? 0 : e;
-  if (pl.items == nullptr || pl.counters == nullptr || pl.cap < nblocks)
+  if (pl.items == nullptr || pl.counters == nullptr || pl.cap < nblocks ||
+      wf < 1 || (EPI != U8_GOURAUD && wf != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return (int)(z_clip ? launch_split_z<EPI, true>(nblocks, w, ep, pl, s)
-                      : launch_split_z<EPI, false>(nblocks, w, ep, pl, s));
+  if constexpr (EPI == U8_GOURAUD)
+    if (wf > 1)
+      return (int)launch_split_g<EPI, true>(nblocks, z_clip != 0, w, ep, pl,
+                                            wf, s);
+  return (int)launch_split_g<EPI, false>(nblocks, z_clip != 0, w, ep, pl, 1,
+                                         s);
 }
 
-// Registers a thread and resident blocks an SM of K1's or K3's split walk,
-// or of the fma_tile kernel it is timed beside: K1-wf's for K1, K2b's
-// grid kernel for K3.
+// Registers a thread and resident blocks an SM of a kernel.
 template <typename K>
 int blocks_per_sm(K kernel, int* regs) {
   cudaFuncAttributes a;
@@ -1158,14 +1242,22 @@ int blocks_per_sm(K kernel, int* regs) {
   return n;
 }
 
+// walk 0: the one-block-a-tile walk (fma_tile) as K2b's kernel (TEX_U8)
+// or K6's (U8_GOURAUD) runs it; 1: the split FMA walk; 2: the split MMA
+// walk.
 template <int EPI, bool ZC>
-int occupancy_z(int split, int P, int* regs) {
-#define OCC(N)                                                            \
-  if (split) return blocks_per_sm(tile_raster_split_kernel<N, ZC, EPI>, regs); \
+int occupancy_z(int walk, int P, int* regs) {
+#define OCC(N)                                                              \
+  if (walk == 1)                                                            \
+    return blocks_per_sm(                                                   \
+        tile_raster_split_kernel<N, ZC, EPI, WALK_FMA, false>, regs);       \
+  if (walk == 2)                                                            \
+    return blocks_per_sm(                                                   \
+        tile_raster_split_kernel<N, ZC, EPI, WALK_MMA, false>, regs);       \
   if constexpr (EPI == TEX_U8)                                              \
     return blocks_per_sm(tile_raster_kernel<N, ZC, TEX_IDX, PAIRS>, regs);  \
   else                                                                      \
-    return blocks_per_sm(tile_raster_wf_kernel<false, N, ZC>, regs)
+    return blocks_per_sm(tile_raster_kernel<N, ZC, U8_GOURAUD, ROWS>, regs)
   switch (fma_ppt(P)) {
     case 1: OCC(1);
     case 2: OCC(2);
@@ -1198,38 +1290,42 @@ extern "C" {
 #define SPLIT_ARGS int *items, int cap, int *counters
 #define PLAN {reinterpret_cast<int2*>(items), cap, counters}
 
-// K1: out (B * nt, P) packed u8 RGBA, rows from sorted pairs, through
-// the split walk (two launches: the plan, the walk).
-int tile_raster_u8(WALK_ARGS, const int* packed_bg, int opaque, int* out,
-                   SPLIT_ARGS, void* stream) {
+// K1, K1-wf and K1-mxu: out (B * nt, P) packed u8 RGBA, rows from sorted
+// pairs, through the split walk (two launches: the plan, the walk), wf
+// items a claim (K1: 1); mxu 1 or 2 walks an affine table on the tensor
+// cores (K1-mxu), 0 the edge table on the CUDA cores.
+int tile_raster_u8(WALK_ARGS, const int* packed_bg, int opaque, int mxu,
+                   int wf, int* out, SPLIT_ARGS, void* stream) {
   const Walk w = WALK;
-  const Epi ep = {packed_bg, opaque, nullptr, 0, 0, out, nullptr, 0};
+  const Epi ep = {packed_bg, opaque, nullptr, 0, 0, out, nullptr, mxu};
   const Plan pl = PLAN;
-  return launch_split<U8_GOURAUD>(nblocks, z_clip, w, ep, pl, stream);
+  return launch_split<U8_GOURAUD>(nblocks, z_clip, w, ep, pl, wf, stream);
 }
 
-// K3: out (B * nt, P) packed u8 texels of the (tex_h x tex_w) packed
-// texture, through the split walk.
+// K3 and, with mxu 1 or 2 over an affine textured table, its MMA walk:
+// out (B * nt, P) packed u8 texels of the (tex_h x tex_w) packed texture,
+// through the split walk.
 int tile_raster_tex_u8(WALK_ARGS, const int* tex, int tex_w, int tex_h,
-                       const int* packed_bg, int* out, SPLIT_ARGS,
+                       const int* packed_bg, int mxu, int* out, SPLIT_ARGS,
                        void* stream) {
   const Walk w = WALK;
-  const Epi ep = {packed_bg, 0, tex, tex_w, tex_h, out, nullptr, 0};
+  const Epi ep = {packed_bg, 0, tex, tex_w, tex_h, out, nullptr, mxu};
   const Plan pl = PLAN;
-  return launch_split<TEX_U8>(nblocks, z_clip, w, ep, pl, stream);
+  return launch_split<TEX_U8>(nblocks, z_clip, w, ep, pl, 1, stream);
 }
 
 // Registers (*regs) and resident blocks an SM (returned; negative: a
 // cudaError_t) of K1's (tex 0) or K3's (tex 1) kernel for tiles of
-// tile_p pixels: the split walk (split 1) or the old walk, fma_tile, as
-// K1-wf's kernel (tex 0) or K2b's (tex 1) runs it (split 0).
-int tile_raster_occupancy(int split, int tex, int tile_p, int z_clip,
+// tile_p pixels: walk 1 the split FMA walk, 2 the split MMA walk, 0 the
+// one-block-a-tile walk, fma_tile, as K6's (tex 0) or K2b's (tex 1)
+// kernel runs it.
+int tile_raster_occupancy(int walk, int tex, int tile_p, int z_clip,
                           int* regs) {
   if (tex)
-    return z_clip ? occupancy_z<TEX_U8, true>(split, tile_p, regs)
-                  : occupancy_z<TEX_U8, false>(split, tile_p, regs);
-  return z_clip ? occupancy_z<U8_GOURAUD, true>(split, tile_p, regs)
-                : occupancy_z<U8_GOURAUD, false>(split, tile_p, regs);
+    return z_clip ? occupancy_z<TEX_U8, true>(walk, tile_p, regs)
+                  : occupancy_z<TEX_U8, false>(walk, tile_p, regs);
+  return z_clip ? occupancy_z<U8_GOURAUD, true>(walk, tile_p, regs)
+                : occupancy_z<U8_GOURAUD, false>(walk, tile_p, regs);
 }
 
 // K2b: out (B * nt, P) texel indices, -1 for sky.
@@ -1263,32 +1359,18 @@ int tile_raster_rows_u8(WALK_ARGS, const int* packed_bg, int opaque,
   return launch<U8_GOURAUD, ROWS>(nblocks, z_clip, w, ep, stream);
 }
 
-// K1-wf: K1's out from a persistent grid whose blocks claim wf
-// consecutive tiles at a time from *next (one int, zeroed here on the
-// stream); with mxu 1 or 2 (an affine table) each tile walks K1-mxu's
-// MMA walk.
-int tile_raster_u8_wf(WALK_ARGS, const int* packed_bg, int opaque, int mxu,
-                      int wf, int* next, int* out, void* stream) {
-  const Walk w = WALK;
-  const Epi ep = {packed_bg, opaque, nullptr, 0, 0, out, nullptr, mxu};
-  return launch_wf(nblocks, z_clip, wf, next, w, ep, stream);
-}
-
-// K1-mxu: K1's out from the MMA walk over an affine table (mxu 1 or 2).
-int tile_raster_u8_mxu(WALK_ARGS, const int* packed_bg, int opaque, int mxu,
-                       int* out, void* stream) {
-  const Walk w = WALK;
-  const Epi ep = {packed_bg, opaque, nullptr, 0, 0, out, nullptr, mxu};
-  return launch_mma<U8_GOURAUD>(nblocks, z_clip, w, ep, stream);
-}
-
-// K3 over the MMA walk: K3's out from an affine textured table.
-int tile_raster_tex_u8_mxu(WALK_ARGS, const int* tex, int tex_w, int tex_h,
-                           const int* packed_bg, int mxu, int* out,
-                           void* stream) {
-  const Walk w = WALK;
-  const Epi ep = {packed_bg, 0, tex, tex_w, tex_h, out, nullptr, mxu};
-  return launch_mma<TEX_U8>(nblocks, z_clip, w, ep, stream);
+// The MMA walk's layout probe (mma_probe_kernel), which chip_smoke.py
+// runs before any walk (its plain version: testing.mma_probe_plain):
+// rows (n <= 16, 32) float32 affine rows, out (64, 16, 4) float32.
+int tile_raster_mma_probe(const float* rows, int n, int ox, int oy,
+                          int tile_w, int mxu, float* out, void* stream) {
+  const cudaError_t pending = cudaGetLastError();
+  if (pending != cudaSuccess) return (int)pending;
+  if (n < 1 || n > 16 || tile_w < 1 || mxu < 1 || mxu > 2)
+    return (int)cudaErrorInvalidValue;
+  mma_probe_kernel<<<1, 128, 0, (cudaStream_t)stream>>>(rows, n, ox, oy,
+                                                       tile_w, mxu, out);
+  return (int)cudaGetLastError();
 }
 
 const char* tile_raster_error_string(int err) {

@@ -10,10 +10,10 @@ and the stream are passed as ``c_void_p``; every C entry returns a
 ``-fmad=false`` keeps nvcc from contracting a multiply and an add into one
 fused operation: the kernels must round each product and sum the way the
 plain torch versions do, bit for bit.  It governs the CUDA-core
-arithmetic only: the matrix-unit walk (K1-mxu) accumulates its products
-on the tensor cores, whose float32 sums are not rounded to nearest one
-addition at a time, and is held to its plain version within a
-tolerance.  ``-Xptxas=-v`` writes each kernel's register and
+arithmetic only: the matrix-unit walk (K1-mxu, ``wgmma``, which needs
+``sm_90a``) accumulates its walk planes on the tensor cores, whose
+float32 sums are not rounded to nearest one addition at a time, and is
+held to its plain version within a tolerance.  ``-Xptxas=-v`` writes each kernel's register and
 shared-memory use into the build log beside the library.
 """
 
@@ -87,20 +87,20 @@ def tile_raster() -> ctypes.CDLL:
         # stream
         walk = [p, i, p, p, i, i, p, i, i, i, i, i]
         split = [p, i, p]   # the split walk's items, cap, counters
-        for entry, epilogue in (("tile_raster_u8", [p, i, p] + split),
+        for entry, epilogue in (("tile_raster_u8",
+                                 [p, i, i, i, p] + split),
                                 ("tile_raster_tex_u8",
-                                 [p, i, i, p, p] + split),
+                                 [p, i, i, p, i, p] + split),
                                 ("tile_raster_tex_idx", [i, i, p]),
                                 ("tile_raster_keys_f32", [p, p]),
                                 ("tile_raster_bins_f32", [p, p]),
-                                ("tile_raster_rows_u8", [p, i, p]),
-                                ("tile_raster_u8_wf", [p, i, i, i, p, p]),
-                                ("tile_raster_u8_mxu", [p, i, i, p]),
-                                ("tile_raster_tex_u8_mxu",
-                                 [p, i, i, p, i, p])):
+                                ("tile_raster_rows_u8", [p, i, p])):
             fn = getattr(lib, entry)
             fn.argtypes = walk + epilogue + [p]
             fn.restype = ctypes.c_int
+        # rows, n, ox, oy, tile_w, mxu, out, stream
+        lib.tile_raster_mma_probe.argtypes = [p, i, i, i, i, i, p, p]
+        lib.tile_raster_mma_probe.restype = ctypes.c_int
         lib.tile_raster_occupancy.argtypes = [i, i, i, i, p]
         lib.tile_raster_occupancy.restype = ctypes.c_int
         lib.tile_raster_error_string.argtypes = [ctypes.c_int]
@@ -136,16 +136,20 @@ def launch_canvas_span(fb, width, height, kinds, params, n, is_double,
             f"({lib.canvas_span_error_string(err).decode()})")
 
 
-def tile_raster_occupancy(split: bool, tex: bool, tile_p: int,
+WALKS = ("one block a tile", "split FMA", "split MMA")
+
+
+def tile_raster_occupancy(walk: str, tex: bool, tile_p: int,
                           z_clip: bool) -> tuple[int, int]:
     """(registers a thread, resident blocks an SM) of K1's (K3's with
-    ``tex``) kernel for tiles of ``tile_p`` pixels: the split walk, or
-    with ``split=False`` the one-block-a-tile walk as K1-wf's (K2b's)
+    ``tex``) kernel for tiles of ``tile_p`` pixels, ``walk`` one of
+    :data:`WALKS`: the split walk on the CUDA cores or on the tensor cores
+    (K1-mxu, K3's mxu walk), or the one-block-a-tile walk as K6's (K2b's)
     kernel runs it."""
     lib = tile_raster()
     regs = ctypes.c_int(0)
-    n = lib.tile_raster_occupancy(int(split), int(tex), tile_p, int(z_clip),
-                                  ctypes.byref(regs))
+    n = lib.tile_raster_occupancy(WALKS.index(walk), int(tex), tile_p,
+                                  int(z_clip), ctypes.byref(regs))
     if n < 0:
         raise RuntimeError(f"tile_raster_occupancy failed: cudaError {-n} "
                            f"({lib.tile_raster_error_string(-n).decode()})")

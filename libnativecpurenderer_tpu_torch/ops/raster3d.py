@@ -708,12 +708,12 @@ def render_gouraud_u8(verts, faces, vtx_colors, width: int, height: int,
     plane w = NEAR_EPS into sub-triangles (see
     :func:`clip_near_triangles`) instead of culling them whole.
 
-    ``wf=n`` walks the tiles with the persistent kernel K1-wf, its blocks
-    claiming :func:`clamp_mega` (n, tiles) consecutive tiles at a time:
-    the same frame as ``wf=0``.  ``mxu=1|2`` builds the affine table and
-    walks it with the matrix-unit kernel K1-mxu (1: near float32, ±1 u8
-    slips against the default walk; 2: one bfloat16 pass, a measurement
-    setting); with ``wf`` too, the persistent launch takes that walk.
+    ``wf=n`` walks the tiles with K1-wf, K1's split walk whose blocks
+    claim :func:`clamp_mega` (n, tiles) consecutive items of its plan at
+    a time: the same frame as ``wf=0``.  ``mxu=1|2`` builds the affine
+    table and walks it with the matrix-unit kernel K1-mxu (1: near
+    float32, ±1 u8 slips against the default walk; 2: one bfloat16 pass,
+    a measurement setting); with ``wf`` too, the claims take that walk.
     ``kcc`` is accepted for signature parity: it sized the TPU kernel's
     triangle chunk and changes no value.  The other TPU layout knobs of
     the JAX entry (``interpret``, ``resident_out``, ``mega``, ``out8``,

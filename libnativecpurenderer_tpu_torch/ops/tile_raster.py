@@ -27,14 +27,15 @@ kernels their launchers pick:
   * K6, ``raster_tiles_rows_u8``: K1's opaque values over rows gathered in
     pair order (``raster_tiles_dynrows`` ``:1271-1299``, body
     ``_make_kernel_dynrows`` ``:1176-1267``);
-  * K1-wf, ``raster_tiles_flat_u8_wf``: K1's values from a persistent
-    launch whose blocks claim ``wf`` consecutive tiles at a time (the
+  * K1-wf, ``raster_tiles_flat_u8_wf``: K1's values from K1's split
+    walk whose blocks claim ``wf`` consecutive items at a time (the
     ``wf`` branch, ``:739``, kernel ``kernel_wf`` ``:624-655``);
   * K1-mxu, ``raster_tiles_flat_u8_mxu`` and ``raster_tiles_tex_u8_mxu``:
-    the walk over an affine table (``build_table_mxu``, ``:1474``) with
-    the planes evaluated on the tensor cores (the ``mxu`` branch of
-    ``_make_kernel_flat``, ``:242-250,285-301,326-327``), K1's and K3's
-    epilogues on the winner's planes.
+    the split walk over an affine table (``build_table_mxu``, ``:1474``)
+    with the walk's planes evaluated on the tensor cores (the ``mxu``
+    branch of ``_make_kernel_flat``, ``:242-250,285-301,326-327``), K1's
+    and K3's epilogues on the winner's attribute planes, evaluated on the
+    CUDA cores (:func:`mma_operands` builds the product's operands).
 
 Each wrapper, on CUDA tensors, launches the hand-written kernel in
 ``csrc/tile_raster.cu`` (one walk; the epilogue and the row source are
@@ -128,6 +129,77 @@ def bf16_round(x):
     """float32 -> the nearest bfloat16 (ties to even), as float32: the
     operand rounding of one bf16 pass of the matrix unit (``mxu=2``)."""
     return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _split3(a, mxu: int):
+    """a = p0 + p1 + p2 in bfloat16 parts (8 significant bits each cover
+    float32's 24; exact away from underflow), each part float32; ``mxu=2``
+    keeps p0 alone, and a non-finite p0 keeps zero parts (a NaN row stays
+    NaN).  The MMA walk's ``split3``."""
+    p0 = bf16_round(a)
+    zero = torch.zeros_like(a)
+    if mxu != 1:
+        return [p0, zero, zero]
+    fin = torch.isfinite(p0)
+    r = a - p0
+    p1 = bf16_round(r)
+    p2 = bf16_round(r - p1)
+    return [p0, torch.where(fin, p1, zero), torch.where(fin, p2, zero)]
+
+
+def mma_operands(rows, x, y, mxu: int):
+    """The MMA walk's operands (``csrc/tile_raster.cu``: ``a_frag``,
+    ``build_b``) for the affine rows ``rows`` (T, ROW_W) of
+    :func:`build_table_mxu` at the pixels ``x``, ``y`` (P,) float32:
+    (A (P, 16), B (16, 64 n) with n = ceil(T / 16), cols (64 n, 2)), all
+    float32 but ``cols``, every value of A and B a bfloat16.
+
+    K is xh xl xh xl xh xl | yh yl yh yl yh yl | 1 1 1 | 0 in A against
+    ax0 ax0 ax1 ax1 ax2 ax2 | ay0 ay0 ay1 ay1 ay2 ay2 | c0 c1 c2 | 0 in B,
+    x = xh + xl and a = a0 + a1 + a2 exact bf16 parts (``mxu=2``: xl, a1,
+    a2 are 0, one bf16 pass), so A @ B in float64 is each plane
+    (a_x x + a_y y) + c exactly.  B is n operands of 16 triangles (one
+    wgmma m64n64k16 each): its column 64 s + 8 i + c is plane
+    2 (i % 2) + c % 2 of triangle 16 s + 4 (i // 2) + c // 2 (``cols``:
+    (triangle, plane) of each column), so the lane of a quad that holds
+    columns 8 i + 2 q, + 1 holds the four walk planes of triangles 4 k +
+    q.  Triangles T .. 16 n - 1 are NaN columns, which never cover."""
+    T = rows.shape[0]
+    n = -(-T // 16)
+    pad = rows.new_full((16 * n - T, ROW_W), float("nan"))
+    rows = torch.cat([rows.to(torch.float32), pad])
+    live = torch.arange(16 * n, device=rows.device) < T
+    # B's 16 K rows of every (triangle, plane)
+    ks = []
+    for pl in range(4):
+        ax, ay, c = (_split3(rows[:, 4 * pl + m], mxu) for m in range(3))
+        col = [ax[0], ax[0], ax[1], ax[1], ax[2], ax[2],
+               ay[0], ay[0], ay[1], ay[1], ay[2], ay[2], c[0], c[1], c[2],
+               torch.zeros_like(c[0])]
+        col = torch.stack(col)                            # (16, 16 n)
+        dead = torch.zeros_like(col)
+        dead[:2] = float("nan")                           # ax0 ax0
+        ks.append(torch.where(live, col, dead))
+    t = torch.arange(16 * n, device=rows.device)
+    B = rows.new_empty((16, 64 * n))
+    cols = torch.empty((64 * n, 2), dtype=torch.long, device=rows.device)
+    for pl in range(4):
+        tt = t % 16
+        i = 2 * (tt // 4) + pl // 2
+        c = 2 * (tt % 4) + pl % 2
+        idx = 64 * (t // 16) + 8 * i + c
+        B[:, idx] = ks[pl]
+        cols[idx, 0] = t
+        cols[idx, 1] = pl
+    x = x.to(torch.float32)
+    y = y.to(torch.float32)
+    xh, yh = bf16_round(x), bf16_round(y)
+    xl = x - xh if mxu == 1 else torch.zeros_like(x)
+    yl = y - yh if mxu == 1 else torch.zeros_like(y)
+    one = torch.ones_like(x)
+    A = torch.stack([xh, xl, xh, xl, xh, xl, yh, yl, yh, yl, yh, yl,
+                     one, one, one, torch.zeros_like(x)], dim=1)
+    return A, B, cols
 
 
 def _quant_u8(v):
@@ -290,6 +362,33 @@ def _split_scratch(sorted_pad, counts, table):
     return scratch, cap, scratch.data_ptr() + 8 * cap
 
 
+def _launch_u8(sorted_pad, starts, counts, table, packed_bg, width,
+               tile_w, tile_h, opaque, z_clip, *, mxu: int, wf: int):
+    """K1's split walk (the C entry ``tile_raster_u8``) into a new
+    (..., NT, P) output: the FMA walk (``mxu=0``) or the MMA walk, ``wf``
+    items a claim."""
+    out = torch.empty(counts.shape + (tile_w * tile_h,), dtype=torch.int32,
+                      device=table.device)
+    _launch("tile_raster_u8", sorted_pad, starts, counts, counts.shape[-1],
+            table, width, tile_w, tile_h, z_clip, packed_bg, int(opaque),
+            mxu, wf, out, *_split_scratch(sorted_pad, counts, table))
+    return out
+
+
+def _launch_tex_u8(sorted_pad, starts, counts, table, tex_packed, tex_dims,
+                   packed_bg, width, tile_w, tile_h, z_clip, *, mxu: int):
+    """K3's split walk (the C entry ``tile_raster_tex_u8``) into a new
+    (..., NT, P) output: the FMA walk (``mxu=0``) or the MMA walk."""
+    th, tw = tex_dims
+    out = torch.empty(counts.shape + (tile_w * tile_h,), dtype=torch.int32,
+                      device=table.device)
+    _launch("tile_raster_tex_u8", sorted_pad, starts, counts,
+            counts.shape[-1], table, width, tile_w, tile_h, z_clip,
+            tex_packed, tw, th, packed_bg, mxu, out,
+            *_split_scratch(sorted_pad, counts, table))
+    return out
+
+
 def _on_cpu(table, kernel: str) -> bool:
     """True for CPU tensors (run the plain version), False for CUDA ones
     (launch the kernel); raises for any other device."""
@@ -351,11 +450,8 @@ def raster_tiles_flat_u8(sorted_pad, starts, counts, table, packed_bg,
         return raster_tiles_flat_u8_reference(
             sorted_pad, starts, counts, table, packed_bg, width, tile_w,
             tile_h, opaque=opaque, z_clip=z_clip)
-    out = torch.empty(counts.shape + (tile_w * tile_h,), dtype=torch.int32,
-                      device=table.device)
-    _launch("tile_raster_u8", sorted_pad, starts, counts, counts.shape[-1],
-            table, width, tile_w, tile_h, z_clip, packed_bg, int(opaque),
-            out, *_split_scratch(sorted_pad, counts, table))
+    out = _launch_u8(sorted_pad, starts, counts, table, packed_bg, width,
+                     tile_w, tile_h, opaque, z_clip, mxu=0, wf=1)
     raster_tiles_flat_u8.launches += 1
     return out
 
@@ -383,7 +479,7 @@ def raster_tiles_tex_u8(sorted_pad, starts, counts, table, tex_packed,
     CUDA tensors launch the kernel on the current stream (no sync), K1's
     split walk (see :func:`raster_tiles_flat_u8`); CPU tensors run
     :func:`raster_tiles_tex_u8_reference`."""
-    P = _check_tex_tile(tile_w, tile_h)
+    _check_tex_tile(tile_w, tile_h)
     _check_inputs(sorted_pad, starts, counts, table, tile_w, tile_h,
                   packed_bg=packed_bg, tex_packed=tex_packed,
                   tex_dims=tex_dims)
@@ -391,13 +487,9 @@ def raster_tiles_tex_u8(sorted_pad, starts, counts, table, tex_packed,
         return raster_tiles_tex_u8_reference(
             sorted_pad, starts, counts, table, tex_packed, tex_dims,
             packed_bg, width, tile_w, tile_h, z_clip=z_clip)
-    th, tw = tex_dims
-    out = torch.empty(counts.shape + (P,), dtype=torch.int32,
-                      device=table.device)
-    _launch("tile_raster_tex_u8", sorted_pad, starts, counts,
-            counts.shape[-1], table, width, tile_w, tile_h, z_clip,
-            tex_packed, tw, th, packed_bg, out,
-            *_split_scratch(sorted_pad, counts, table))
+    out = _launch_tex_u8(sorted_pad, starts, counts, table, tex_packed,
+                         tex_dims, packed_bg, width, tile_w, tile_h, z_clip,
+                         mxu=0)
     raster_tiles_tex_u8.launches += 1
     return out
 
@@ -564,12 +656,12 @@ def raster_tiles_flat_u8_wf(sorted_pad, starts, counts, table, packed_bg,
     branch of ``raster_tiles_flat`` (``pallas_raster.py:713-748``, kernel
     ``kernel_wf`` ``:624-655``).  The TPU programs each walked ``wf``
     consecutive tiles and copied their id blocks into SMEM themselves;
-    here a grid of at most the card's resident blocks claims ``wf``
-    consecutive tiles at a time from a counter and walks them with K1's
-    tile body, so the values are K1's (:func:`raster_tiles_flat_u8`) for
-    every ``wf`` >= 1.  With ``mxu`` (an affine table) the tile body is
-    the matrix-unit walk's (:func:`raster_tiles_flat_u8_mxu`), as JAX's
-    wf branch takes its ``mxu``.
+    here K1's split walk (:func:`raster_tiles_flat_u8`, ``wf`` = 1)
+    claims ``wf`` consecutive items of its plan at a time and walks them
+    in list order, so the values are K1's for every ``wf`` >= 1 (the
+    merge is exact in any order).  With ``mxu`` (an affine table) the
+    walk is the matrix-unit walk's (:func:`raster_tiles_flat_u8_mxu`), as
+    JAX's wf branch takes its ``mxu``.
 
     CUDA tensors launch the kernel on the current stream (no sync);
     CPU tensors run K1's plain version (with ``mxu``, K1-mxu's)."""
@@ -587,12 +679,8 @@ def raster_tiles_flat_u8_wf(sorted_pad, starts, counts, table, packed_bg,
         return raster_tiles_flat_u8_reference(
             sorted_pad, starts, counts, table, packed_bg, width, tile_w,
             tile_h, opaque=opaque, z_clip=z_clip)
-    out = torch.empty(counts.shape + (tile_w * tile_h,), dtype=torch.int32,
-                      device=table.device)
-    claim = torch.empty(1, dtype=torch.int32, device=table.device)
-    _launch("tile_raster_u8_wf", sorted_pad, starts, counts, counts.shape[-1],
-            table, width, tile_w, tile_h, z_clip, packed_bg, int(opaque),
-            mxu, wf, claim, out)
+    out = _launch_u8(sorted_pad, starts, counts, table, packed_bg, width,
+                     tile_w, tile_h, opaque, z_clip, mxu=mxu, wf=wf)
     raster_tiles_flat_u8_wf.launches += 1
     return out
 
@@ -606,14 +694,17 @@ def raster_tiles_flat_u8_mxu(sorted_pad, starts, counts, table, packed_bg,
     """Kernel K1-mxu: K1's u8 output from the matrix-unit walk over an
     affine table (:func:`build_table_mxu`) — counterpart of the ``mxu``
     branch of ``_make_kernel_flat`` (``pallas_raster.py:242-250,285-301,
-    326-327``) in the u8 launch (``:793``).  Each slot's 8 planes (edges,
-    depth, attributes) at 16 pixels are one bf16 tensor-core product with
-    float32 accumulation: ``mxu=1`` splits coordinates and coefficients
-    into exact bf16 parts (near float32, the TPU's HIGHEST), ``mxu=2``
-    takes one bf16 pass (the TPU's DEFAULT, which rounds the pixel
-    coordinates themselves: a measurement setting).  Coverage, key and
-    minimum are K1's; the channels are the winner's planes 4 + d.  B
-    frames (a leading B) in one launch.
+    326-327``) in the u8 launch (``:793``).  K1's split walk with the
+    walk's 4 planes (edges, depth) of 16 triangles at 64 pixels as one
+    bf16 tensor-core product (``wgmma``) with float32 accumulation
+    (operands: :func:`mma_operands`): ``mxu=1`` splits coordinates and
+    coefficients into exact bf16 parts (near float32, the TPU's HIGHEST),
+    ``mxu=2`` takes one bf16 pass (the TPU's DEFAULT, which rounds the
+    pixel coordinates themselves: a measurement setting).  Coverage, key
+    and minimum are K1's; the channels are the winner's planes 4 + d,
+    evaluated on the CUDA cores in the plain version's rounding, so they
+    are its bits wherever the winner agrees.  B frames (a leading B) in
+    one launch.
 
     CUDA tensors launch the kernel on the current stream (no sync); CPU
     tensors run :func:`raster_tiles_flat_u8_mxu_reference`, which the
@@ -626,11 +717,8 @@ def raster_tiles_flat_u8_mxu(sorted_pad, starts, counts, table, packed_bg,
         return raster_tiles_flat_u8_mxu_reference(
             sorted_pad, starts, counts, table, packed_bg, width, tile_w,
             tile_h, opaque=opaque, z_clip=z_clip, mxu=mxu)
-    out = torch.empty(counts.shape + (tile_w * tile_h,), dtype=torch.int32,
-                      device=table.device)
-    _launch("tile_raster_u8_mxu", sorted_pad, starts, counts,
-            counts.shape[-1], table, width, tile_w, tile_h, z_clip,
-            packed_bg, int(opaque), mxu, out)
+    out = _launch_u8(sorted_pad, starts, counts, table, packed_bg, width,
+                     tile_w, tile_h, opaque, z_clip, mxu=mxu, wf=1)
     raster_tiles_flat_u8_mxu.launches += 1
     return out
 
@@ -659,12 +747,9 @@ def raster_tiles_tex_u8_mxu(sorted_pad, starts, counts, table, tex_packed,
         return raster_tiles_tex_u8_mxu_reference(
             sorted_pad, starts, counts, table, tex_packed, tex_dims,
             packed_bg, width, tile_w, tile_h, z_clip=z_clip, mxu=mxu)
-    th, tw = tex_dims
-    out = torch.empty(counts.shape + (tile_w * tile_h,), dtype=torch.int32,
-                      device=table.device)
-    _launch("tile_raster_tex_u8_mxu", sorted_pad, starts, counts,
-            counts.shape[-1], table, width, tile_w, tile_h, z_clip,
-            tex_packed, tw, th, packed_bg, mxu, out)
+    out = _launch_tex_u8(sorted_pad, starts, counts, table, tex_packed,
+                         tex_dims, packed_bg, width, tile_w, tile_h, z_clip,
+                         mxu=mxu)
     raster_tiles_tex_u8_mxu.launches += 1
     return out
 

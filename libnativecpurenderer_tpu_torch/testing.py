@@ -30,7 +30,8 @@ def crafted_uv_table(table):
 
 
 def crafted_runs(lengths, tile_w: int = 32, tile_h: int = 32, seed: int = 0,
-                 nan_share: float = 0.1, past_end: int = 0):
+                 nan_share: float = 0.1, past_end: int = 0,
+                 mxu: bool = False):
     """One row of ``len(lengths)`` tiles whose runs hold exactly
     ``lengths`` triangles each, for the split walk's boundaries: seeded
     triangles around their tile (most cover some of it, at depths partly
@@ -41,7 +42,9 @@ def crafted_runs(lengths, tile_w: int = 32, tile_h: int = 32, seed: int = 0,
     pair array and are clamped, as an overflowed run's.  Returns
     (sorted_pad, starts, counts, table, width) on the CPU; the frame is
     ``width`` x ``tile_h``, its attributes in [0, 1] (the third in
-    [0.5, 1.5], a texel denominator)."""
+    [0.5, 1.5], a texel denominator); with ``mxu`` the table is the
+    matrix-unit walk's affine one (``tile_raster.build_table_mxu``) of the
+    same triangles."""
     from .ops import raster3d, tile_raster
     rng = np.random.default_rng(seed)
     nt = len(lengths)
@@ -56,8 +59,9 @@ def crafted_runs(lengths, tile_w: int = 32, tile_h: int = 32, seed: int = 0,
     A, B, C, inv_area, sign, valid = raster3d.edge_coeffs(sxy, z, valid)
     attrs = torch.from_numpy(rng.uniform(0.0, 1.0, (F, 3, 4))).float()
     attrs[..., 2] += 0.5
-    table = tile_raster.build_table(A, B, C, z * inv_area[:, None],
-                                    inv_area, sign, valid, attrs)
+    build = tile_raster.build_table_mxu if mxu else tile_raster.build_table
+    table = build(A, B, C, z * inv_area[:, None], inv_area, sign, valid,
+                  attrs)
     ids = (torch.from_numpy(tile).int() << raster3d.IDX_BITS) | torch.arange(
         F, dtype=torch.int32)
     spad = -(-F // 64) * 64 + 128
@@ -67,3 +71,29 @@ def crafted_runs(lengths, tile_w: int = 32, tile_h: int = 32, seed: int = 0,
     starts = (torch.cumsum(counts, 0) - counts).int()
     counts[-1] += past_end
     return torch.cat([ids, pad]), starts, counts, table, nt * tile_w
+
+
+def mma_probe_plain(rows, ox: int, oy: int, tile_w: int, mxu: int):
+    """The plain version of the MMA walk's layout probe (the C entry
+    ``tile_raster_mma_probe``, which ``chip_smoke.py`` runs on the card):
+    one product of the walk's operands (``tile_raster.mma_operands``) for
+    the n <= 16 affine rows ``rows`` (n, ROW_W) at the 64 pixels p of a
+    tile at (ox, oy), ``tile_w`` wide (x = ox + p % tile_w, y = oy +
+    p // tile_w), in float64 rounded to float32 and read back as the walk
+    reads it: (64, 16, 4), [p, t, plane] the plane (e0, e1, e2, z) of
+    triangle t at pixel p (t >= n: NaN)."""
+    from .ops import tile_raster
+    tile_raster._check_mxu(mxu)
+    n = rows.shape[0]
+    if rows.dim() != 2 or rows.shape[1] != tile_raster.ROW_W or \
+            not 1 <= n <= 16:
+        raise ValueError(f"rows must be (1..16, {tile_raster.ROW_W}), got "
+                         f"{tuple(rows.shape)}")
+    if tile_w < 1:
+        raise ValueError(f"tile_w must be >= 1, got {tile_w}")
+    p = torch.arange(64)
+    A, B, cols = tile_raster.mma_operands(rows, (ox + p % tile_w).float(),
+                                          (oy + p // tile_w).float(), mxu)
+    out = torch.empty(64, 16, 4)
+    out[:, cols[:, 0], cols[:, 1]] = (A.double() @ B.double()).float()
+    return out

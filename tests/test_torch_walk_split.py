@@ -10,7 +10,9 @@ minimum for every S; these tests hold the mirror to the plain versions
 bit for bit, for the kernel's S (``tile_raster.SEG``) and others around
 it, on seeded runs at the split's boundaries (1, S, S + 1, 2S, 2S + 1
 and 1024 slots), a run whose reads run off the pair array (an
-overflowed run), NaN rows, and ``mesh_10k`` at a small frame.  Also the
+overflowed run), NaN rows, and ``mesh_10k`` at a small frame (the
+affine planes of the MMA walk and the claim grain of K1-wf are held by
+tests/test_torch_mma_walk.py with this mirror).  Also the
 plan's item list at the kernel's S: every slot of every run walked by
 exactly one item, no item for an empty run, long tiles' items first,
 within the capacity the wrapper allocates (``_split_scratch``, one frame
@@ -74,31 +76,85 @@ def _rows(sorted_pad, starts, table, b, nt, slots):
     return table.reshape(-1, nrows, tt.ROW_W)[f][tri.long()]
 
 
-def split_walk(sorted_pad, starts, counts, table, width, tile_w, tile_h,
-               z_clip, seg):
-    """(best keys (NB, P), attr) of the split walk: per item its minimum
-    key, merged by min; attr(d) the winners' attribute d recomputed from
-    their rows."""
+def claim_sequence(n_items, wf, seed):
+    """The order in which blocks walk the plan's items when each claims
+    ``wf`` consecutive items and walks them in list order: the claims
+    interleaved at random (``seed``; None: list order), as blocks that
+    run side by side finish them."""
+    claims = [list(range(c, min(c + wf, n_items)))
+              for c in range(0, n_items, wf)]
+    if seed is None:
+        return [i for c in claims for i in c]
+    rng = np.random.default_rng(seed)
+    out = []
+    while claims:
+        k = int(rng.integers(len(claims)))
+        out.append(claims[k].pop(0))
+        if not claims[k]:
+            claims.pop(k)
+    return out
+
+
+def item_minima(sorted_pad, starts, counts, table, width, tile_w, tile_h,
+                z_clip, seg, mxu=0):
+    """(items, each tile's item count, each item's minimum key (P,)): the
+    walk of one item over its own slots, on the CUDA cores' planes (the
+    FMA walk) or, with ``mxu``, on the affine planes of the MMA walk
+    (``mxu=2`` rounding the table and the coordinates to bfloat16, as the
+    plain version does)."""
     nt = counts.shape[-1]
-    nb = counts.numel()
-    P = tile_w * tile_h
-    best = torch.full((nb, P), r3.SKY_KEY, dtype=torch.int32)
-    items, _ = plan(counts, seg)
+    if mxu == 2:
+        table = tt.bf16_round(table)
+    items, k_of = plan(counts, seg)
+    minima = []
     for b, lo, hi in items:
-        if hi <= lo:
-            continue
         x, y = _pixels(b, nt, width, tile_w, tile_h)
+        if mxu == 2:
+            x, y = tt.bf16_round(x), tt.bf16_round(y)
         slots = torch.arange(lo, hi, dtype=torch.int32)
         r = _rows(sorted_pad, starts, table, b, nt, slots)[:, None, :]
-        e0, e1, e2 = tt._edges(r, x, y)
-        zz = e0 * r[..., 9] + e1 * r[..., 10] + e2 * r[..., 11]
+        if mxu:
+            e0, e1, e2, zz = (tt._affine(r, x, y, q) for q in range(4))
+        else:
+            e0, e1, e2 = tt._edges(r, x, y)
+            zz = e0 * r[..., 9] + e1 * r[..., 10] + e2 * r[..., 11]
         cov = (e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0)
         if z_clip:
             cov = cov & (zz >= 0.0) & (zz <= 1.0)
         keys = ((zz * r3.Z_LEVELS).to(torch.int32) << r3.IDX_BITS) \
             | slots[:, None]
         keys = torch.where(cov, keys, r3.SKY_KEY)
-        best[b] = torch.minimum(best[b], keys.amin(0))
+        minima.append(keys.amin(0))
+    return items, k_of, minima
+
+
+def split_walk(sorted_pad, starts, counts, table, width, tile_w, tile_h,
+               z_clip, seg, mxu=0, wf=1, order=None, minima=None):
+    """(best keys (NB, P), attr) of the split walk: per item its minimum
+    key, the items walked in the order blocks claiming ``wf`` at a time
+    reach them (:func:`claim_sequence` with seed ``order``), merged by
+    min, each tile's keys taken when its last item arrives (the kernel's
+    arrival counter); attr(d) the winners' attribute d recomputed from
+    their rows: the interpolated attribute (FMA walk) or, with ``mxu``,
+    the affine plane 4 + d.  ``minima`` is :func:`item_minima`'s result
+    for these inputs, when the caller has it."""
+    nt = counts.shape[-1]
+    nb = counts.numel()
+    P = tile_w * tile_h
+    if minima is None:
+        minima = item_minima(sorted_pad, starts, counts, table, width,
+                             tile_w, tile_h, z_clip, seg, mxu)
+    items, k_of, item_min = minima
+    merged = torch.full((nb, P), r3.SKY_KEY, dtype=torch.int32)
+    best = merged.clone()
+    arrived = [0] * nb
+    for i in claim_sequence(len(items), wf, order):
+        b = items[i][0]
+        merged[b] = torch.minimum(merged[b], item_min[i])
+        arrived[b] += 1
+        if arrived[b] == k_of[b]:   # the last item runs the epilogue
+            best[b] = merged[b]
+    assert arrived == k_of
     slot = torch.where(best != r3.SKY_KEY, best & r3.IDX_MASK, 0)
     xs, ys, rows = [], [], []
     for b in range(nb):
@@ -107,9 +163,13 @@ def split_walk(sorted_pad, starts, counts, table, width, tile_w, tile_h,
         ys.append(y)
         rows.append(_rows(sorted_pad, starts, table, b, nt, slot[b]))
     X, Y, R = torch.stack(xs), torch.stack(ys), torch.stack(rows)
+    best = best.reshape(counts.shape + (P,))
+    if mxu:
+        if mxu == 2:
+            X, Y, R = tt.bf16_round(X), tt.bf16_round(Y), tt.bf16_round(R)
+        return best, lambda d: tt._affine(R, X, Y, 4 + d)
     e = tt._edges(R, X, Y)
-    return (best.reshape(counts.shape + (P,)),
-            lambda d: tt._channel(R, e, d))
+    return best, lambda d: tt._channel(R, e, d)
 
 
 def _boundary_case(seg, past_end=0):
