@@ -14,7 +14,8 @@ raising:
      spills for each instantiation, the MMA walk's held to no spill, at
      most MMA_MAX_REGS registers and no serialized wgmma (ptxas warning
      C7518) (phase 16 adds the count of HGMMA
-     instructions in the library's SASS, from cuobjdump); then the MMA
+     instructions in the library's SASS, from cuobjdump), and K5's split
+     walk held to no spill, its registers printed; then the MMA
      walk's layout probe: one wgmma of the walk's own operands against
      the float64 product of the same bf16 parts, before any walk uses it;
   3. k1 vs plain: the per-frame prep of mesh_10k at 1920x1080 (tiles
@@ -45,17 +46,21 @@ raising:
      and of the one-block-a-tile walk (K6's kernel);
   6. k4 vs plain: at 1920x1080, in float32 and float64, K4 and its plain
      version on (a) the two arithmetic runs of bench.py's 60-command
-     canvas frame over a nonzero framebuffer and (b) a seeded 64-command
+     canvas frame over a nonzero framebuffer, (b) a seeded 64-command
      frame of all 9 arithmetic kinds, mostly full-frame or large, under
-     rotations, scales and colour transforms; bit-equal;
+     rotations, scales and colour transforms, and (c) SET_PIXEL and
+     APPLY_PIXEL on both sides of tile borders; (b) and (c) again on a
+     1000x700 frame (partial tiles); bit-equal, with the tiles each run
+     launches; then a run that touches no tile: no launch, no change;
   7. canvas main path: RenderContext(1920, 1080, True) on the card
      (float32) through 45 frames of bench.py's draw(t) with 4 seeded
      128x128 textures, one flush a frame; K4 launched twice a frame, and
      the last frame's u8 buffer bit-equal to the same script run on the
      CPU through the port;
   8. canvas times: ms/frame on the host clock (3 runs of 45 frames, each
-     ended by a sync), K4 and plain ms per launch on each run of phase 6
-     (CUDA events) beside each run's bound, host launch and sync calls a
+     ended by a sync), K4 and plain ms per launch on phase 6's 1080p runs
+     (a) and (b) (CUDA events) beside each run's bound, host launch and
+     sync calls a
      frame and the device's busy share (profiler, 16 frames), peak
      device memory;
   9. blits card vs cpu: two seeded 1920x1080 frames of what bench.py's
@@ -96,8 +101,11 @@ raising:
      render_gouraud_pallas's default prep (128x16 tiles, capacity 512,
      span (8, 8), box-culled bins) one frame a launch, on the 4 frames in
      one launch at the batch defaults (128x32, span (8, 4)) and on one
-     frame at 32x8, against its plain version: keys and float bits equal,
-     no overflow; K2a's batched launch on the 4 frames' pair preps at the
+     frame at 32x8, and on crafted bins (testing.crafted_bins: runs of 1,
+     S, S + 1, 2S, 2S + 1, K and K + 37 slots, NaN and knife-edge rows;
+     one frame at 128x16 and 4 in one launch at 128x32), against its
+     plain version: keys and float bits equal, no overflow, and the share
+     of (row, warp) pairs K5's cull keeps; K2a's batched launch on the 4 frames' pair preps at the
      batch defaults against its plain version, the same; K6 on the 4
      frames' rows gathered in pair order (32x32,
      span (5, 3), capacity 1024, opaque, no z test) against its plain
@@ -116,7 +124,9 @@ raising:
      against CPU at 480x270 or 240x135, equal;
  15. gouraud times: K5 (one frame a launch and batched), K6, K1's batched
      launch and the plain versions, ms/frame (CUDA events) beside each
-     bound; render_gouraud_pallas frames/s (host clock), the device time
+     bound (K5's from the walk its cull leaves, beside the old yardstick
+     of every walked pair at every tile pixel), K5's registers and blocks
+     an SM; render_gouraud_pallas frames/s (host clock), the device time
      by kernel, host launches a frame and the busy share (profiler, 16
      frames), peak device memory;
  16. wf / mxu vs plain: at 1920x1080 on mesh_10k for the 4 cameras, K1-wf
@@ -174,6 +184,7 @@ FRAMES, BATCH = 48, 16
 OTHER_SHAPES = [(16, 16, 1024, False, True), (32, 16, 1024, True, False),
                 (128, 16, 2048, False, True), (64, 64, 64, True, True)]
 CANVAS_FRAMES = 45
+SMALL_FRAME = (1000, 700)   # K4 at partial tiles (31.25 x 21.9 of them)
 PROFILE_FRAMES = 16
 # Float32 hit effects may differ between the card and the CPU on this
 # share of the pixels their windows hold: torch.sin is not correctly
@@ -211,6 +222,11 @@ U8_EPI_OPS = 35
 # csrc/canvas_span.cu: ~14 for the snapped inverse point, 4-8 compares,
 # 10 for the blend (RECT 28, LINE ~60, FILL 10): ~25 on a typical frame
 K4_OPS_PER_PIXEL = 25
+# K5's cull a (row, warp), counted from csrc/tile_raster.cu (box_culled):
+# per edge the two corner selects (2 compares, 2 selects), the edge (2
+# mul, 2 add), its sign test and the or: 30; the ballots and the mask
+# walk are a few a row and warp more
+CULL_OPS = 30
 
 
 def nvidia_smi() -> str:
@@ -419,7 +435,7 @@ def occupancy(_kernels, tex: bool, p: int, z_clip: bool) -> str:
     and on the tensor cores (K1-mxu, K3's mxu walk), and the
     one-block-a-tile walk as K6's (K2b's) kernel runs it."""
     out = []
-    for walk in _kernels.WALKS:
+    for walk in _kernels.WALKS[:3]:     # the fourth is K5's
         regs, n = _kernels.tile_raster_occupancy(walk, tex, p, z_clip)
         who = f" ({'K2b' if tex else 'K6'})" if walk.startswith("one") \
             else ""
@@ -464,10 +480,65 @@ def check_mma_build(log: str) -> str:
             f"most {MMA_MAX_REGS} registers")
 
 
+# K5's instantiations, tile_raster_split_kernel<PPT, true, KEYS_F32,
+# WALK_FMA, false, BINS, BOX>, by their mangled names
+K5_ENTRY = re.compile(r"tile_raster_split_kernelILi\d+ELb1ELi3ELi0ELb0ELi1E"
+                      r"Lb[01]E")
+
+
+def check_k5_build(log: str) -> str:
+    """Raises when an instantiation of K5's split walk spills; returns
+    their registers and spills."""
+    k5 = [e for e in ptxas_summary(log).split("; ") if K5_ENTRY.search(e)]
+    if not k5:
+        raise AssertionError("no K5 split walk instantiation in the build "
+                             "log")
+    for e in k5:
+        m = re.search(r": (\d+) registers, (\d+)/(\d+) B spill", e)
+        if not m or int(m.group(2)) or int(m.group(3)):
+            raise AssertionError(f"K5's split walk spills: {e}")
+    return "K5's split walk (PPT, BOX: registers, spills): " + "; ".join(
+        re.sub(r"^.*tile_raster_split_kernelILi(\d+)E\w*ELi1ELb([01])E\w*",
+               r"PPT \1, BOX \2", e) for e in k5)
+
+
+# K4's instantiations, canvas_span_kernel<float> and <double>, and the
+# spill ptxas may take in each (B stored, B loaded): the float kernel's
+# 40/40 B at 64 registers was measured faster than the scalar-pixel
+# kernel's 80 registers without spill (PERF.md); the double kernel
+# spills nothing
+K4_ENTRY = re.compile(r"canvas_span_kernelI([fd])E")
+K4_SPILL_OK = {"f": (40, 40), "d": (0, 0)}
+
+
+def check_k4_build(log: str) -> str:
+    """Raises when an instantiation of K4 spills more than K4_SPILL_OK;
+    returns their registers and spills."""
+    out = []
+    for e in ptxas_summary(log).split("; "):
+        k = K4_ENTRY.search(e)
+        if not k:
+            continue
+        m = re.search(r": (\d+) registers, (\d+)/(\d+) B spill", e)
+        ok = K4_SPILL_OK[k.group(1)]
+        if not m or int(m.group(2)) > ok[0] or int(m.group(3)) > ok[1]:
+            raise AssertionError(f"K4 spills more than {ok[0]}/{ok[1]} B: "
+                                 f"{e}")
+        out.append(f"{'float' if k.group(1) == 'f' else 'double'} "
+                   f"{m.group(1)} registers, {m.group(2)}/{m.group(3)} B "
+                   f"spill (accepted {ok[0]}/{ok[1]})")
+    if len(out) != len(K4_SPILL_OK):
+        raise AssertionError("K4's float and double kernels are not both "
+                             "in the build log")
+    return "K4 (registers, spills): " + "; ".join(out)
+
+
 def build_kernels(_kernels) -> float:
     """Build every kernel library of the port in parallel (one nvcc per
-    source), load them, print the ptxas summary and hold the MMA walk's
-    build to :func:`check_mma_build`; returns the seconds."""
+    source), load them, print the ptxas summary and hold the MMA walk's,
+    K5's and K4's builds to :func:`check_mma_build`,
+    :func:`check_k5_build` and :func:`check_k4_build`; returns the
+    seconds."""
     names = ("tile_raster", "canvas_span")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
@@ -481,6 +552,10 @@ def build_kernels(_kernels) -> float:
         print(f"[build] ptxas {n}: {ptxas_summary(_kernels.build_log(n))}",
               flush=True)
     print(f"[build] {check_mma_build(_kernels.build_log('tile_raster'))}",
+          flush=True)
+    print(f"[build] {check_k5_build(_kernels.build_log('tile_raster'))}",
+          flush=True)
+    print(f"[build] {check_k4_build(_kernels.build_log('canvas_span'))}",
           flush=True)
     return build_s
 
@@ -1097,7 +1172,8 @@ def gouraud_phases(dev, card: str) -> list:
     times; returns K5's and K6's entries of the kernel table."""
     from libnativecpurenderer_tpu_torch import interop
     from libnativecpurenderer_tpu_torch.models import mesh
-    from libnativecpurenderer_tpu_torch.ops import raster3d, tile_raster
+    from libnativecpurenderer_tpu_torch.ops import _kernels, raster3d, \
+        tile_raster
 
     verts_np, faces_np, colors_np = mesh.mesh_10k()
     verts, faces, colors = interop.mesh_to_torch(verts_np, faces_np,
@@ -1131,8 +1207,8 @@ def gouraud_phases(dev, card: str) -> list:
     saved = [k.launches for k in (k5, k6, k1)]
     errs = [0.0, 0]
 
-    def k5_vs_plain(label, bins, counts, table, cfg):
-        args = (bins, counts, table, WIDTH, cfg["tile_w"], cfg["tile_h"])
+    def k5_vs_plain(label, bins, counts, table, cfg, width=WIDTH):
+        args = (bins, counts, table, width, cfg["tile_w"], cfg["tile_h"])
         (gk, gr), (wk, wr) = k5(*args), \
             tile_raster.raster_tiles_bins_f32_reference(*args)
         torch.cuda.synchronize()
@@ -1140,13 +1216,19 @@ def gouraud_phases(dev, card: str) -> list:
         err = float((gr - wr).abs().max())
         errs[0] = max(errs[0], err)
         cts = counts.clamp(max=bins.shape[-1])
+        kept = tile_raster.bins_cull_keep(*args)
         print(f"[k5 vs plain] {label}, tiles {cfg['tile_w']}x{cfg['tile_h']}"
               f", capacity {cfg['capacity']}, span ({cfg['span_x']}, "
               f"{cfg['span_y']}): {bad} of {gk.numel()} keys and "
-              f"{gr.numel()} attribute values differ (max |delta| {err}); "
+              f"{gr.numel()} attribute values differ in their bits (max "
+              f"|delta| {err}); "
               f"{float((gk != raster3d.SKY_KEY).float().mean()):.3f} of the "
               f"slots covered; pairs walked {int(cts.sum())}, longest run "
-              f"{int(cts.max())}", flush=True)
+              f"{int(cts.max())}, (row, warp) pairs the cull keeps (the "
+              f"plain mirror bins_cull_keep on these inputs) "
+              f"{int(kept.sum())} of {int(cts.sum()) * tile_raster.WARPS} "
+              f"({float(kept.sum()) / max(1, int(cts.sum())) / tile_raster.WARPS:.4f})",
+              flush=True)
         if bad:
             raise AssertionError(f"K5 and its plain version disagree: "
                                  f"{label}")
@@ -1168,6 +1250,26 @@ def gouraud_phases(dev, card: str) -> list:
     if bool(ovf):
         raise AssertionError("bins overflow at 32x8")
     k5_vs_plain("camera 0", b, c, t, small)
+    # the split walk's boundaries and the cull's knife edges: runs of 1, S,
+    # S + 1, 2S, 2S + 1, K and more than K slots (an overflowed bins row),
+    # NaN rows and knife-edge triangles (testing.crafted_bins), one frame
+    # at the single defaults' K and 4 in one launch at the batch's
+    from libnativecpurenderer_tpu_torch.testing import crafted_bins
+    seg = tile_raster.SEG
+    for label, cfg, seeds in (("crafted runs", single, [0]),
+                              ("crafted runs, 4 frames in one launch",
+                               batch, [1, 2, 3, 4])):
+        K = cfg["capacity"]
+        lengths = [1, seg, seg + 1, 2 * seg, 2 * seg + 1, K, K + 37]
+        cases = [crafted_bins(lengths, K, cfg["tile_w"], cfg["tile_h"],
+                              seed=sd) for sd in seeds]
+        bins_c, counts_c, table_c = (
+            torch.stack([cs[i] for cs in cases]).to(dev) if len(cases) > 1
+            else cases[0][i].to(dev) for i in range(3))
+        wide = dict(cfg, capacity=K)
+        k5_vs_plain(f"{label} {lengths}", bins_c, counts_c, table_c,
+                    dict(wide, span_x="-", span_y="-"),
+                    width=cases[0][3])
 
     # K2a's batched launch (the batch entry's flat f32 route) against its
     # plain version at the batch defaults
@@ -1450,13 +1552,31 @@ def gouraud_phases(dev, card: str) -> list:
         return [(n, c.numel(), 4 * (n + c.numel() + t.numel()))
                 for n, (_, c, t) in zip(walked, preps)]
 
+    def k5_bound(preps, cfg):
+        """K5's bound: the larger of the bytes
+        (pairs_bound's) and the operations of the culled walk, the kept
+        (row, warp) pairs x the pixels of a warp's box x K1_OPS_PER_PAIR
+        plus CULL_OPS a walked (row, warp) and K2A_EPI_OPS a pixel slot;
+        and the old yardstick, every walked pair x every tile pixel x
+        K1_OPS_PER_PAIR (pairs_bound's operations)."""
+        p = cfg["tile_w"] * cfg["tile_h"]
+        old = pairs_bound(k5_frames(preps, cfg), p, K2A_EPI_OPS, 4 + 4 * 4)
+        ops_s = []
+        for b, c, t in preps:
+            keep = tile_raster.bins_cull_keep(b, c, t, WIDTH, cfg["tile_w"],
+                                              cfg["tile_h"])
+            walked = int(c.clamp(max=b.shape[-1]).sum()) * tile_raster.WARPS
+            ops_s.append((int(keep.sum()) * (p // tile_raster.WARPS)
+                          * K1_OPS_PER_PAIR + walked * CULL_OPS
+                          + c.numel() * p * K2A_EPI_OPS)
+                         / PEAK_OPS_S[torch.float32])
+        ops_ms = 1e3 * float(np.mean(ops_s))
+        by = "bytes" if old[2] >= ops_ms else "operations"
+        return max(old[2], ops_ms), by, old[2], ops_ms, old[4], old[3]
+
     bounds = {
-        "K5": pairs_bound(k5_frames(k5_preps, single),
-                          single["tile_w"] * single["tile_h"], K2A_EPI_OPS,
-                          4 + 4 * 4),
-        "K5 batch": pairs_bound(
-            k5_frames([(p[0], p[1], p[2]) for p in bp], batch),
-            batch["tile_w"] * batch["tile_h"], K2A_EPI_OPS, 4 + 4 * 4),
+        "K5": k5_bound(k5_preps, single),
+        "K5 batch": k5_bound([(p[0], p[1], p[2]) for p in bp], batch),
         # K6 reads each walked row once (32 floats), starts and counts
         "K6": pairs_bound([(int(counts[i].sum()), counts.shape[1],
                             4 * (32 * int(counts[i].sum())
@@ -1473,16 +1593,25 @@ def gouraud_phases(dev, card: str) -> list:
                                 4)}
     shapes = {"K5": single, "K5 batch": batch, "K6": dyn, "K1 batch": dyn}
     for name, (k_ms, p_ms) in ms.items():
-        b_ms, b_by, bb, bo, pairs = bounds[name]
+        b_ms, b_by, bb, bo, pairs, *old = bounds[name]
         cfg = shapes[name]
         plain = (f"plain version {p_ms} ms/frame" if p_ms is not None
                  else "plain version not timed (K6's computes the same)")
+        yard = (f"; the old yardstick (every walked pair at every tile "
+                f"pixel, before the cull) {old[0]} ms, K5 at "
+                f"{old[0] / k_ms:.4f} of it" if old else "")
         print(f"[gouraud times] {card}: {name} {k_ms} ms/frame, {plain} "
               f"(1080p mesh_10k, {cfg['tile_w']}x{cfg['tile_h']} tiles, "
               f"span ({cfg['span_x']}, {cfg['span_y']}), CUDA events, mean "
               f"of {n4} cameras); bound {b_ms} ms/frame by {b_by} (bytes "
               f"{bb} ms, operations {bo} ms; pairs walked {pairs}), {name} "
-              f"at {b_ms / k_ms:.4f} of it", flush=True)
+              f"at {b_ms / k_ms:.4f} of it, at {bb / k_ms:.4f} of the bytes "
+              f"alone{yard}", flush=True)
+    for label, cfg in (("128x16", single), ("128x32", batch)):
+        regs, per_sm = _kernels.tile_raster_occupancy(
+            "split bins", False, cfg["tile_w"] * cfg["tile_h"], True)
+        print(f"[gouraud times] K5's split walk at {label}: {regs} "
+              f"registers, {per_sm} blocks an SM", flush=True)
 
     def frames_n(n):
         for k in range(n):
@@ -2318,6 +2447,17 @@ def blit_phase(dev) -> None:
               f"uv for t = {[tex.t for tex in group[5::6]]}", flush=True)
 
 
+def border_pixels(ctx, w: int, h: int):
+    """SET_PIXEL and APPLY_PIXEL on both sides of 32x32 tile borders, at
+    the frame's edges and just off it, and a rect with a fractional box
+    across a tile border: a sparse run of tiles on their own."""
+    for x in (31, 32, 63, 64, w // 2 - 1, w // 2, w - 1, w):
+        for y in (0, 31, 32, h - 1):
+            ctx.set_pixel(x, y, 0.9, 0.2, 0.1, 0.7)
+            ctx.apply_pixel(x, min(y + 1, h), 0.1, 0.7, 0.3, 0.4)
+    ctx.draw_rect(95.5, 62.25, 1.0, 3.5, 0.3, 0.3, 0.9, 0.8)
+
+
 def k4_bound(kinds, p, dtype):
     """(bound ms, 'bytes'|'operations', bytes ms, operations ms) of one K4
     run at 1920x1080 from its host params p (in the frame's type): the
@@ -2377,6 +2517,18 @@ def canvas_phases(dev, card: str) -> dict:
     if len(k64) != 64 or set(k64.tolist()) != canvas_kernel.KERNEL_KINDS:
         raise AssertionError("the 64-command frame misses a kind")
     runs["64-cmd frame"] = (k64, p64)
+    timed = set(runs)   # phase 8 times these; the rest check bits only
+    border_pixels(rec, WIDTH, HEIGHT)
+    runs["tile-border pixels"] = tuple(np.array(a)
+                                       for a in rec._cmds.snapshot())
+    rec._cmds.clear()
+    small = RenderContext(*SMALL_FRAME, True, device=dev)
+    small_runs = {f"64-cmd frame {SMALL_FRAME[0]}x{SMALL_FRAME[1]}":
+                  frame64(small, 9)}
+    border_pixels(small, *SMALL_FRAME)
+    small_runs[f"tile-border pixels {SMALL_FRAME[0]}x{SMALL_FRAME[1]}"] = \
+        tuple(np.array(a) for a in small._cmds.snapshot())
+    small._cmds.clear()
 
     gen = torch.Generator().manual_seed(1)
     fb_seed = torch.rand((HEIGHT, WIDTH, 4), generator=gen,
@@ -2386,25 +2538,50 @@ def canvas_phases(dev, card: str) -> dict:
     saved = canvas_kernel.render_span.launches
     for dtype in (torch.float32, torch.float64):
         fb0 = fb_seed.to(dtype).to(dev)
-        for label, (k, p) in runs.items():
+        small0 = fb_seed[:SMALL_FRAME[1], :SMALL_FRAME[0]].contiguous().to(
+            dtype).to(dev)
+        for label, (k, p) in list(runs.items()) + list(small_runs.items()):
+            f0 = fb0 if label in runs else small0
             ph = p.astype(np.float32 if dtype == torch.float32
                           else np.float64)
             kt = torch.from_numpy(k.astype(np.int32))
             pt = torch.from_numpy(ph).to(dev)
-            got = canvas_kernel.render_span(fb0.clone(), kt, pt)
-            want = canvas_kernel.render_span_reference(fb0.clone(), kt, pt)
+            tiles = canvas_kernel.touched_tiles(k, ph, f0.shape[1],
+                                                f0.shape[0])
+            got = canvas_kernel.render_span(f0.clone(), kt, pt, ph)
+            want = canvas_kernel.render_span_reference(f0.clone(), kt, pt)
             torch.cuda.synchronize()
-            bad = int((got != want).sum())
+            bad = same_bits(got, want)
             err = float((got - want).abs().max())
-            changed = int((got != fb0).any(-1).sum())
+            changed = int((got != f0).any(-1).sum())
             print(f"[k4 vs plain] {label} {str(dtype)[6:]} "
-                  f"{WIDTH}x{HEIGHT}: {bad} of {got.numel()} values differ "
-                  f"(max |delta| {err}); {changed} pixels changed",
-                  flush=True)
+                  f"{f0.shape[1]}x{f0.shape[0]}: {bad} of {got.numel()} "
+                  f"values differ in their bits (max |delta| {err}); "
+                  f"{changed} pixels changed; "
+                  f"{'all' if tiles is None else tiles.size} tiles "
+                  f"launched", flush=True)
             if bad or not changed:
                 raise AssertionError("K4 and its plain version disagree")
             max_err = max(max_err, err)
-            cases.append((label, dtype, fb0, kt, pt, ph))
+            if label in timed:
+                cases.append((label, dtype, fb0, kt, pt, ph))
+        # a run that touches no tile launches nothing and changes nothing
+        rec.draw_rect(-90.0, -60.0, 40.0, 20.0, 1, 1, 1, 1)
+        rec.set_pixel(WIDTH + 40, 7, 1, 1, 1, 1)
+        k, p = (np.array(a) for a in rec._cmds.snapshot())
+        rec._cmds.clear()
+        ph = p.astype(np.float32 if dtype == torch.float32 else np.float64)
+        n0 = canvas_kernel.render_span.launches
+        got = canvas_kernel.render_span(
+            fb0.clone(), torch.from_numpy(k.astype(np.int32)),
+            torch.from_numpy(ph).to(dev), ph)
+        torch.cuda.synchronize()
+        n_new = canvas_kernel.render_span.launches - n0
+        print(f"[k4 vs plain] a run that touches no tile "
+              f"{str(dtype)[6:]}: {n_new} launches, "
+              f"{same_bits(got, fb0)} values changed", flush=True)
+        if n_new or same_bits(got, fb0):
+            raise AssertionError("an empty K4 run launched or wrote")
     canvas_kernel.render_span.launches = saved
 
     # 7. the canvas main path, K4 launches counted from zero
@@ -2457,9 +2634,11 @@ def canvas_phases(dev, card: str) -> dict:
 
     # device time of the main path's K4 launches, by run (the profiled
     # frames launch run 1, run 2, run 1, ...)
-    k4_prof = [e.time_range.end - e.time_range.start for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and "canvas_span_kernel" in e.name]
+    k4_prof = [e.time_range.end - e.time_range.start for e in sorted(
+        (e for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and "canvas_span_kernel" in e.name),
+        key=lambda e: e.time_range.start)]
     by_name = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -2467,18 +2646,23 @@ def canvas_phases(dev, card: str) -> dict:
                 e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
 
-    # K4's own time: CUDA events around raw launches (the kinds already
-    # on the card), so the wrapper's host work cannot leave the card idle
+    # K4's own time: CUDA events around raw launches (the kinds and the
+    # tile list already on the card), so the wrapper's host work cannot
+    # leave the card idle
     k4_ms = {}
     stream = torch.cuda.current_stream(dev).cuda_stream
     for label, dtype, fb0, kt, pt, ph in cases:
         fb = fb0.clone()
         kd = kt.to(dev)
+        tiles = canvas_kernel.touched_tiles(kt.numpy(), ph, WIDTH, HEIGHT)
+        td = None if tiles is None else torch.from_numpy(tiles).to(dev)
 
         def raw():
             _kernels.launch_canvas_span(
                 fb.data_ptr(), WIDTH, HEIGHT, kd.data_ptr(), pt.data_ptr(),
-                kd.numel(), dtype == torch.float64, stream)
+                kd.numel(), 0 if td is None else td.data_ptr(),
+                0 if td is None else td.numel(), dtype == torch.float64,
+                stream)
 
         k_ms = cuda_ms(raw, 50)
         p_ms = cuda_ms(

@@ -66,7 +66,8 @@ def execute(fb, kinds, params, atlas, host_params):
                 executor.render_commands(fb, kind_list[i:i + 1],
                                          params[i:i + 1], atlas, window)
         if hi > lo:
-            canvas_kernel.render_span(fb, kinds[lo:hi], params[lo:hi])
+            canvas_kernel.render_span(fb, kinds[lo:hi], params[lo:hi],
+                                      host_params[lo:hi])
         done = hi
     return fb
 

@@ -22,20 +22,35 @@
 // for bit, in float and in double.  Never build it with
 // --use_fast_math: IEEE division and sqrt are part of the result.
 //
-// Design.  One block of 32x8 threads per 32x32 tile of the frame (2040
-// blocks at 1080p, enough to fill 132 SMs); each thread owns one column
-// and 4 rows of the tile and keeps their RGBA in registers.  Every block
-// walks all commands of the run in order, staged through shared memory
-// CHUNK at a time (kind + 32 params in the frame's type), and skips a
-// command whose mask cannot meet the tile.  That replaces the TPU
-// kernel's per-tile bins (_bin_commands, its (NT, N) argsort and f32
+// Design.  One block of 32x8 threads per 32x32 tile of the frame that
+// some command of the run may touch; each thread owns one column and 4
+// rows of the tile and keeps their RGBA in registers.  Which tiles get a
+// block is decided on the host, from the host copy of the params the
+// flush already holds (canvas_kernel.touched_tiles: the kernel's own
+// `touches` test below, vectorised over the run in the frame's type):
+// the wrapper uploads that list with the kinds, in one pinned copy, and
+// launches exactly as many blocks; a run with a FILL (every tile) takes
+// the whole grid and no list, and a run that touches no tile launches
+// nothing.  Chosen over a device-side claim loop because the host
+// already holds the params (no sync), the list is exact, and a sparse
+// run then costs one small launch: the grid of every tile launched and
+// retired ~2,000 idle blocks for a run of 8 small rects (0.016 ms
+// against a 0.00035 ms byte bound on an H100, PERF.md).  Every block of
+// the grid is thus touched, so it issues its pixels' loads first, one
+// 16-byte float4 a pixel (two 16-byte double2 in double; Hopper has no
+// 32-byte load), all four in flight together while the run's first
+// commands are staged; the stores at the end are 16 bytes a pixel too.
+// Every block walks all commands of the run in order, staged through
+// shared memory CHUNK at a time (kind + 32 params in the frame's type),
+// and skips a command whose mask cannot meet the tile.  That replaces the
+// TPU kernel's per-tile bins (_bin_commands, its (NT, N) argsort and f32
 // boxes): skipping a command whose mask is false on the whole tile
 // changes nothing.  The test is made in the frame's own type (the JAX
 // binning casts boxes to f32, which can round a fractional right edge
 // down).  The command is the same for every thread, so branching on its
 // kind does not diverge.  The frame is updated in place: no tiled
 // layout, no transpose, no copy.  A tile that no command of the run
-// touches is neither read nor written.
+// touches gets no block, so it is neither read nor written.
 //
 // What bounds it on an H100.  A sparse run (small rects, lines) touches
 // few tiles: its bound is bytes, the touched tiles read and written once
@@ -82,6 +97,29 @@ __device__ __forceinline__ double rint_(double a) { return rint(a); }
 template <typename T>
 __device__ __forceinline__ T snap(T v) {
   return mul(rint_(mul(v, (T)1048576.0)), (T)(1.0 / 1048576.0));
+}
+
+// One pixel's RGBA at q (16-byte aligned): one float4 in float, two
+// double2 in double.
+__device__ __forceinline__ void load_px(const float* q, float& r, float& g,
+                                        float& b, float& a) {
+  const float4 v = *reinterpret_cast<const float4*>(q);
+  r = v.x; g = v.y; b = v.z; a = v.w;
+}
+__device__ __forceinline__ void load_px(const double* q, double& r,
+                                        double& g, double& b, double& a) {
+  const double2 u = reinterpret_cast<const double2*>(q)[0];
+  const double2 v = reinterpret_cast<const double2*>(q)[1];
+  r = u.x; g = u.y; b = v.x; a = v.y;
+}
+__device__ __forceinline__ void store_px(float* q, float r, float g, float b,
+                                         float a) {
+  *reinterpret_cast<float4*>(q) = make_float4(r, g, b, a);
+}
+__device__ __forceinline__ void store_px(double* q, double r, double g,
+                                         double b, double a) {
+  reinterpret_cast<double2*>(q)[0] = make_double2(r, g);
+  reinterpret_cast<double2*>(q)[1] = make_double2(b, a);
 }
 
 // Could the command's mask admit a pixel of the tile [ox, ox+TILE) x
@@ -171,22 +209,31 @@ __device__ __forceinline__ bool shade(int kind, const T* p, T X, T Y,
   return m;
 }
 
+// Block i walks tile tiles[i] (tiles null: tile i of the whole grid).
 template <typename T>
 __global__ void __launch_bounds__(TX * TY)
 canvas_span_kernel(T* __restrict__ fb, int W, int H, int ntx,
+                   const int* __restrict__ tiles,
                    const int* __restrict__ kinds,
                    const T* __restrict__ params, int n) {
   __shared__ T s_p[CHUNK][PARAM_W];
   __shared__ int s_k[CHUNK];
 
-  const int ox = (blockIdx.x % ntx) * TILE;
-  const int oy = (blockIdx.x / ntx) * TILE;
+  const int tile = tiles ? tiles[blockIdx.x] : (int)blockIdx.x;
+  const int ox = (tile % ntx) * TILE;
+  const int oy = (tile / ntx) * TILE;
   const int px = ox + threadIdx.x;
   const T X = (T)px;
   const int tid = threadIdx.y * TX + threadIdx.x;
 
+  // some command touches this tile: its pixels' loads go out first
   T r[ROWS], g[ROWS], b[ROWS], a[ROWS];
-  bool loaded = false;  // the same in every thread of the block
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k) {
+    const int py = oy + threadIdx.y + k * TY;
+    if (px < W && py < H)
+      load_px(fb + ((size_t)py * W + px) * 4, r[k], g[k], b[k], a[k]);
+  }
 
   for (int base = 0; base < n; base += CHUNK) {
     const int m = min(CHUNK, n - base);
@@ -199,17 +246,6 @@ canvas_span_kernel(T* __restrict__ fb, int W, int H, int ntx,
       const int kind = s_k[j];
       const T* p = s_p[j];
       if (!touches(kind, p, (T)ox, (T)oy)) continue;
-      if (!loaded) {
-        loaded = true;
-#pragma unroll
-        for (int k = 0; k < ROWS; ++k) {
-          const int py = oy + threadIdx.y + k * TY;
-          if (px < W && py < H) {
-            const T* q = fb + ((size_t)py * W + px) * 4;
-            r[k] = q[0]; g[k] = q[1]; b[k] = q[2]; a[k] = q[3];
-          }
-        }
-      }
 #pragma unroll
       for (int k = 0; k < ROWS; ++k) {
         const int py = oy + threadIdx.y + k * TY;
@@ -229,24 +265,22 @@ canvas_span_kernel(T* __restrict__ fb, int W, int H, int ntx,
       }
     }
   }
-  if (!loaded) return;
 #pragma unroll
   for (int k = 0; k < ROWS; ++k) {
     const int py = oy + threadIdx.y + k * TY;
-    if (px < W && py < H) {
-      T* q = fb + ((size_t)py * W + px) * 4;
-      q[0] = r[k]; q[1] = g[k]; q[2] = b[k]; q[3] = a[k];
-    }
+    if (px < W && py < H)
+      store_px(fb + ((size_t)py * W + px) * 4, r[k], g[k], b[k], a[k]);
   }
 }
 
 template <typename T>
-cudaError_t launch(T* fb, int W, int H, const int* kinds, const T* params,
-                   int n, cudaStream_t stream) {
+cudaError_t launch(T* fb, int W, int H, const int* tiles, int n_tiles,
+                   const int* kinds, const T* params, int n,
+                   cudaStream_t stream) {
   const int ntx = (W + TILE - 1) / TILE;
   const int nty = (H + TILE - 1) / TILE;
-  canvas_span_kernel<T><<<ntx * nty, dim3(TX, TY), 0, stream>>>(
-      fb, W, H, ntx, kinds, params, n);
+  canvas_span_kernel<T><<<tiles ? n_tiles : ntx * nty, dim3(TX, TY), 0,
+                          stream>>>(fb, W, H, ntx, tiles, kinds, params, n);
   return cudaGetLastError();
 }
 
@@ -256,21 +290,28 @@ extern "C" {
 
 // Applies the n commands (kinds: n int32, params: n x 32 of the frame's
 // type, both on the card) to the contiguous (H, W, 4) frame in place, on
-// `stream`; is_double picks double over float.  Returns the
-// cudaError_t of the launch (0 on success).  An error left pending by an
-// earlier launch is returned without launching, so the caller raises it.
+// `stream`, over the n_tiles 32x32 tiles listed in tiles (int32 ids
+// ty * ceil(W / 32) + tx on the card, each touched by some command of the
+// run), or over every tile when tiles is null (a run that touches every
+// tile); is_double picks double over float.  fb must be 16-byte aligned.
+// Returns the cudaError_t of the launch (0 on success; no launch for an
+// empty run or list).  An error left pending by an earlier launch is
+// returned without launching, so the caller raises it.
 int canvas_span(void* fb, int W, int H, const int* kinds,
-                const void* params, int n, int is_double, void* stream) {
+                const void* params, int n, const int* tiles, int n_tiles,
+                int is_double, void* stream) {
   const cudaError_t pending = cudaGetLastError();
   if (pending != cudaSuccess) return (int)pending;
-  if (n == 0 || W == 0 || H == 0) return 0;
-  if (n < 0 || W < 0 || H < 0) return (int)cudaErrorInvalidValue;
+  if (n < 0 || W < 0 || H < 0 || (tiles && n_tiles < 0) ||
+      ((uintptr_t)fb & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0 || W == 0 || H == 0 || (tiles && n_tiles == 0)) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_double)
-    return (int)launch<double>((double*)fb, W, H, kinds,
+    return (int)launch<double>((double*)fb, W, H, tiles, n_tiles, kinds,
                                (const double*)params, n, s);
-  return (int)launch<float>((float*)fb, W, H, kinds, (const float*)params,
-                            n, s);
+  return (int)launch<float>((float*)fb, W, H, tiles, n_tiles, kinds,
+                            (const float*)params, n, s);
 }
 
 const char* canvas_span_error_string(int err) {

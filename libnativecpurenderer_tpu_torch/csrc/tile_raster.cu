@@ -12,7 +12,8 @@
 //     KEYS_F32   (K2a) the f32 branch, raster_tiles_flat (:805), epilogue
 //                      :597-599;
 //   _make_kernel (:51-122), rows from a materialised bins row:
-//     KEYS_F32   (K5)  raster_tiles (:1433), the z test always on;
+//     KEYS_F32   (K5)  raster_tiles (:1433), the z test always on, through
+//                      the split walk with warp boxes and a cull (below);
 //   _make_kernel_dynrows (:1176-1267), rows pre-gathered in pair order:
 //     U8_GOURAUD (K6)  raster_tiles_dynrows (:1294), opaque, no z test;
 //   the wf branch of raster_tiles_flat (:739, kernel_wf :624-655):
@@ -91,7 +92,7 @@
 // of ~13), so the suspected bound is the tail of blocks that walk the
 // longest runs: one launch of 4 frames ran K1 at ~0.054 ms a frame.
 //
-// The one-block-a-tile walk (fma_tile: K2b, K2a, K5, K6; K2b on K3's
+// The one-block-a-tile walk (fma_tile: K2b, K2a, K6; K2b on K3's
 // rows is what chip_smoke.py times K3's split walk against).  One block
 // of 256 threads per tile; each thread owns PPT =
 // ceil(P / 256) pixels (4 at 32x32) and keeps its best key, its
@@ -101,7 +102,7 @@
 // Only the winner is shaded, after the walk: its attribute columns are
 // read once from the (L2-resident) table.  A long run stays in one block.
 //
-// The split walk (K1, K3, K1-wf, K1-mxu and K3's mxu walk).  The tail is
+// The split walk (K1, K3, K5, K1-wf, K1-mxu and K3's mxu walk).  The tail is
 // inside a tile, so no order of claims cures it: the long run itself is
 // cut.  One scheduler (the plan and the claim loop below) drives both
 // walks of an item, the FMA walk and the MMA walk.
@@ -151,6 +152,33 @@
 //   * Settled by timing on an H100 (PERF.md): S = 64 and 5 blocks an SM
 //     at 32x32 for the FMA walk.  At 32x32 only ~450 of 2040 runs are not
 //     empty, so one frame is about one item a resident block.
+//
+// K5 on the split walk.  Its runs are bins rows: slot j of tile b is
+// bins[b, j], a run walks min(counts[b], K) slots (run_count), so an
+// overflowed tile reads nothing past its K; the plan's capacity is
+// B nt ceil(K / S), every run's items, so the split is always on.  The
+// plan writes SKY_KEY into long and empty tiles' keys and zeros into
+// empty tiles' four planes; the last item of a tile writes the planes,
+// each pixel's winner's edges recomputed from the key's slot with the
+// walk's expression, as fma_tile did (split_keys_f32).  Keys are unique
+// in a tile (their low bits are the bin slot), so the atomicMin merge is
+// exact.  Box culling in the binning (raster3d.bin_triangles) leaves
+// ~25.5k pairs a 1080p mesh_10k frame at 128x16, each tested by all 2048
+// pixels of its tile, while a triangle of a few hundred pixels meets few
+// 16x16 boxes of such a tile.  So K5's instantiation for 128-wide tiles
+// (BOX; its entry's defaults are 128x16 and 128x32) lays its pixels out
+// so that each warp owns a compact box (pixel_slot: a strip of 16
+// columns, all rows, 16x16 at 128x16), and after a stage's
+// rows land in shared memory each warp skips a row whose triangle cannot
+// cover any pixel of its box (box_culled, exact by construction: it
+// evaluates the walk's own rounded edge at the box's pixel where that
+// edge is largest, so the winners and their bits are unchanged).  The lanes test the stage's
+// rows together (two rows a lane, one ballot each), so the skip is
+// decided once a warp and nothing diverges; the kept rows keep their
+// slot in the key.  On the CPU, tile_raster.bins_cull_keep counts the
+// kept (row, warp) pairs: ~0.27 of them at 128x16 on mesh_10k's 4
+// cameras, ~0.37 at 128x32 (PERF.md), which with the cull's ~30
+// operations a (row, warp) sets K5's operations bound.
 //
 // The MMA walk (K1-mxu, K3's mxu walk).  The TPU kernel evaluated a
 // chunk's 4 + nacc affine planes (a_x, a_y, c, 0) . (x, y, 1, 0) as
@@ -230,6 +258,9 @@ constexpr int B_OPERAND = 2048; // MMA walk: bytes of one B operand (K 16 x
 constexpr int GROUP_PX = 64;    // MMA walk: pixels of one product (M)
 constexpr int WARPGROUPS = THREADS / 128;
 constexpr unsigned FULL = 0xffffffffu;
+static_assert(SEG <= 64, "K5's cull keeps a stage's rows in a 64-bit mask");
+constexpr int BOX_W = 16;       // K5's warp boxes: columns a warp owns, at
+constexpr int BOX_TILE_W = BOX_W * WARPS;   // tiles this wide (128)
 
 enum Epilogue { U8_GOURAUD, TEX_U8, TEX_IDX, KEYS_F32 };
 enum Source { PAIRS, BINS, ROWS };
@@ -316,8 +347,9 @@ __device__ __forceinline__ int texel_index(const float* a, float e0,
                   th);
 }
 
-// The one-block-a-tile body of K2b, K2a, K5 and K6 (U8_GOURAUD, TEX_IDX
-// or KEYS_F32): block-wide walk of tile b's run and the epilogue.
+// The one-block-a-tile body of K2b, K2a and K6 (U8_GOURAUD, TEX_IDX or
+// KEYS_F32 over PAIRS or ROWS): block-wide walk of tile b's run and the
+// epilogue.
 template <int PPT, bool ZCLIP, int EPI, int SRC>
 __device__ __forceinline__ void fma_tile(const Walk& w, const Epi& ep,
                                          const int b) {
@@ -329,8 +361,8 @@ __device__ __forceinline__ void fma_tile(const Walk& w, const Epi& ep,
   const int P = w.tile_w * w.tile_h;
   const int ox = (t % w.ntx) * w.tile_w;
   const int oy = (t / w.ntx) * w.tile_h;
-  const int start = SRC == BINS ? 0 : w.starts[b];
-  const int count = SRC == BINS ? min(w.counts[b], w.ids_len) : w.counts[b];
+  const int start = w.starts[b];
+  const int count = w.counts[b];
 
   float px[PPT], py[PPT], be0[PPT], be1[PPT], be2[PPT];
   int best[PPT], brow[PPT];
@@ -445,11 +477,19 @@ __device__ __forceinline__ int segments(int count) {
   return count <= SEG ? 1 : count / SEG + (count % SEG != 0);
 }
 
+// Slots of tile b's run the walk reads: a bins row holds at most K (an
+// overflowed tile walks its K slots and reads nothing past them).
+template <int SRC>
+__device__ __forceinline__ int run_count(const Walk& w, int b) {
+  return SRC == BINS ? min(w.counts[b], w.ids_len) : w.counts[b];
+}
+
 // Slots [lo, hi) of the run of tile b that item segment s walks, and the
 // items of that tile (k); with the split off every tile is one item.
+template <int SRC>
 __device__ __forceinline__ void item_range(const Walk& w, bool split, int b,
                                            int s, int& lo, int& hi, int& k) {
-  const int count = w.counts[b];
+  const int count = run_count<SRC>(w, b);
   k = split ? segments(count) : 1;
   lo = k > 1 ? s * SEG : 0;
   hi = s == k - 1 ? count : lo + SEG;
@@ -468,18 +508,18 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // Start copying columns 0..COLS-1 of the rows of slots [lo, lo + n) of
 // tile b's run into rows: COLS / 4 16-byte cp.async a row (rows are
-// 128-byte aligned), the pair ids read once a row by neighbouring
+// 128-byte aligned), the pair or bin ids read once a row by neighbouring
 // threads.  The caller waits (cp_async_wait_all) and syncs.
-template <int COLS>
+template <int COLS, int SRC>
 __device__ __forceinline__ void stage_rows(const Walk& w, int b, int lo,
                                            int n, float (*rows)[COLS]) {
   constexpr int CHUNKS = COLS / 4;
   const int f = b / w.nt;
-  const int start = w.starts[b];
+  const int start = SRC == BINS ? 0 : w.starts[b];
   for (int i = threadIdx.x; i < CHUNKS * n; i += THREADS) {
     const int r = i / CHUNKS;
     const int c = i - CHUNKS * r;
-    const int row = row_of<PAIRS>(w, b, f, start, lo + r);
+    const int row = row_of<SRC>(w, b, f, start, lo + r);
     cp_async16(&rows[r][4 * c], w.table + (size_t)row * ROW_W + 4 * c);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -510,6 +550,18 @@ __device__ __forceinline__ float affine(const float* c, float x, float y,
   return __fadd_rn(__fadd_rn(__fmul_rn(ax, x), __fmul_rn(ay, y)), cc);
 }
 
+// The winner's row of key (not SKY_KEY) in tile b's run: in staged, the
+// shared rows of the whole run, when it was staged at once, else in the
+// table.
+template <int SRC, int COLS>
+__device__ __forceinline__ const float* winner_row(
+    const Walk& w, int b, int key, const float (*staged)[COLS]) {
+  if (staged) return staged[key & IDX_MASK];
+  const int row = row_of<SRC>(w, b, b / w.nt, SRC == BINS ? 0 : w.starts[b],
+                              key & IDX_MASK);
+  return w.table + (size_t)row * ROW_W;
+}
+
 // K1's or K3's value of pixel (x, y) of tile b whose winning key is key:
 // the winner's row is found again from the key's slot (in staged, the
 // shared rows of the whole run, when it was staged at once; else in the
@@ -522,14 +574,7 @@ __device__ __forceinline__ int split_value(const Walk& w, const Epi& ep,
                                            int bgp,
                                            const float (*staged)[COLS]) {
   if (key == SKY_KEY) return bgp;
-  const float* r;
-  if (staged) {
-    r = staged[key & IDX_MASK];
-  } else {
-    const int row = row_of<PAIRS>(w, b, b / w.nt, w.starts[b],
-                                  key & IDX_MASK);
-    r = w.table + (size_t)row * ROW_W;
-  }
+  const float* r = winner_row<PAIRS, COLS>(w, b, key, staged);
   float e0 = 0.0f, e1 = 0.0f, e2 = 0.0f;
   if constexpr (MMA) {
     if (ep.mxu != 1) {   // one bf16 pass rounds the coordinates too
@@ -561,13 +606,39 @@ __device__ __forceinline__ int split_value(const Walk& w, const Epi& ep,
   }
 }
 
+// K5's (KEYS_F32) outputs at slot p of tile b whose winning key is key:
+// the key (when this item writes it: a long tile's merged keys are
+// already in place) and the winner's four attributes, its edges
+// recomputed with the walk's own expression at (x, y), 0 for sky.
+template <int SRC, int COLS>
+__device__ __forceinline__ void split_keys_f32(const Walk& w, const Epi& ep,
+                                               int b, int p, int key,
+                                               float x, float y,
+                                               bool write_key,
+                                               const float (*staged)[COLS]) {
+  const int P = w.tile_w * w.tile_h;
+  if (write_key) ep.out[(size_t)b * P + p] = key;
+  float v[D] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (key != SKY_KEY) {
+    const float* r = winner_row<SRC, COLS>(w, b, key, staged);
+    const float e0 = edge(r, 0, x, y), e1 = edge(r, 1, x, y),
+                e2 = edge(r, 2, x, y);
+#pragma unroll
+    for (int d = 0; d < D; ++d) v[d] = attr(r + ATTR_COL, e0, e1, e2, d);
+  }
+#pragma unroll
+  for (int d = 0; d < D; ++d) ep.rgba[((size_t)b * D + d) * P + p] = v[d];
+}
+
 // The plan: block 0 lists the items of the tiles whose run is not empty
 // (long tiles' first, in tile order; with more items than cap, which runs
 // that partition their frames' pairs never need, every such tile becomes
-// one whole item) and zeroes the claim counter; every block zeroes the
-// arrival counters of its tiles, fills the output rows of long tiles with
-// SKY_KEY, the start of their atomicMin merge, and those of empty tiles
-// with the background, their whole epilogue (no walk claims them).
+// one whole item; bins runs of at most K slots never need it either) and
+// zeroes the claim counter; every block zeroes the arrival counters of
+// its tiles, fills the output rows of long tiles with SKY_KEY, the start
+// of their atomicMin merge, and those of empty tiles with the background
+// (KEYS_F32: SKY_KEY and zero attributes), their whole epilogue (no walk
+// claims them).
 __device__ __forceinline__ long long block_exclusive_sum(long long v,
                                                          long long* total) {
   __shared__ long long s_warp[WARPS];
@@ -590,9 +661,9 @@ __device__ __forceinline__ long long block_exclusive_sum(long long v,
   return before + x - v;
 }
 
+template <int SRC, int EPI>
 __global__ void __launch_bounds__(THREADS)
-split_plan_kernel(const Walk w, const Plan pl, const int* packed_bg, int* out,
-                  int nblocks) {
+split_plan_kernel(const Walk w, const Plan pl, const Epi ep, int nblocks) {
   const int P = w.tile_w * w.tile_h;
   if (blockIdx.x == 0) {
     const int per = (nblocks + THREADS - 1) / THREADS;
@@ -601,7 +672,7 @@ split_plan_kernel(const Walk w, const Plan pl, const int* packed_bg, int* out,
     // items of long tiles, long tiles, short (non-empty) tiles
     long long n_items = 0, n_long = 0, n_short = 0;
     for (int b = b0; b < b1; ++b) {
-      const int c = w.counts[b];
+      const int c = run_count<SRC>(w, b);
       if (c > SEG) {
         n_items += segments(c);
         ++n_long;
@@ -616,7 +687,7 @@ split_plan_kernel(const Walk w, const Plan pl, const int* packed_bg, int* out,
     const bool split = t_items + t_short <= pl.cap;
     o_short += split ? t_items : t_long;
     for (int b = b0; b < b1; ++b) {
-      const int c = w.counts[b];
+      const int c = run_count<SRC>(w, b);
       if (c > SEG && split) {
         for (int s = 0, k = segments(c); s < k; ++s)
           pl.items[o_items++] = make_int2(b, s);
@@ -632,23 +703,70 @@ split_plan_kernel(const Walk w, const Plan pl, const int* packed_bg, int* out,
       pl.counters[2] = split;
     }
   }
-  const int bgp = *packed_bg;
+  const int bgp = EPI == KEYS_F32 ? SKY_KEY : *ep.packed_bg;
   for (int b = blockIdx.x; b < nblocks; b += gridDim.x) {
     if (threadIdx.x == 0) pl.counters[3 + b] = 0;
-    const int c = w.counts[b];
+    const int c = run_count<SRC>(w, b);
     if (c > SEG || c <= 0)
       for (int p = threadIdx.x; p < P; p += THREADS)
-        out[(size_t)b * P + p] = c > 0 ? SKY_KEY : bgp;
+        ep.out[(size_t)b * P + p] = c > 0 ? SKY_KEY : bgp;
+    if constexpr (EPI == KEYS_F32)
+      if (c <= 0)
+        for (int i = threadIdx.x; i < D * P; i += THREADS)
+          ep.rgba[(size_t)b * D * P + i] = 0.0f;
   }
 }
 
-// The FMA walk of one stage: slots base .. base + n - 1 of a run, their
-// rows in rows; each thread keeps its PPT pixels' best keys.
-template <int PPT, bool ZCLIP>
+// K5's cull: true when the edge row r cannot cover a pixel of the box
+// [x0, x1] x [y0, y1] (pixel coordinates, bounds included) as the walk
+// evaluates its edges: for some edge, the walk's own value (A x + B y) +
+// C, each operation rounded, is negative at the box's pixel where the
+// plane is largest (x1 if A > 0 else x0, y1 if B > 0 else y0).  Rounding
+// to nearest is monotone (a <= b gives fl(a) <= fl(b)), so for A > 0
+// fl(A x) grows with x, and so does each sum: that rounded value is the
+// largest the walk computes at any pixel of the box, and the edge is
+// negative at all of them.  Exact by construction, no margin needed.  A
+// NaN coefficient culls by no edge it is in.  Plain version:
+// tile_raster.cull_keep.
+__device__ __forceinline__ bool box_culled(const float* r, float x0, float x1,
+                                           float y0, float y1) {
+  bool out = false;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    out = out || edge(r, i, r[3 * i] > 0.0f ? x1 : x0,
+                      r[3 * i + 1] > 0.0f ? y1 : y0) < 0.0f;
+  return out;
+}
+
+// The FMA walk of one stage: slots base .. base + n - 1 (n <= SEG) of a
+// run, their rows in rows; each thread keeps its PPT pixels' best keys.
+// With BOX (K5) the warp walks only the rows box_culled keeps for its
+// box: each lane tests rows lane and lane + 32 once, a ballot makes the
+// warp's mask of kept rows, and the warp walks the mask's rows in order
+// (the same rows in every lane, so nothing diverges).  A culled row
+// covers no pixel of the warp, so the minimum is the same.
+template <int PPT, bool ZCLIP, bool BOX>
 __device__ __forceinline__ void fma_stage(const float (*rows)[STAGE_COLS],
                                           int n, int base, const float* px,
-                                          const float* py, int* best) {
-  for (int j = 0; j < n; ++j) {
+                                          const float* py, int* best,
+                                          const float* box) {
+  unsigned long long keep = 0;
+  if constexpr (BOX) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int h = 0; h < SEG / 32; ++h) {
+      const int j = lane + 32 * h;
+      const bool k = j < n && !box_culled(rows[j], box[0], box[1], box[2],
+                                          box[3]);
+      keep |= (unsigned long long)__ballot_sync(FULL, k) << (32 * h);
+    }
+  }
+  for (int i = 0; BOX ? keep != 0 : i < n; ++i) {
+    int j = i;
+    if constexpr (BOX) {
+      j = __ffsll((long long)keep) - 1;
+      keep &= keep - 1;
+    }
     // the 12 walk columns as three 16-byte shared loads
     const float4* v = reinterpret_cast<const float4*>(rows[j]);
     const float4 v0 = v[0], v1 = v[1], v2 = v[2];
@@ -903,15 +1021,33 @@ __device__ __forceinline__ void mma_stage(const float (*rows)[ROW_W], int n,
   }
 }
 
+// Slot of this thread's pixel q of a tile: threadIdx.x + q THREADS
+// (row-major), or with BOX (K5 at tiles BOX_TILE_W wide) pixel (lane %
+// 16, lane / 16 + 2 q) of its warp's strip of the BOX_W columns from
+// BOX_W warp, every row (16x16 boxes at 128x16): P where that row is
+// past the tile.  With BOX a thread's pixels share their column, so its
+// x is one register.
+template <bool BOX>
+__device__ __forceinline__ int pixel_slot(int q, int tile_h) {
+  if (!BOX) return threadIdx.x + q * THREADS;
+  const int y = ((threadIdx.x & 31) >> 4) + 2 * q;
+  return y < tile_h
+             ? y * BOX_TILE_W + (threadIdx.x >> 5) * BOX_W + (threadIdx.x & 15)
+             : BOX_TILE_W * tile_h;
+}
+
 // Blocks an SM the register budget is cut for, chosen by timing on an
 // H100 (PERF.md).  FMA walk: 5 at up to 4 pixels a thread (48 registers;
 // 6, at 40, spilled K1's epilogue and ran no faster on the card, 4 no
 // faster either), 4 at 8 (64 registers).  MMA walk: 3 at up to 8 (80
 // registers, no spill; 4 ran 128x16 tiles faster one frame a launch but
-// spilled K1-mxu's, 2 ran no faster), 2 at 16.
-template <int PPT, int WALKER>
+// spilled K1-mxu's, 2 ran no faster), 2 at 16.  K5 over bins at 16
+// pixels a thread without its warp boxes (tiles over 2048 pixels and
+// not 128 wide, no entry's default) spilled at 2 (128 registers): 1.
+template <int PPT, int WALKER, int SRC, bool BOX>
 constexpr int split_min_blocks() {
   if (WALKER == WALK_MMA) return PPT <= 8 ? 3 : 2;
+  if (SRC == BINS && !BOX && PPT > 8) return 1;
   return PPT <= 4 ? 5 : PPT <= 8 ? 4 : 2;
 }
 
@@ -925,9 +1061,13 @@ constexpr int split_min_blocks() {
 // __threadfence) runs the epilogue.  GRAIN is a template parameter so
 // that K1 and K3 (one item a claim) keep no claim's bounds in registers:
 // at their 48-register budget the runtime grain's two registers spilled
-// and slowed them on an H100 (PERF.md).
-template <int PPT, bool ZCLIP, int EPI, int WALKER, bool GRAIN>
-__global__ void __launch_bounds__(THREADS, split_min_blocks<PPT, WALKER>())
+// and slowed them on an H100 (PERF.md).  SRC is the row source (PAIRS:
+// K1, K3 and their variants; BINS: K5), BOX K5's warp boxes and cull
+// (pixel_slot, fma_stage); K1 and K3 compile without either.
+template <int PPT, bool ZCLIP, int EPI, int WALKER, bool GRAIN, int SRC,
+          bool BOX>
+__global__ void __launch_bounds__(THREADS,
+                                  split_min_blocks<PPT, WALKER, SRC, BOX>())
 tile_raster_split_kernel(const Walk w, const Epi ep, const Plan pl,
                          const int wf) {
   constexpr bool MMA = WALKER == WALK_MMA;
@@ -940,7 +1080,7 @@ tile_raster_split_kernel(const Walk w, const Epi ep, const Plan pl,
   const int n_items = pl.counters[1];
   const bool split = pl.counters[2] != 0;
   const int P = w.tile_w * w.tile_h;
-  const int bgp = *ep.packed_bg;
+  const int bgp = EPI == KEYS_F32 ? 0 : *ep.packed_bg;
 
   int end = 0;   // GRAIN, thread 0: the end of its block's claim
   if (threadIdx.x == 0) {
@@ -953,8 +1093,9 @@ tile_raster_split_kernel(const Walk w, const Epi ep, const Plan pl,
   int2 it = pl.items[cur];
   {
     int lo, hi, k;
-    item_range(w, split, it.x, it.y, lo, hi, k);
-    stage_rows<COLS>(w, it.x, lo, max(0, min(hi - lo, SEG)), s_rows[0]);
+    item_range<SRC>(w, split, it.x, it.y, lo, hi, k);
+    stage_rows<COLS, SRC>(w, it.x, lo, max(0, min(hi - lo, SEG)),
+                          s_rows[0]);
   }
   for (int turn = 1, buf = 0;; ++turn, buf ^= 1) {
     if (threadIdx.x == 0) {
@@ -972,25 +1113,38 @@ tile_raster_split_kernel(const Walk w, const Epi ep, const Plan pl,
     if (nxt < n_items) {
       nit = pl.items[nxt];
       int lo, hi, k;
-      item_range(w, split, nit.x, nit.y, lo, hi, k);
-      stage_rows<COLS>(w, nit.x, lo, max(0, min(hi - lo, SEG)),
-                       s_rows[buf ^ 1]);
+      item_range<SRC>(w, split, nit.x, nit.y, lo, hi, k);
+      stage_rows<COLS, SRC>(w, nit.x, lo, max(0, min(hi - lo, SEG)),
+                            s_rows[buf ^ 1]);
     }
 
     const int b = it.x;
     int lo, hi, k;
-    item_range(w, split, b, it.y, lo, hi, k);
+    item_range<SRC>(w, split, b, it.y, lo, hi, k);
     const int t = b % w.nt;
     const int ox = (t % w.ntx) * w.tile_w;
     const int oy = (t / w.ntx) * w.tile_h;
     float px[PPT], py[PPT];   // the FMA walk's (the MMA walk's: below)
     int best[PPT];
+    float box[4] = {0.0f, 0.0f, 0.0f, 0.0f};   // BOX: this warp's box
 #pragma unroll
     for (int q = 0; q < PPT; ++q) {
-      const int p = threadIdx.x + q * THREADS;
-      px[q] = (float)(ox + p % w.tile_w);
-      py[q] = (float)(oy + p / w.tile_w);
+      if constexpr (BOX) {
+        px[q] = (float)(ox + (threadIdx.x >> 5) * BOX_W + (threadIdx.x & 15));
+        py[q] = (float)(oy + ((threadIdx.x & 31) >> 4) + 2 * q);
+      } else {
+        const int p = threadIdx.x + q * THREADS;
+        px[q] = (float)(ox + p % w.tile_w);
+        py[q] = (float)(oy + p / w.tile_w);
+      }
       best[q] = SKY_KEY;
+    }
+    if constexpr (BOX) {
+      const int x0 = ox + (threadIdx.x >> 5) * BOX_W;
+      box[0] = (float)x0;
+      box[1] = (float)(x0 + BOX_W - 1);
+      box[2] = (float)oy;
+      box[3] = (float)(oy + w.tile_h - 1);
     }
     // an item holds at most SEG slots unless the split is off
     for (int base = lo, n = max(0, min(hi - lo, SEG)); n > 0;) {
@@ -998,12 +1152,13 @@ tile_raster_split_kernel(const Walk w, const Epi ep, const Plan pl,
         mma_stage<ZCLIP>(s_rows[buf], n, base, base == lo, ox, oy, w.tile_w,
                          P, ep.mxu, s_b, s_best);
       else
-        fma_stage<PPT, ZCLIP>(s_rows[buf], n, base, px, py, best);
+        fma_stage<PPT, ZCLIP, BOX>(s_rows[buf], n, base, px, py, best,
+                                   box);
       base += n;
       if (base >= hi) break;
       n = min(hi - base, SEG);
       __syncthreads();  // the buffer is no longer read
-      stage_rows<COLS>(w, b, base, n, s_rows[buf]);
+      stage_rows<COLS, SRC>(w, b, base, n, s_rows[buf]);
       cp_async_wait_all();
       __syncthreads();
     }
@@ -1022,7 +1177,7 @@ tile_raster_split_kernel(const Walk w, const Epi ep, const Plan pl,
     if (!last) {
 #pragma unroll
       for (int q = 0; q < PPT; ++q) {
-        const int p = threadIdx.x + q * THREADS;
+        const int p = pixel_slot<BOX>(q, w.tile_h);
         if (p < P && best[q] != SKY_KEY)
           atomicMin(ep.out + (size_t)b * P + p, best[q]);
       }
@@ -1036,7 +1191,7 @@ tile_raster_split_kernel(const Walk w, const Epi ep, const Plan pl,
         __threadfence();
 #pragma unroll
         for (int q = 0; q < PPT; ++q) {
-          const int p = threadIdx.x + q * THREADS;
+          const int p = pixel_slot<BOX>(q, w.tile_h);
           if (p < P) best[q] = __ldcg(ep.out + (size_t)b * P + p);
         }
       }
@@ -1046,11 +1201,17 @@ tile_raster_split_kernel(const Walk w, const Epi ep, const Plan pl,
       const bool staged = k == 1 && hi <= SEG;
 #pragma unroll
       for (int q = 0; q < PPT; ++q) {
-        const int p = threadIdx.x + q * THREADS;
-        if (p < P)
-          ep.out[(size_t)b * P + p] = split_value<EPI, MMA, COLS>(
-              w, ep, b, best[q], px[q], py[q], bgp,
-              staged ? s_rows[buf] : nullptr);
+        const int p = pixel_slot<BOX>(q, w.tile_h);
+        if (p < P) {
+          if constexpr (EPI == KEYS_F32)
+            split_keys_f32<SRC, COLS>(w, ep, b, p, best[q], px[q], py[q],
+                                      k == 1,
+                                      staged ? s_rows[buf] : nullptr);
+          else
+            ep.out[(size_t)b * P + p] = split_value<EPI, MMA, COLS>(
+                w, ep, b, best[q], px[q], py[q], bgp,
+                staged ? s_rows[buf] : nullptr);
+        }
       }
     }
     if (nxt >= n_items) return;
@@ -1156,10 +1317,12 @@ int launch(int nblocks, int z_clip, const Walk& w, const Epi& ep,
 // The split walk: the plan, then the persistent walk, its grid at most
 // the blocks the card holds at once and never more than ceil(cap / wf),
 // the claims the longest list could fill.
-template <int EPI, int PPT, bool ZC, int WALKER, bool GRAIN>
+template <int EPI, int PPT, bool ZC, int WALKER, bool GRAIN, int SRC,
+          bool BOX>
 cudaError_t launch_split_n(int nblocks, const Walk& w, const Epi& ep,
                            const Plan& pl, int wf, cudaStream_t s) {
-  const auto kernel = tile_raster_split_kernel<PPT, ZC, EPI, WALKER, GRAIN>;
+  const auto kernel =
+      tile_raster_split_kernel<PPT, ZC, EPI, WALKER, GRAIN, SRC, BOX>;
   // the device's SMs and this kernel's resident blocks, asked once a
   // device (a launch then costs the host two kernel launches only)
   static int cached_dev = -1, sms = 0, per_sm = 0;
@@ -1173,8 +1336,8 @@ cudaError_t launch_split_n(int nblocks, const Walk& w, const Epi& ep,
     if (e == cudaSuccess) cached_dev = dev;
   }
   if (e != cudaSuccess) return e;
-  split_plan_kernel<<<min(nblocks, 4 * sms), THREADS, 0, s>>>(
-      w, pl, ep.packed_bg, ep.out, nblocks);
+  split_plan_kernel<SRC, EPI><<<min(nblocks, 4 * sms), THREADS, 0, s>>>(
+      w, pl, ep, nblocks);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int resident = sms * (per_sm > 0 ? per_sm : 1);
@@ -1183,11 +1346,13 @@ cudaError_t launch_split_n(int nblocks, const Walk& w, const Epi& ep,
   return cudaGetLastError();
 }
 
-template <int EPI, bool ZC, int WALKER, bool GRAIN>
+template <int EPI, bool ZC, int WALKER, bool GRAIN, int SRC = PAIRS,
+          bool BOX = false>
 cudaError_t launch_split_z(int nblocks, const Walk& w, const Epi& ep,
                            const Plan& pl, int wf, cudaStream_t s) {
-#define SPLIT_N(N) \
-  launch_split_n<EPI, N, ZC, WALKER, GRAIN>(nblocks, w, ep, pl, wf, s)
+#define SPLIT_N(N)                                                   \
+  launch_split_n<EPI, N, ZC, WALKER, GRAIN, SRC, BOX>(nblocks, w, ep, pl, \
+                                                     wf, s)
   switch (fma_ppt(w.tile_w * w.tile_h)) {
     case 1: return SPLIT_N(1);
     case 2: return SPLIT_N(2);
@@ -1212,21 +1377,32 @@ cudaError_t launch_split_g(int nblocks, bool z_clip, const Walk& w,
 
 // The FMA walk (ep.mxu 0) or the MMA walk (ep.mxu 1 or 2, an affine
 // table) with epilogue EPI, wf items a claim (only K1's epilogue takes
-// wf > 1, K1-wf).
-template <int EPI>
+// wf > 1, K1-wf); over BINS (K5) the FMA walk with the z test, with K5's
+// warp boxes and cull at tiles BOX_TILE_W wide (the production shapes,
+// 128x16 and 128x32), without them at other widths.
+template <int EPI, int SRC = PAIRS>
 int launch_split(int nblocks, int z_clip, const Walk& w, const Epi& ep,
                  const Plan& pl, int wf, void* stream) {
-  if (const int e = check<EPI, PAIRS>(w, ep, nblocks)) return e < 0 ? 0 : e;
+  if (const int e = check<EPI, SRC>(w, ep, nblocks)) return e < 0 ? 0 : e;
   if (pl.items == nullptr || pl.counters == nullptr || pl.cap < nblocks ||
       wf < 1 || (EPI != U8_GOURAUD && wf != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if constexpr (EPI == U8_GOURAUD)
-    if (wf > 1)
-      return (int)launch_split_g<EPI, true>(nblocks, z_clip != 0, w, ep, pl,
-                                            wf, s);
-  return (int)launch_split_g<EPI, false>(nblocks, z_clip != 0, w, ep, pl, 1,
-                                         s);
+  if constexpr (SRC == BINS) {
+    if (!z_clip || ep.mxu) return (int)cudaErrorInvalidValue;
+    if (w.tile_w == BOX_TILE_W)   // warp boxes and the cull
+      return (int)launch_split_z<EPI, true, WALK_FMA, false, BINS, true>(
+          nblocks, w, ep, pl, 1, s);
+    return (int)launch_split_z<EPI, true, WALK_FMA, false, BINS, false>(
+        nblocks, w, ep, pl, 1, s);
+  } else {
+    if constexpr (EPI == U8_GOURAUD)
+      if (wf > 1)
+        return (int)launch_split_g<EPI, true>(nblocks, z_clip != 0, w, ep,
+                                              pl, wf, s);
+    return (int)launch_split_g<EPI, false>(nblocks, z_clip != 0, w, ep, pl,
+                                           1, s);
+  }
 }
 
 // Registers a thread and resident blocks an SM of a kernel.
@@ -1250,14 +1426,33 @@ int occupancy_z(int walk, int P, int* regs) {
 #define OCC(N)                                                              \
   if (walk == 1)                                                            \
     return blocks_per_sm(                                                   \
-        tile_raster_split_kernel<N, ZC, EPI, WALK_FMA, false>, regs);       \
+        tile_raster_split_kernel<N, ZC, EPI, WALK_FMA, false, PAIRS, false>, \
+        regs);                                                              \
   if (walk == 2)                                                            \
     return blocks_per_sm(                                                   \
-        tile_raster_split_kernel<N, ZC, EPI, WALK_MMA, false>, regs);       \
+        tile_raster_split_kernel<N, ZC, EPI, WALK_MMA, false, PAIRS, false>, \
+        regs);                                                              \
   if constexpr (EPI == TEX_U8)                                              \
     return blocks_per_sm(tile_raster_kernel<N, ZC, TEX_IDX, PAIRS>, regs);  \
   else                                                                      \
     return blocks_per_sm(tile_raster_kernel<N, ZC, U8_GOURAUD, ROWS>, regs)
+  switch (fma_ppt(P)) {
+    case 1: OCC(1);
+    case 2: OCC(2);
+    case 4: OCC(4);
+    case 8: OCC(8);
+    default: OCC(16);
+  }
+#undef OCC
+}
+
+// K5's kernel at tiles BOX_TILE_W wide (the split walk over bins, warp
+// boxes and cull, the z test on) at tiles of P pixels.
+int occupancy_k5(int P, int* regs) {
+#define OCC(N)                                                         \
+  return blocks_per_sm(tile_raster_split_kernel<N, true, KEYS_F32, WALK_FMA, \
+                                                false, BINS, true>,         \
+                       regs)
   switch (fma_ppt(P)) {
     case 1: OCC(1);
     case 2: OCC(2);
@@ -1318,9 +1513,10 @@ int tile_raster_tex_u8(WALK_ARGS, const int* tex, int tex_w, int tex_h,
 // cudaError_t) of K1's (tex 0) or K3's (tex 1) kernel for tiles of
 // tile_p pixels: walk 1 the split FMA walk, 2 the split MMA walk, 0 the
 // one-block-a-tile walk, fma_tile, as K6's (tex 0) or K2b's (tex 1)
-// kernel runs it.
+// kernel runs it; walk 3 K5's kernel (tex and z_clip not read).
 int tile_raster_occupancy(int walk, int tex, int tile_p, int z_clip,
                           int* regs) {
+  if (walk == 3) return occupancy_k5(tile_p, regs);
   if (tex)
     return z_clip ? occupancy_z<TEX_U8, true>(walk, tile_p, regs)
                   : occupancy_z<TEX_U8, false>(walk, tile_p, regs);
@@ -1343,11 +1539,15 @@ int tile_raster_keys_f32(WALK_ARGS, int* keys, float* rgba, void* stream) {
   return launch<KEYS_F32, PAIRS>(nblocks, z_clip, w, ep, stream);
 }
 
-// K5: K2a's outputs, rows from bins (ids (B * nt, K), starts unused).
-int tile_raster_bins_f32(WALK_ARGS, int* keys, float* rgba, void* stream) {
+// K5: K2a's outputs, rows from bins (ids (B * nt, K), starts unused),
+// through the split walk with K5's warp boxes and cull (two launches:
+// the plan, the walk); z_clip must be 1.
+int tile_raster_bins_f32(WALK_ARGS, int* keys, float* rgba, SPLIT_ARGS,
+                         void* stream) {
   const Walk w = WALK;
   const Epi ep = {nullptr, 0, nullptr, 0, 0, keys, rgba, 0};
-  return launch<KEYS_F32, BINS>(nblocks, z_clip, w, ep, stream);
+  const Plan pl = PLAN;
+  return launch_split<KEYS_F32, BINS>(nblocks, z_clip, w, ep, pl, 1, stream);
 }
 
 // K6: K1's output, rows pre-gathered in pair order (table (B, nrows, 32),

@@ -93,7 +93,7 @@ def tile_raster() -> ctypes.CDLL:
                                  [p, i, i, p, i, p] + split),
                                 ("tile_raster_tex_idx", [i, i, p]),
                                 ("tile_raster_keys_f32", [p, p]),
-                                ("tile_raster_bins_f32", [p, p]),
+                                ("tile_raster_bins_f32", [p, p] + split),
                                 ("tile_raster_rows_u8", [p, i, p])):
             fn = getattr(lib, entry)
             fn.argtypes = walk + epilogue + [p]
@@ -115,7 +115,8 @@ def canvas_span() -> ctypes.CDLL:
     if lib is None:
         lib = ctypes.CDLL(str(build("canvas_span")))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.canvas_span.argtypes = [p, i, i, p, p, i, i, p]
+        # fb, W, H, kinds, params, n, tiles, n_tiles, is_double, stream
+        lib.canvas_span.argtypes = [p, i, i, p, p, i, p, i, i, p]
         lib.canvas_span.restype = ctypes.c_int
         lib.canvas_span_error_string.argtypes = [ctypes.c_int]
         lib.canvas_span_error_string.restype = ctypes.c_char_p
@@ -123,20 +124,20 @@ def canvas_span() -> ctypes.CDLL:
     return lib
 
 
-def launch_canvas_span(fb, width, height, kinds, params, n, is_double,
-                       stream) -> None:
-    """Launch K4 (pointers and stream as ints); raises on a refused
-    launch."""
+def launch_canvas_span(fb, width, height, kinds, params, n, tiles, n_tiles,
+                       is_double, stream) -> None:
+    """Launch K4 over the n_tiles tiles listed at ``tiles`` (0: every
+    tile) (pointers and stream as ints); raises on a refused launch."""
     lib = canvas_span()
-    err = lib.canvas_span(fb, width, height, kinds, params, n,
-                          int(is_double), stream)
+    err = lib.canvas_span(fb, width, height, kinds, params, n, tiles,
+                          n_tiles, int(is_double), stream)
     if err:
         raise RuntimeError(
             f"canvas_span launch failed: cudaError {err} "
             f"({lib.canvas_span_error_string(err).decode()})")
 
 
-WALKS = ("one block a tile", "split FMA", "split MMA")
+WALKS = ("one block a tile", "split FMA", "split MMA", "split bins")
 
 
 def tile_raster_occupancy(walk: str, tex: bool, tile_p: int,
@@ -145,7 +146,8 @@ def tile_raster_occupancy(walk: str, tex: bool, tile_p: int,
     ``tex``) kernel for tiles of ``tile_p`` pixels, ``walk`` one of
     :data:`WALKS`: the split walk on the CUDA cores or on the tensor cores
     (K1-mxu, K3's mxu walk), or the one-block-a-tile walk as K6's (K2b's)
-    kernel runs it."""
+    kernel runs it; "split bins" is K5's kernel (the split walk over bins
+    with its warp boxes and cull; ``tex`` and ``z_clip`` are not read)."""
     lib = tile_raster()
     regs = ctypes.c_int(0)
     n = lib.tile_raster_occupancy(WALKS.index(walk), int(tex), tile_p,

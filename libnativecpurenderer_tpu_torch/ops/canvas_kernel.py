@@ -8,8 +8,9 @@ command-count buckets are TPU layout and compile machinery and are not
 ported.
 
 :func:`render_span` is the wrapper: on CUDA tensors it launches the
-hand-written kernel in ``csrc/canvas_span.cu`` (or raises), on CPU
-tensors it runs :func:`render_span_reference`, the executor's branches
+hand-written kernel in ``csrc/canvas_span.cu`` (or raises) over the tiles
+:func:`touched_tiles` lists, on CPU tensors it runs
+:func:`render_span_reference`, the executor's branches
 (``ops/executor.py``) applied command by command over the full frame.
 The two are bit-identical on the card.  Both update the framebuffer in
 place.  The wrapper counts its kernel launches in
@@ -32,6 +33,7 @@ KERNEL_KINDS = frozenset((
 
 # the kernel's tile edge (csrc/canvas_span.cu TILE)
 TILE = 32
+_NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
 
 def arith_runs(kind_list):
@@ -48,6 +50,13 @@ def arith_runs(kind_list):
     return runs
 
 
+# the kinds whose mask lies in their box (p[6:10]) and at their pixel
+# (p[14], p[15])
+_BOX_KINDS = (C.KIND_SET_COLOR, C.KIND_RECT, C.KIND_CIRCLE, C.KIND_LINE,
+              C.KIND_VGRD)
+_PIXEL_KINDS = (C.KIND_SET_PIXEL, C.KIND_APPLY_PIXEL)
+
+
 def tiles_touched(kind, p, width: int, height: int):
     """The kernel's culling test (``touches`` in csrc/canvas_span.cu) on
     the host: a (ceil(H/TILE), ceil(W/TILE)) bool array of the tiles whose
@@ -60,12 +69,37 @@ def tiles_touched(kind, p, width: int, height: int):
     shape = (oy.size, ox.size)
     if kind == C.KIND_FILL:
         return np.ones(shape, bool)
-    if kind in (C.KIND_SET_COLOR, C.KIND_RECT, C.KIND_CIRCLE, C.KIND_LINE,
-                C.KIND_VGRD):
+    if kind in _BOX_KINDS:
         return (p[7] > ox) & (p[6] < ex) & (p[9] > oy) & (p[8] < ey)
-    if kind in (C.KIND_SET_PIXEL, C.KIND_APPLY_PIXEL):
+    if kind in _PIXEL_KINDS:
         return (p[14] >= ox) & (p[14] < ex) & (p[15] >= oy) & (p[15] < ey)
     return np.zeros(shape, bool)
+
+
+def touched_tiles(kinds, p, width: int, height: int):
+    """The tiles K4 launches a block for: the union over the run of
+    :func:`tiles_touched`, vectorised, as ascending int32 tile ids
+    ty * ceil(W / TILE) + tx; None when a FILL touches every tile (the
+    whole grid).  ``kinds`` (N,) ints, ``p`` the (N, PARAM_W) host params
+    in the frame's dtype; each test is the kernel's, a conjunction of a
+    column test and a row test, made in p's dtype."""
+    kinds = np.asarray(kinds)
+    if (kinds == C.KIND_FILL).any():
+        return None
+    edge = p.dtype.type(TILE)
+    ox = np.arange(0, width, TILE).astype(p.dtype)
+    oy = np.arange(0, height, TILE).astype(p.dtype)
+    cols = np.zeros((kinds.size, ox.size), bool)
+    rows = np.zeros((kinds.size, oy.size), bool)
+    box, pix = np.isin(kinds, _BOX_KINDS), np.isin(kinds, _PIXEL_KINDS)
+    q = p[box]
+    cols[box] = (q[:, 7:8] > ox) & (q[:, 6:7] < ox + edge)
+    rows[box] = (q[:, 9:10] > oy) & (q[:, 8:9] < oy + edge)
+    q = p[pix]
+    cols[pix] = (q[:, 14:15] >= ox) & (q[:, 14:15] < ox + edge)
+    rows[pix] = (q[:, 15:16] >= oy) & (q[:, 15:16] < oy + edge)
+    union = rows.T.astype(np.int32) @ cols.astype(np.int32)
+    return np.flatnonzero(union).astype(np.int32)
 
 
 def _check_inputs(fb, kinds, params):
@@ -96,21 +130,36 @@ def _check_inputs(fb, kinds, params):
                          f"K4 takes only {sorted(KERNEL_KINDS)}")
 
 
-def render_span(fb, kinds, params):
+def render_span(fb, kinds, params, host_params=None):
     """Kernel K4: apply a run of arithmetic commands to ``fb`` in place,
     and return ``fb``.
 
     fb: contiguous (H, W, 4) float32 or float64; kinds: (N,) host int32
     tensor of ``KERNEL_KINDS``; params: contiguous (N, PARAM_W) in
-    fb.dtype on fb's device.  For every pixel, in recorded order, each
-    command whose mask admits it blends its colour in, exactly as
-    :func:`executor.render_commands` does.
+    fb.dtype on fb's device; host_params: the same params as a host
+    numpy array (the flush holds one), from which the tiles to launch are
+    listed; required unless fb is on the CPU.  Only its shape and dtype
+    are checked against ``params``: its values must be theirs, or the
+    kernel skips tiles the params touch.  For every pixel, in recorded
+    order, each command whose mask admits it blends its colour in,
+    exactly as :func:`executor.render_commands` does.
 
-    CUDA tensors launch the kernel on the current stream, after a
-    non-blocking upload of the kinds from pinned memory (no sync); CPU
-    tensors run :func:`render_span_reference`."""
+    CUDA tensors launch the kernel on the current stream over the tiles
+    :func:`touched_tiles` lists, after one non-blocking upload of the
+    kinds and that list from pinned memory (no sync); a run that touches
+    no tile launches nothing.  CPU tensors run
+    :func:`render_span_reference`."""
     _check_inputs(fb, kinds, params)
     dev = fb.device
+    if host_params is None:
+        if dev.type != "cpu":
+            raise ValueError("host_params are required off the CPU: the "
+                             "tiles to launch are listed from them")
+    elif (host_params.shape != tuple(params.shape)
+          or host_params.dtype != _NP_DTYPES[params.dtype]):
+        raise ValueError(f"host_params {host_params.shape} "
+                         f"{host_params.dtype} are not the params' host "
+                         f"copy")
     if dev.type == "cpu":
         return render_span_reference(fb, kinds, params)
     if dev.type != "cuda":
@@ -118,13 +167,27 @@ def render_span(fb, kinds, params):
     n = kinds.shape[0]
     if n == 0:
         return fb
+    if fb.data_ptr() % 16:
+        raise ValueError("fb must be 16-byte aligned (pixels are moved 16 "
+                         "bytes at a time)")
+    height, width = fb.shape[0], fb.shape[1]
+    tiles = touched_tiles(kinds.numpy(), host_params, width, height)
+    if tiles is not None and tiles.size == 0:
+        return fb
+    ntx, nty = -(-width // TILE), -(-height // TILE)
+    if tiles is not None and tiles.size == ntx * nty:
+        tiles = None
+    n_tiles = 0 if tiles is None else tiles.size
+    host = kinds if tiles is None else torch.cat(
+        [kinds, torch.from_numpy(tiles)])
     from . import _kernels
-    kinds_dev = kinds.pin_memory().to(dev, non_blocking=True)
+    up = host.pin_memory().to(dev, non_blocking=True)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _kernels.launch_canvas_span(
-            fb.data_ptr(), fb.shape[1], fb.shape[0], kinds_dev.data_ptr(),
-            params.data_ptr(), n, fb.dtype == torch.float64, stream)
+            fb.data_ptr(), width, height, up.data_ptr(), params.data_ptr(),
+            n, up.data_ptr() + 4 * n if n_tiles else 0, n_tiles,
+            fb.dtype == torch.float64, stream)
     render_span.launches += 1
     return fb
 

@@ -68,8 +68,11 @@ ROW_W = 32      # padded row width
 D = 4           # attributes per vertex
 MAX_P = 4096    # pixels per tile the kernel takes (16 per thread)
 REF_CHUNK = 16  # run slots the plain versions evaluate per pass
-SEG = 64        # K1's and K3's split walk: run slots an item walks (S),
-                # the kernel's compile-time SEG
+SEG = 64        # the split walk (K1, K3, K5): run slots an item walks
+                # (S), the kernel's compile-time SEG
+WARPS = 8       # warps a block of the kernel (256 threads)
+BOX_W = 16      # K5's warp boxes: the columns a warp owns, at tiles
+BOX_TILE_W = BOX_W * WARPS   # this wide (the kernel's BOX_TILE_W, 128)
 _ALPHA_255 = -(1 << 24)   # 255 << 24 as an int32
 
 
@@ -200,6 +203,81 @@ def mma_operands(rows, x, y, mxu: int):
     A = torch.stack([xh, xl, xh, xl, xh, xl, yh, yl, yh, yl, yh, yl,
                      one, one, one, torch.zeros_like(x)], dim=1)
     return A, B, cols
+
+
+def warp_boxes(tile_w: int, tile_h: int):
+    """K5's pixel layout (``csrc/tile_raster.cu``, the split walk with
+    ``BOX``) at tiles :data:`BOX_TILE_W` wide: (boxes (WARPS, 4) int64
+    [x0, x1, y0, y1], each warp's box of pixel coordinates in a tile at
+    the origin, bounds included; warp (P,) int64, the warp that owns each
+    pixel slot).  Warp w owns the strip of BOX_W columns from BOX_W w,
+    all rows (16x16 at 128x16).  At other widths the kernel keeps the
+    row-major layout and culls nothing: None."""
+    if tile_w != BOX_TILE_W:
+        return None
+    p = torch.arange(tile_w * tile_h)
+    w = torch.arange(WARPS)
+    boxes = torch.stack([w * BOX_W, w * BOX_W + BOX_W - 1,
+                         torch.zeros_like(w),
+                         torch.full_like(w, tile_h - 1)], dim=1)
+    return boxes, p % tile_w // BOX_W
+
+
+def cull_keep(rows, box):
+    """The plain version of K5's cull (``box_culled`` in
+    ``csrc/tile_raster.cu``): False where the triangle of an edge row
+    cannot cover any pixel of the box as the walk evaluates its edges,
+    in the kernel's expression and order.  rows (..., ROW_W) float32 and
+    box (..., 4) float32 [x0, x1, y0, y1] (pixel coordinates, bounds
+    included) broadcast together.  A row is culled when for some edge i
+    the walk's own value (A x + B y) + C, each operation rounded, is
+    negative at the box's pixel (x1 if A > 0 else x0, y1 if B > 0 else
+    y0).  Rounding to nearest is monotone, so that rounded value is the
+    largest the walk computes at any pixel of the box: the edge is
+    negative at every one of them, exactly as the walk evaluates it.  A
+    NaN coefficient culls by no edge it is in (the row never covers)."""
+    x0, x1, y0, y1 = box.unbind(-1)
+    culled = torch.zeros(torch.broadcast_shapes(rows.shape[:-1],
+                                                box.shape[:-1]),
+                         dtype=torch.bool, device=rows.device)
+    for i in range(3):
+        a, b, c = (rows[..., 3 * i + k] for k in range(3))
+        x = torch.where(a > 0.0, x1, x0)
+        y = torch.where(b > 0.0, y1, y0)
+        culled |= a * x + b * y + c < 0.0
+    return ~culled
+
+
+def bins_cull_keep(bins, counts, table, width: int, tile_w: int,
+                   tile_h: int):
+    """K5's cull over its bins: (NB, K, WARPS) bool, True where warp w of
+    tile b walks bin slot j (j < min(counts[b], K) and, at tiles
+    :data:`BOX_TILE_W` wide, :func:`cull_keep` keeps the row for the
+    warp's box); inputs as :func:`raster_tiles_bins_f32`.  Its sum is the
+    (row, warp) pairs the kernel walks, P / WARPS pixels each."""
+    nt, K, nrows = counts.shape[-1], bins.shape[-1], table.shape[-2]
+    bn = bins.reshape(-1, K)
+    tb = table.reshape(-1, ROW_W)
+    nb = bn.shape[0]
+    ntx = (width + tile_w - 1) // tile_w
+    t = torch.arange(nb, device=bn.device) % nt
+    n_walk = counts.reshape(-1).clamp(max=K)
+    walked = torch.arange(K, device=bn.device)[None, :] < n_walk[:, None]
+    layout = warp_boxes(tile_w, tile_h)
+    if layout is None:
+        return walked[..., None].expand(nb, K, WARPS).clone()
+    boxes = layout[0]
+    org = torch.stack([t % ntx * tile_w, t % ntx * tile_w,
+                       t // ntx * tile_h, t // ntx * tile_h], dim=1)
+    box = (org[:, None, :] + boxes.to(bn.device)).to(torch.float32)
+    f = (torch.arange(nb, device=bn.device) // nt)[:, None]
+    keep = torch.zeros((nb, K, WARPS), dtype=torch.bool, device=bn.device)
+    for j0 in range(0, K, 64):
+        j = torch.arange(j0, min(j0 + 64, K), device=bn.device)
+        rows = tb[f * nrows + bn[:, j].clamp(0, nrows - 1)]
+        k = cull_keep(rows[:, :, None, :], box[:, None, :, :])
+        keep[:, j] = k & walked[:, j, None]
+    return keep
 
 
 def _quant_u8(v):
@@ -346,17 +424,21 @@ def _check_tex_tile(tile_w: int, tile_h: int) -> int:
     return P
 
 
-def _split_scratch(sorted_pad, counts, table):
-    """The split walk's launch arguments (K1, K3): the item list (int2 a
-    slot) sized for runs that partition each frame's pairs,
-    B * nt + B * ids_len // SEG items, its size and the counters (3 +
-    B * nt ints), in one uninitialised allocation (the kernel's plan
-    fills it)."""
+def _split_scratch(sorted_pad, counts, table, bins=False):
+    """The split walk's launch arguments (K1, K3, K5): the item list (int2
+    a slot) sized for runs that partition each frame's pairs,
+    B * nt + B * ids_len // SEG items, or with ``bins`` (``sorted_pad``
+    the bins, K = ids_len slots a tile) B * nt * ceil(K / SEG), every
+    run's items; its size and the counters (3 + B * nt ints), in one
+    uninitialised allocation (the kernel's plan fills it)."""
     if table.data_ptr() % 16:
         raise ValueError("the table must be 16-byte aligned (its rows are "
                          "copied 16 bytes at a time)")
     nb = counts.numel()
-    cap = nb + (nb // counts.shape[-1]) * sorted_pad.shape[-1] // SEG
+    if bins:
+        cap = nb * -(-sorted_pad.shape[-1] // SEG)
+    else:
+        cap = nb + (nb // counts.shape[-1]) * sorted_pad.shape[-1] // SEG
     scratch = torch.empty(2 * cap + 3 + nb, dtype=torch.int32,
                           device=table.device)
     return scratch, cap, scratch.data_ptr() + 8 * cap
@@ -573,8 +655,14 @@ def raster_tiles_bins_f32(bins, counts, table, width: int, tile_w: int,
     table (B, F + 1, ROW_W)) give (B, NT, P) and (B, NT, D, P) in one
     launch.
 
-    CUDA tensors launch the kernel on the current stream (no sync);
-    CPU tensors run :func:`raster_tiles_bins_f32_reference`."""
+    CUDA tensors launch the kernel on the current stream (no sync): K1's
+    split walk over the bins (every run cut into items of at most
+    :data:`SEG` slots, merged exactly by key); at tiles
+    :data:`BOX_TILE_W` wide (the entries' defaults) each warp walks only
+    the rows whose triangle may cover a pixel of its box
+    (:func:`warp_boxes`, :func:`cull_keep`), which changes no value; one
+    call, counted once in ``launches``.  CPU tensors run
+    :func:`raster_tiles_bins_f32_reference`."""
     _check_tensors(table.device, bins=(bins, torch.int32),
                    counts=(counts, torch.int32),
                    table=(table, torch.float32))
@@ -588,7 +676,8 @@ def raster_tiles_bins_f32(bins, counts, table, width: int, tile_w: int,
                                                tile_w, tile_h)
     keys, rgba = _keys_rgba_out(counts, tile_w * tile_h, table.device)
     _launch("tile_raster_bins_f32", bins, None, counts, counts.shape[-1],
-            table, width, tile_w, tile_h, True, keys, rgba)
+            table, width, tile_w, tile_h, True, keys, rgba,
+            *_split_scratch(bins, counts, table, bins=True))
     raster_tiles_bins_f32.launches += 1
     return keys, rgba
 

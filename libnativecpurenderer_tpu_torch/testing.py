@@ -73,6 +73,84 @@ def crafted_runs(lengths, tile_w: int = 32, tile_h: int = 32, seed: int = 0,
     return torch.cat([ids, pad]), starts, counts, table, nt * tile_w
 
 
+def knife_edge_rows(tile_w: int, tile_h: int, ox: int, n: int, seed: int):
+    """``n`` edge-table rows (``tile_raster.build_table``) of triangles on
+    the edges of K5's cull, in a tile at (ox, 0): one edge of each runs
+    through pixel coordinates on a border of a warp's box
+    (``tile_raster.warp_boxes``, the whole tile at other widths than
+    128: the first or last column of a box, a
+    column just outside it, or the tile's first or last row), the third
+    vertex 1..40 pixels to either side, so the edge's pixels are covered
+    at 0 (e = 0) on one side of the border and not on the other; the
+    edge coefficients are then scaled by a seeded choice of 1, 2^-60,
+    2^60, 3.7e-20, 1e25 and 0.7 (the depth and attribute columns by its
+    inverse), and a few rows get a NaN coefficient.  Depths in [0, 1]."""
+    from .ops import raster3d, tile_raster
+    rng = np.random.default_rng(seed)
+    layout = tile_raster.warp_boxes(tile_w, tile_h)
+    boxes = (layout[0] if layout is not None else
+             torch.tensor([[0, tile_w - 1, 0, tile_h - 1]]))
+    sxy = np.zeros((n, 3, 2))
+    for i in range(n):
+        x0, x1, y0, y1 = boxes[rng.integers(len(boxes))].tolist()
+        side = rng.choice([-1, 1])
+        d = int(rng.integers(1, 41))
+        if rng.random() < 0.6:    # a vertical edge on a box column
+            c = ox + [x0, x1, x0 - 1, x1 + 1][rng.integers(4)]
+            ya, yb = sorted(rng.integers(-6, tile_h + 6, 2).tolist())
+            sxy[i] = [(c, ya), (c, yb + 1), (c + side * d,
+                                             rng.integers(-4, tile_h + 4))]
+        else:                     # a horizontal edge on a tile row
+            r = [y0, y1, y0 - 1, y1 + 1][rng.integers(4)]
+            xa, xb = sorted(rng.integers(ox - 6, ox + tile_w + 6,
+                                         2).tolist())
+            sxy[i] = [(xa, r), (xb + 1, r), (rng.integers(ox - 4,
+                                                          ox + tile_w + 4),
+                                             r + side * d)]
+    sxy = torch.from_numpy(sxy).float()
+    z = torch.from_numpy(rng.uniform(0.1, 0.9, (n, 3))).float()
+    A, B, C, inv_area, sign, valid = raster3d.edge_coeffs(
+        sxy, z, torch.ones(n, dtype=torch.bool))
+    attrs = torch.from_numpy(rng.uniform(0.0, 1.0, (n, 3, 4))).float()
+    rows = tile_raster.build_table(A, B, C, z * inv_area[:, None], inv_area,
+                                   sign, valid, attrs)[:n]
+    f = torch.from_numpy(rng.choice(
+        np.array([1.0, 2.0 ** -60, 2.0 ** 60, 3.7e-20, 1e25, 0.7],
+                 np.float32), n))[:, None]
+    rows[:, 0:9] *= f
+    rows[:, 9:12] /= f
+    rows[:, 14:26] /= f
+    nan = torch.from_numpy(rng.random(n) < 0.05)
+    rows[nan, 3] = math.nan
+    return rows
+
+
+def crafted_bins(lengths, K: int, tile_w: int = 128, tile_h: int = 16,
+                 seed: int = 0, knife: bool = True):
+    """K5's inputs at the split walk's and the cull's edges: one row of
+    ``len(lengths)`` tiles of tile_w x tile_h whose bins rows hold the
+    seeded triangles of :func:`crafted_runs` (``lengths`` each, NaN rows
+    among them), the first min(length, K) of each run and then the
+    table's NaN pad row; counts are the full lengths, so a run longer
+    than K overflows and walks its K slots.  With ``knife`` every third
+    slot's triangle is replaced by a :func:`knife_edge_rows` row of its
+    tile.  Returns (bins (NT, K) int32, counts (NT,) int32, table,
+    width) on the CPU."""
+    from .ops import raster3d
+    sp, st, ct, table, width = crafted_runs(lengths, tile_w, tile_h, seed)
+    tri = sp & raster3d.IDX_MASK
+    pad = table.shape[0] - 1
+    bins = torch.full((len(lengths), K), pad, dtype=torch.int32)
+    for t, n in enumerate(lengths):
+        ids = tri[int(st[t]):int(st[t]) + min(n, K)]
+        bins[t, :ids.numel()] = ids
+        if knife:
+            sel = ids[1::3].long()
+            table[sel] = knife_edge_rows(tile_w, tile_h, t * tile_w,
+                                         sel.numel(), seed + 7 * t)
+    return bins, ct, table, width
+
+
 def mma_probe_plain(rows, ox: int, oy: int, tile_w: int, mxu: int):
     """The plain version of the MMA walk's layout probe (the C entry
     ``tile_raster_mma_probe``, which ``chip_smoke.py`` runs on the card):

@@ -506,9 +506,9 @@ def test_flush_routes_arith_runs_to_k4(monkeypatch):
     calls, evals = [], []
     real_span, real_cmds = tck.render_span, pex.render_commands
 
-    def span(fb, kinds, params):
+    def span(fb, kinds, params, host_params=None):
         calls.append(kinds.tolist())
-        return real_span(fb, kinds, params)
+        return real_span(fb, kinds, params, host_params)
 
     def cmds(fb, kinds, params, atlas=None, window=None):
         evals.append((list(kinds), window))

@@ -255,6 +255,107 @@ def test_k4_tile_culling_matches_full_frame(dt, shape):
     np.testing.assert_array_equal(tiled.numpy(), full.numpy())
 
 
+def _border_pixels(ctx, w, h):
+    """SET_PIXEL / APPLY_PIXEL on the four sides of tile borders (31, 32,
+    63, 64 ...), at the frame's last row and column, and just off the
+    frame, and a rect whose NaN box touches nothing."""
+    for x, y in ((31, 0), (32, 0), (31, 31), (32, 32), (63, 33), (64, 31),
+                 (w - 1, h - 1), (w - 1, 0), (0, h - 1), (w, 5), (5, h),
+                 (-1, 3)):
+        ctx.set_pixel(x, y, 0.9, 0.1, 0.2, 0.6)
+        ctx.apply_pixel(x, min(y + 1, h), 0.1, 0.8, 0.3, 0.5)
+    ctx.draw_rect(10.0, 10.0, 5.0, 5.0, 0.2, 0.3, 0.4, 0.5)
+    ctx._cmds.params[ctx._cmds.n - 1, 6] = math.nan
+
+
+def _tiled_by_list(kinds, params, w, h, t_dtype):
+    """The plain version applied tile by tile over the wrapper's list
+    (touched_tiles; None: every tile), each tile with all the run's
+    commands, as the kernel's blocks apply them."""
+    p_np = params.numpy()
+    tiles = tck.touched_tiles(kinds, p_np, w, h)
+    ntx, nty = -(-w // 32), -(-h // 32)
+    ids = range(ntx * nty) if tiles is None else tiles.tolist()
+    out = torch.full((h, w, 4), 0.25, dtype=t_dtype)
+    for t in ids:
+        ox, oy = t % ntx * 32, t // ntx * 32
+        tex.render_commands(out, kinds.tolist(), params,
+                            window=(ox, min(ox + 32, w), oy,
+                                    min(oy + 32, h)))
+    return tiles, out
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+@pytest.mark.parametrize("shape", [(256, 192), (100, 70)])
+@pytest.mark.parametrize("scene", ["fractional", "border pixels", "empty"])
+def test_k4_tile_list_is_the_union_and_covers_the_run(dt, shape, scene):
+    """The K4 wrapper's host list of tiles (touched_tiles, the kernel's
+    own test vectorised over the run in the fb's type) is the union of
+    tiles_touched over the run, and the plain version applied over only
+    those tiles equals the full-frame plain version; a FILL takes every
+    tile (None) and a run that touches nothing lists no tile."""
+    w, h = shape
+    ctx = JaxContext(w, h, True)
+    if scene == "fractional":
+        _fractional_boxes(ctx)
+    elif scene == "border pixels":
+        _border_pixels(ctx, w, h)
+    else:
+        ctx.draw_rect(-50.0, -40.0, 20.0, 10.0, 1, 1, 1, 1)
+        ctx.set_pixel(w + 40, 5, 1, 1, 1, 1)     # past the last tile
+    kinds, params64 = (np.array(a) for a in ctx._cmds.snapshot())
+    _, t_dtype = DTYPES[dt]
+    params = torch.from_numpy(params64).to(t_dtype)
+    full = tex.render_commands(torch.full((h, w, 4), 0.25, dtype=t_dtype),
+                               kinds.tolist(), params)
+    tiles, tiled = _tiled_by_list(kinds, params, w, h, t_dtype)
+    union = np.zeros((-(-h // 32), -(-w // 32)), bool)
+    for k, q in zip(kinds.tolist(), params.numpy()):
+        union |= tck.tiles_touched(k, q, w, h)
+    if C.KIND_FILL in kinds.tolist():
+        assert tiles is None
+    else:
+        np.testing.assert_array_equal(tiles, np.flatnonzero(union))
+        assert tiles.dtype == np.int32
+    if scene == "empty":
+        assert tiles.size == 0
+    else:
+        assert 0 < union.sum() and (scene == "fractional"
+                                    or not union.all())
+    np.testing.assert_array_equal(tiled.view(torch.int64 if dt == "f64"
+                                             else torch.int32).numpy(),
+                                  full.view(torch.int64 if dt == "f64"
+                                            else torch.int32).numpy())
+
+
+def test_k4_wrapper_refuses_a_wrong_host_copy():
+    fb = torch.zeros(8, 8, 4, dtype=torch.float32)
+    k = torch.tensor([C.KIND_RECT], dtype=torch.int32)
+    p = torch.zeros(1, C.PARAM_W, dtype=torch.float32)
+    # the host copy the tiles are listed from must be the params' own
+    for bad in (np.zeros((1, C.PARAM_W), np.float64),
+                np.zeros((2, C.PARAM_W), np.float32)):
+        with pytest.raises(ValueError, match="host copy"):
+            tck.render_span(fb, k, p, bad)
+    tck.render_span(fb, k, p, p.numpy())
+    assert tck.touched_tiles(np.array([C.KIND_FILL, C.KIND_RECT]),
+                             np.zeros((2, C.PARAM_W), np.float32), 8,
+                             8) is None
+
+
+def test_k4_wrapper_needs_the_host_copy_off_the_cpu():
+    """Off the CPU the tiles to launch are listed from the host copy of
+    the params: without it the wrapper raises (it never reads the params
+    back)."""
+    fb = torch.zeros(8, 8, 4, dtype=torch.float32, device="meta")
+    k = torch.tensor([C.KIND_RECT], dtype=torch.int32)
+    p = torch.zeros(1, C.PARAM_W, dtype=torch.float32, device="meta")
+    before = tck.render_span.launches
+    with pytest.raises(ValueError, match="host_params are required"):
+        tck.render_span(fb, k, p)
+    assert tck.render_span.launches == before
+
+
 @pytest.mark.parametrize("kinds,runs", [
     ([], []),
     ([C.KIND_TEX], []),
