@@ -14,8 +14,9 @@ raising:
      spills for each instantiation, the MMA walk's held to no spill, at
      most MMA_MAX_REGS registers and no serialized wgmma (ptxas warning
      C7518) (phase 16 adds the count of HGMMA
-     instructions in the library's SASS, from cuobjdump), and K5's split
-     walk held to no spill, its registers printed; then the MMA
+     instructions in the library's SASS, from cuobjdump), and K5's, K2b's
+     and K6's split walks held to no spill, their registers printed; then
+     the MMA
      walk's layout probe: one wgmma of the walk's own operands against
      the float64 product of the same bf16 parts, before any walk uses it;
   3. k1 vs plain: the per-frame prep of mesh_10k at 1920x1080 (tiles
@@ -43,7 +44,7 @@ raising:
      frames in one, at 32x32 and 128x16, beside the bound, with ptxas
      registers
      and blocks an SM of the split walk on the CUDA and the tensor cores
-     and of the one-block-a-tile walk (K6's kernel);
+     and of the one-block-a-tile walk (K2a's kernel, the one left on it);
   6. k4 vs plain: at 1920x1080, in float32 and float64, K4 and its plain
      version on (a) the two arithmetic runs of bench.py's 60-command
      canvas frame over a nonzero framebuffer, (b) a seeded 64-command
@@ -77,8 +78,10 @@ raising:
      texture and one with crafted uv rows (huge, negative, tiny or zero
      denominators, NaN), fed to K3, K2b and K2a and to their plain
      versions on the card; packed texels, texel indices, keys and the
-     float attributes' bits must be equal; K3's split walk on phase 3's
-     boundary runs;
+     float attributes' bits must be equal; K3's and K2b's split walks on
+     phase 3's boundary runs (K2b also with crafted uv rows, and 4 frames
+     in one launch: one with a run past its pair array, two with crafted
+     uv rows), z test on and off;
  11. textured main paths: MeshVideoPipeline(uvs=, tex_u8=) on its
      default device over 48 frames, batch 16, into a tiled and a plain
      sink, after 3 timed runs into a sink that drops the frames: no
@@ -88,12 +91,13 @@ raising:
      keys and attribute bits, at render_textured's own shapes (128x8
      tiles, span (2, 10), capacity 512) on that frame's prep and the 4
      cameras'; render_binned_tex_idx_batch (K2b) over the 4 cameras, one
-     launch a frame;
+     launch for the 4 frames, bit-equal to the plain version;
  12. textured times: K3, K2b and K2a and their plain versions ms/frame
-     (CUDA events; K3 and K2b at 32x32 tiles, K2a at render_textured's
-     shapes) beside each bound; K3's split walk beside K2b (the old walk)
-     in turns (calls queued behind a sleep), one frame a launch and 4 in
-     one, at 32x32 and 128x16,
+     (CUDA events; K3 and K2b at 32x32 tiles, K2b's with the 4 frames in
+     one launch, its main path's, K2a at render_textured's shapes) beside
+     each bound; K3 beside K2b (both the split walk, apart by K3's texel
+     load) in turns (calls queued behind a sleep), one frame a launch and
+     4 in one, at 32x32 and 128x16, each beside its bound,
      with registers and blocks an SM; the device time by kernel, host
      launches and syncs a frame and the busy share (profiler, 16
      frames), pipeline frames/s, peak device memory;
@@ -109,8 +113,14 @@ raising:
      batch defaults against its plain version, the same; K6 on the 4
      frames' rows gathered in pair order (32x32,
      span (5, 3), capacity 1024, opaque, no z test) against its plain
-     version and K1's batched launch, and render_gouraud_pallas_batch
-     (dynrows=g) for g in 1, 2, 4 against the u8 route: bit-equal;
+     version and K1's batched launch, and one frame a launch; K6 on
+     phase 3's boundary runs with rows gathered in pair order (one frame
+     a launch: CAP the pair array's length, and cut below the runs' end
+     by 10 rows and by 1000, when the item list no longer fits; 4 frames
+     in one launch, one with a run past CAP, and all 1000 rows past it)
+     against its plain version and, where the rows hold every run, K1;
+     render_gouraud_pallas_batch (dynrows=g) for g in 1, 2, 4 against the
+     u8 route: bit-equal;
  14. gouraud main path: render_gouraud_pallas at its defaults on the 4
      frames, K5 launched once a frame, no overflow, frame 0 equal to the
      CPU's; render_gouraud_pallas_batch over the 4 frames on each route
@@ -429,16 +439,44 @@ def split_cases(dev, bgp, mxu: bool = False):
     return cases
 
 
+def split_frames(dev, seeds, past_end=(), uv=()):
+    """The boundary runs of :func:`split_cases` at the kernel's S, one
+    frame a seed, stacked as B frames (a leading B on each input): frame
+    i's last run read 300 slots past its pair array for i in
+    ``past_end``, its uv rows crafted (testing.crafted_uv_table: huge,
+    negative, tiny, zero and NaN denominators) for i in ``uv``.  Returns
+    (sorted_pad, starts, counts, table) on ``dev`` and the width."""
+    from libnativecpurenderer_tpu_torch.ops.tile_raster import SEG as seg
+    from libnativecpurenderer_tpu_torch.testing import (crafted_runs,
+                                                        crafted_uv_table)
+    lengths = [1, seg, seg + 1, 2 * seg, 2 * seg + 1, 1024]
+    frames = []
+    for i, sd in enumerate(seeds):
+        sp, st, ct, tb, w = crafted_runs(
+            lengths, seed=sd, past_end=300 if i in past_end else 0)
+        frames.append((sp, st, ct, crafted_uv_table(tb) if i in uv else tb))
+    return tuple(torch.stack([f[i] for f in frames]).to(dev)
+                 for i in range(4)), w
+
+
+def gathered_rows(sorted_pad, table, cap: int):
+    """K6's input: each frame's table rows in pair order,
+    ``table[sorted_pad[:cap] & IDX_MASK]``, (B, cap, ROW_W)."""
+    from libnativecpurenderer_tpu_torch.ops.raster3d import IDX_MASK
+    return torch.stack([t[(s[:cap] & IDX_MASK).long()]
+                        for s, t in zip(sorted_pad, table)])
+
+
 def occupancy(_kernels, tex: bool, p: int, z_clip: bool) -> str:
     """ptxas registers and resident blocks an SM of K1's (K3's) walks at
     tiles of p pixels: the split walk on the CUDA cores (K1, K3, K1-wf)
     and on the tensor cores (K1-mxu, K3's mxu walk), and the
-    one-block-a-tile walk as K6's (K2b's) kernel runs it."""
+    one-block-a-tile walk as K2a's kernel runs it, the one kernel left
+    on it."""
     out = []
     for walk in _kernels.WALKS[:3]:     # the fourth is K5's
         regs, n = _kernels.tile_raster_occupancy(walk, tex, p, z_clip)
-        who = f" ({'K2b' if tex else 'K6'})" if walk.startswith("one") \
-            else ""
+        who = " (K2a)" if walk.startswith("one") else ""
         out.append(f"{walk} walk{who} {regs} registers, {n} blocks an SM")
     return "; ".join(out)
 
@@ -502,6 +540,42 @@ def check_k5_build(log: str) -> str:
                r"PPT \1, BOX \2", e) for e in k5)
 
 
+# K2b's and K6's split walk instantiations, tile_raster_split_kernel<PPT,
+# ZCLIP, TEX_IDX, WALK_FMA, false, PAIRS, false> and <PPT, false,
+# U8_GOURAUD, WALK_FMA, false, ROWS, false>, by their mangled names
+ROWS_IDX_ENTRY = {
+    "K2b": re.compile(r"tile_raster_split_kernelILi(\d+)ELb([01])ELi2ELi0E"
+                      r"Lb0ELi0ELb0E"),
+    "K6": re.compile(r"tile_raster_split_kernelILi(\d+)ELb([01])ELi0ELi0E"
+                     r"Lb0ELi2ELb0E")}
+
+
+def check_k2b_k6_build(log: str) -> str:
+    """Raises when an instantiation of K2b's or K6's split walk spills, or
+    when one is missing (K2b: 1-16 pixels a thread, z test on and off;
+    K6: 1-16, z test off); returns their registers and spills."""
+    out = []
+    for name, pat in ROWS_IDX_ENTRY.items():
+        found = {}
+        for e in ptxas_summary(log).split("; "):
+            k = pat.search(e)
+            if not k:
+                continue
+            m = re.search(r": (\d+) registers, (\d+)/(\d+) B spill", e)
+            if not m or int(m.group(2)) or int(m.group(3)):
+                raise AssertionError(f"{name}'s split walk spills: {e}")
+            found[(int(k.group(1)), int(k.group(2)))] = int(m.group(1))
+        want = {(n, z) for n in (1, 2, 4, 8, 16)
+                for z in ((0, 1) if name == "K2b" else (0,))}
+        if set(found) != want:
+            raise AssertionError(f"{name}'s split walk instantiations "
+                                 f"{sorted(found)}, expected {sorted(want)}")
+        out.append(f"{name} " + ", ".join(
+            f"PPT {n} z {z}: {r}" for (n, z), r in sorted(found.items())))
+    return ("K2b's and K6's split walk (registers, no spill): "
+            + "; ".join(out))
+
+
 # K4's instantiations, canvas_span_kernel<float> and <double>, and the
 # spill ptxas may take in each (B stored, B loaded): the float kernel's
 # 40/40 B at 64 registers was measured faster than the scalar-pixel
@@ -536,9 +610,9 @@ def check_k4_build(log: str) -> str:
 def build_kernels(_kernels) -> float:
     """Build every kernel library of the port in parallel (one nvcc per
     source), load them, print the ptxas summary and hold the MMA walk's,
-    K5's and K4's builds to :func:`check_mma_build`,
-    :func:`check_k5_build` and :func:`check_k4_build`; returns the
-    seconds."""
+    K5's, K2b's and K6's and K4's builds to :func:`check_mma_build`,
+    :func:`check_k5_build`, :func:`check_k2b_k6_build` and
+    :func:`check_k4_build`; returns the seconds."""
     names = ("tile_raster", "canvas_span")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
@@ -554,6 +628,9 @@ def build_kernels(_kernels) -> float:
     print(f"[build] {check_mma_build(_kernels.build_log('tile_raster'))}",
           flush=True)
     print(f"[build] {check_k5_build(_kernels.build_log('tile_raster'))}",
+          flush=True)
+    print(f"[build] "
+          f"{check_k2b_k6_build(_kernels.build_log('tile_raster'))}",
           flush=True)
     print(f"[build] {check_k4_build(_kernels.build_log('canvas_span'))}",
           flush=True)
@@ -875,7 +952,11 @@ def textured_phases(dev, card: str) -> list:
                                  f"disagree at {label}")
         if variant is None and persp and z_clip:
             preps.append(walk)
-    # K3's split walk on the boundary runs
+    # K3's and K2b's split walks on the boundary runs (K2b also with
+    # crafted uv rows), one frame a launch, then K2b on 4 frames in one
+    # launch (one with a run read past its pair array, two with crafted
+    # uv rows)
+    idx_cases = []
     for label, args in split_cases(dev, bgp):
         sp, st, ct, tb, _, w, tw, th = args
         for z_clip in (True, False):
@@ -891,6 +972,29 @@ def textured_phases(dev, card: str) -> list:
                   flush=True)
             if bad:
                 raise AssertionError(f"K3 differs from its plain version at "
+                                     f"{label}")
+        idx_cases += [(label, (sp, st, ct, tb), w),
+                      (f"{label}, crafted uv rows",
+                       (sp, st, ct, crafted_uv_table(tb)), w)]
+    four, w4 = split_frames(dev, [11, 12, 13, 14], past_end=(1,), uv=(2, 3))
+    idx_cases.append(("4 frames in one launch (boundaries, a run past the "
+                      "array, 2 with crafted uv rows)", four, w4))
+    for label, walk, w in idx_cases:
+        for z_clip in (True, False):
+            iargs = (*walk, tex_dims, w, 32, 32)
+            got = tile_raster.raster_tiles_tex_idx(*iargs, z_clip=z_clip)
+            want = tile_raster.raster_tiles_tex_idx_reference(
+                *iargs, z_clip=z_clip)
+            torch.cuda.synchronize()
+            bad = same_bits(got, want)
+            errs[1] = max(errs[1], int((got - want).abs().max()))
+            print(f"[tex vs plain] K2b split walk, {label}, z_clip={z_clip}: "
+                  f"{bad} of {got.numel()} texel indices differ; "
+                  f"{float((want >= 0).float().mean()):.3f} covered, "
+                  f"{int(want[want >= 0].unique().numel())} distinct texels",
+                  flush=True)
+            if bad:
+                raise AssertionError(f"K2b differs from its plain version at "
                                      f"{label}")
     print(f"[tex runs] textured mesh_10k 1080p, 32x32, the 4 cameras: "
           f"{run_stats(preps)}", flush=True)
@@ -1030,9 +1134,9 @@ def textured_phases(dev, card: str) -> list:
           f"frames: K3, K2b, K2a launches {k2b_launches}; (B, H, W) "
           f"{tuple(idx.shape)}, {d_idx} indices differ from the plain "
           f"version", flush=True)
-    if k2b_launches != [0, len(preps), 0] or d_idx:
+    if k2b_launches != [0, 1, 0] or d_idx:
         raise AssertionError("render_binned_tex_idx_batch did not run K2b "
-                             "once a frame, or disagrees")
+                             "once for its frames, or disagrees")
 
     # 12. times: each kernel and its plain version (CUDA events, mean of
     # the 4 cameras), the pipeline on the host clock and in the profiler
@@ -1048,9 +1152,17 @@ def textured_phases(dev, card: str) -> list:
                  for w in pp]
         ms[name] = (cuda_ms(lambda: [c() for c in kern], 10) / len(pp),
                     cuda_ms(lambda: [c() for c in plain], 2) / len(pp))
-    # K3's split walk beside K2b, the old walk with K3's epilogue but the
-    # texel load, in turns: one frame a launch and the 4 frames in one
-    # launch, at 32x32 and at 128x16 (capacity 512, span (8, 8))
+    # K2b's main path, render_binned_tex_idx_batch, is the 4 frames in one
+    # launch: the kernel table times that launch (one frame a launch:
+    # k2b_one)
+    k2b_one = ms["K2b"][0]
+    four_tex = tuple(torch.stack([w[i] for w in preps]) for i in range(4))
+    ms["K2b"] = (cuda_ms(lambda: tile_raster.raster_tiles_tex_idx(
+        *four_tex, tex_dims, WIDTH, cfg["tile_w"], cfg["tile_h"],
+        z_clip=True), 10) / len(preps), ms["K2b"][1])
+    # K3 beside K2b, both the split walk, which differ by K3's texel
+    # load, in turns: one frame a launch and the 4 frames in one launch,
+    # at 32x32 and at 128x16 (capacity 512, span (8, 8))
     from libnativecpurenderer_tpu_torch.ops import _kernels
     shape16 = dict(tile_w=128, tile_h=16, capacity=512, span_x=8, span_y=8)
     tex_turns = {}
@@ -1076,15 +1188,18 @@ def textured_phases(dev, card: str) -> list:
         t = {k: [v / n for v in vs] for k, vs in t.items()}
         tex_turns[label] = t
         b = walk_bound(pp, K3_EPI_OPS, 4, 4 * tex_packed.numel(), tile=shape)
-        print(f"[tex times] {card}: K3's split walk vs K2b (the old walk) "
-              f"at {label} ({shape}), ms/frame in turns (CUDA events, calls "
-              f"queued behind a sleep, mean of 4 cameras; 'batch' = the 4 "
-              f"frames in one launch): "
+        b2 = walk_bound(pp, K2B_EPI_OPS, 4, tile=shape)
+        print(f"[tex times] {card}: K3 beside K2b (both the split walk; K3 "
+              f"also loads the texel) at {label} ({shape}), ms/frame in "
+              f"turns (CUDA events, calls queued behind a sleep, mean of 4 "
+              f"cameras; 'batch' = the 4 frames in one launch): "
               + "; ".join(f"{k} {v}" for k, v in t.items())
               + f"; K3 bound {b[0]} ms/frame by {b[1]}, K3 at "
               f"{b[0] / min(t['K3']):.4f} of it one frame a launch, "
-              f"{b[0] / min(t['K3 batch']):.4f} batched; "
-              f"{occupancy(_kernels, True, tw * th, True)}; runs "
+              f"{b[0] / min(t['K3 batch']):.4f} batched; K2b bound {b2[0]} "
+              f"ms/frame by {b2[1]}, K2b at {b2[0] / min(t['K2b']):.4f} of "
+              f"it one frame a launch, {b2[0] / min(t['K2b batch']):.4f} "
+              f"batched; {occupancy(_kernels, True, tw * th, True)}; runs "
               f"{run_stats(pp)}", flush=True)
     for kk in kernels:
         kk.launches = 0
@@ -1114,7 +1229,9 @@ def textured_phases(dev, card: str) -> list:
     for name in ("K3", "K2b", "K2a"):
         b_ms, b_by, bb, bo, pairs = bounds[name]
         shape = timed[name][1]
-        print(f"[tex times] {card}: {name} {ms[name][0]} ms/frame, plain "
+        how = (f" with the 4 frames in one launch ({k2b_one} one frame a "
+               f"launch)" if name == "K2b" else "")
+        print(f"[tex times] {card}: {name} {ms[name][0]} ms/frame{how}, plain "
               f"version {ms[name][1]} ms/frame (1080p textured mesh_10k, "
               f"{shape['tile_w']}x{shape['tile_h']} tiles, span "
               f"({shape['span_x']}, {shape['span_y']}), CUDA events, mean "
@@ -1304,8 +1421,7 @@ def gouraud_phases(dev, card: str) -> list:
     sps, starts, counts, tables = (torch.stack([p[n] for p in fp])
                                    for n in ("sorted_pad", "starts",
                                              "counts", "table"))
-    rows = torch.stack([p["table"][(p["sorted_pad"][:rows_cap]
-                                    & raster3d.IDX_MASK).long()] for p in fp])
+    rows = gathered_rows(sps, tables, rows_cap)
     ends = starts[:, -1] + counts[:, -1]
     if any(bool(p["overflow"]) for p in fp) or bool(
             (ends > rows_cap - dyn["capacity"]).any()):
@@ -1329,6 +1445,62 @@ def gouraud_phases(dev, card: str) -> list:
           flush=True)
     if any(bad):
         raise AssertionError("K6 disagrees with its plain version or K1")
+
+    def k6_vs_plain(label, rows_, starts_, counts_, width, k1_args_=None):
+        """K6 on (B, CAP) rows against its plain version and, where the
+        rows hold every run, K1's launch on the same frames: bit-equal."""
+        a6 = (rows_, starts_, counts_, bgp, width, dyn["tile_w"],
+              dyn["tile_h"])
+        got = k6(*a6)
+        want = tile_raster.raster_tiles_rows_u8_reference(*a6)
+        same1 = (same_bits(got, k1(*k1_args_, opaque=True, z_clip=False))
+                 if k1_args_ is not None else "-")
+        torch.cuda.synchronize()
+        bad6 = same_bits(got, want)
+        errs[1] = max(errs[1], int((tile_raster.tiles_u8(got).int()
+                                    - tile_raster.tiles_u8(want).int())
+                                   .abs().max()))
+        ends_ = (starts_[:, -1] + counts_[:, -1]).tolist()
+        print(f"[k6 vs plain] {label}: {bad6} of {got.numel()} packed pixels "
+              f"differ from the plain version, {same1} from K1; CAP "
+              f"{rows_.shape[1]}, runs end at {ends_}, "
+              f"{float((want != bgp).float().mean()):.3f} covered",
+              flush=True)
+        if bad6 or same1 not in (0, "-"):
+            raise AssertionError(f"K6 disagrees with its plain version or "
+                                 f"K1: {label}")
+
+    # one frame a launch on the 4 cameras
+    for i in range(len(fp)):
+        k6_vs_plain(f"camera {i}, one frame a launch", rows[i:i + 1],
+                    starts[i:i + 1], counts[i:i + 1], WIDTH,
+                    tuple(a[i:i + 1] for a in k1_args[:4]) + k1_args[4:])
+    # the split walk's boundary runs (phase 3's), rows gathered in pair
+    # order: one frame a launch, with CAP the pair array's length and cut
+    # below the runs' end (by 10 rows: the item list still fits; by 1000:
+    # it does not, and the plan walks each tile as one item), then 4
+    # frames in one launch, one of them with a run read past CAP
+    for label, args in split_cases(dev, bgp):
+        sp, st, ct, tb, _, w, tw, th = args
+        one = (sp[None], st[None], ct[None], tb[None])
+        end = int(st[-1] + ct[-1])
+        for cut_label, cap in (("", sp.shape[0]),
+                               (", 10 rows past CAP", end - 10),
+                               (", 1000 rows past CAP", end - 1000)):
+            if cut_label and not label.startswith("boundaries"):
+                continue
+            k6_vs_plain(f"{label}{cut_label}, one frame a launch",
+                        gathered_rows(one[0], one[3], cap), one[1], one[2],
+                        w, None if cut_label else one + (bgp, w, tw, th))
+    four, w4 = split_frames(dev, [21, 22, 23, 24], past_end=(3,))
+    k6_vs_plain("boundaries, 4 frames in one launch, frame 3's last run "
+                "past CAP", gathered_rows(four[0], four[3],
+                                          four[0].shape[1]),
+                four[1], four[2], w4, four + (bgp, w4, 32, 32))
+    end = int((four[1][:, -1] + four[2][:, -1]).min())
+    k6_vs_plain("boundaries, 4 frames in one launch, 1000 rows past CAP",
+                gathered_rows(four[0], four[3], end - 1000), four[1],
+                four[2], w4)
     u8_kw = dict(flat=True, u8=True, opaque=True, z_clip=False, **dyn)
     ref_u8, _, ovf_u8 = raster3d.render_gouraud_pallas_batch(
         verts, faces, colors, WIDTH, HEIGHT, mvps, **u8_kw)

@@ -8,14 +8,15 @@
 //     TEX_U8     (K3)  tex_resolve=True, raster_tiles_tex (:895), epilogue
 //                      :375-565, with raster3d._tex_resolve_finish after it;
 //     TEX_IDX    (K2b) tex_dims, raster_tiles_flat (:793), epilogue
-//                      :356-374;
+//                      :356-374, through the split walk;
 //     KEYS_F32   (K2a) the f32 branch, raster_tiles_flat (:805), epilogue
-//                      :597-599;
+//                      :597-599, the one-block-a-tile walk (below);
 //   _make_kernel (:51-122), rows from a materialised bins row:
 //     KEYS_F32   (K5)  raster_tiles (:1433), the z test always on, through
 //                      the split walk with warp boxes and a cull (below);
 //   _make_kernel_dynrows (:1176-1267), rows pre-gathered in pair order:
-//     U8_GOURAUD (K6)  raster_tiles_dynrows (:1294), opaque, no z test;
+//     U8_GOURAUD (K6)  raster_tiles_dynrows (:1294), opaque, no z test,
+//                      through the split walk;
 //   the wf branch of raster_tiles_flat (:739, kernel_wf :624-655):
 //     K1-wf, K1's split walk claiming wf items at a time (below);
 //   the mxu branch of _make_kernel_flat (:242-250,285-301,326-327) over
@@ -92,17 +93,17 @@
 // of ~13), so the suspected bound is the tail of blocks that walk the
 // longest runs: one launch of 4 frames ran K1 at ~0.054 ms a frame.
 //
-// The one-block-a-tile walk (fma_tile: K2b, K2a, K6; K2b on K3's
-// rows is what chip_smoke.py times K3's split walk against).  One block
-// of 256 threads per tile; each thread owns PPT =
-// ceil(P / 256) pixels (4 at 32x32) and keeps its best key, its
-// winner's edge values and row in registers.  The run's rows
+// The one-block-a-tile walk (fma_tile: K2a alone, until it moves onto
+// the split walk too).  One block of 256 threads per tile; each thread
+// owns PPT = ceil(P / 256) pixels (4 at 32x32) and keeps its best key,
+// its winner's edge values and row in registers.  The run's rows
 // (the 12 walk columns) are staged through shared memory 32 at a time,
 // each read by all threads as a broadcast, two __syncthreads() a chunk.
 // Only the winner is shaded, after the walk: its attribute columns are
 // read once from the (L2-resident) table.  A long run stays in one block.
 //
-// The split walk (K1, K3, K5, K1-wf, K1-mxu and K3's mxu walk).  The tail is
+// The split walk (K1, K3, K2b, K5, K6, K1-wf, K1-mxu and K3's mxu walk).
+// The tail is
 // inside a tile, so no order of claims cures it: the long run itself is
 // cut.  One scheduler (the plan and the claim loop below) drives both
 // walks of an item, the FMA walk and the MMA walk.
@@ -179,6 +180,16 @@
 // kept (row, warp) pairs: ~0.27 of them at 128x16 on mesh_10k's 4
 // cameras, ~0.37 at 128x32 (PERF.md), which with the cull's ~30
 // operations a (row, warp) sets K5's operations bound.
+//
+// K2b and K6 on the split walk.  K2b is K3's walk with the TEX_IDX
+// epilogue: the winner's texel index itself, -1 for sky (sky_value, a
+// compile-time function of the epilogue: K2b passes no background).  K6
+// is K1's walk (opaque, no z test) over ROWS: slot j of tile b is row
+// starts[b] + j of the caller's rows, gathered in pair order and clamped
+// below their count CAP, so the plan's capacity is B nt + B CAP / S (a
+// frame whose runs end past CAP, which the caller flags, may not fit
+// the list; the plan then makes every tile one item, and the values are
+// still the plain version's).  Both take the FMA walk, one item a claim.
 //
 // The MMA walk (K1-mxu, K3's mxu walk).  The TPU kernel evaluated a
 // chunk's 4 + nacc affine planes (a_x, a_y, c, 0) . (x, y, 1, 0) as
@@ -339,18 +350,9 @@ __device__ __forceinline__ int texel_of(float u, float v, float den, int tw,
   return min(max(vi, 0), th - 1) * tw + min(max(ui, 0), tw - 1);
 }
 
-__device__ __forceinline__ int texel_index(const float* a, float e0,
-                                           float e1, float e2, int tw,
-                                           int th) {
-  const float den = attr(a, e0, e1, e2, 2);
-  return texel_of(attr(a, e0, e1, e2, 0), attr(a, e0, e1, e2, 1), den, tw,
-                  th);
-}
-
-// The one-block-a-tile body of K2b, K2a and K6 (U8_GOURAUD, TEX_IDX or
-// KEYS_F32 over PAIRS or ROWS): block-wide walk of tile b's run and the
-// epilogue.
-template <int PPT, bool ZCLIP, int EPI, int SRC>
+// The one-block-a-tile body of K2a (KEYS_F32 over PAIRS): block-wide
+// walk of tile b's run, then the key and the four attributes.
+template <int PPT, bool ZCLIP>
 __device__ __forceinline__ void fma_tile(const Walk& w, const Epi& ep,
                                          const int b) {
   __shared__ float s_rows[CHUNK][WALK_COLS];
@@ -382,7 +384,7 @@ __device__ __forceinline__ void fma_tile(const Walk& w, const Epi& ep,
     for (int i = threadIdx.x; i < n * WALK_COLS; i += THREADS) {
       const int r = i / WALK_COLS;
       const int c = i - r * WALK_COLS;
-      const int row = row_of<SRC>(w, b, f, start, base + r);
+      const int row = row_of<PAIRS>(w, b, f, start, base + r);
       s_rows[r][c] = w.table[(size_t)row * ROW_W + c];
       if (c == 0) s_row[r] = row;
     }
@@ -420,46 +422,27 @@ __device__ __forceinline__ void fma_tile(const Walk& w, const Epi& ep,
     }
   }
 
-  const int bgp = EPI == U8_GOURAUD ? *ep.packed_bg : 0;
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
     const int p = threadIdx.x + k * THREADS;
     if (p >= P) break;
-    const size_t o = (size_t)b * P + p;
     const bool hit = best[k] != SKY_KEY;
     const float* a = w.table + (size_t)brow[k] * ROW_W + ATTR_COL;
-    if constexpr (EPI == U8_GOURAUD) {
-      int packed = bgp;
-      if (hit) {
-        int q[D];
-        const int nch = ep.opaque ? 3 : 4;
-        for (int d = 0; d < nch; ++d)
-          q[d] = quant_u8(attr(a, be0[k], be1[k], be2[k], d));
-        const unsigned a8 = ep.opaque ? 255u : (unsigned)q[3];
-        packed = (int)((unsigned)q[0] | ((unsigned)q[1] << 8) |
-                       ((unsigned)q[2] << 16) | (a8 << 24));
-      }
-      ep.out[o] = packed;
-    } else if constexpr (EPI == TEX_IDX) {
-      ep.out[o] = hit ? texel_index(a, be0[k], be1[k], be2[k], ep.tex_w,
-                                    ep.tex_h)
-                      : -1;
-    } else {
-      ep.out[o] = best[k];
-      for (int d = 0; d < D; ++d)
-        ep.rgba[((size_t)b * D + d) * P + p] =
-            hit ? attr(a, be0[k], be1[k], be2[k], d) : 0.0f;
-    }
+    ep.out[(size_t)b * P + p] = best[k];
+    for (int d = 0; d < D; ++d)
+      ep.rgba[((size_t)b * D + d) * P + p] =
+          hit ? attr(a, be0[k], be1[k], be2[k], d) : 0.0f;
   }
 }
 
-template <int PPT, bool ZCLIP, int EPI, int SRC>
+template <int PPT, bool ZCLIP>
 __global__ void __launch_bounds__(THREADS)
 tile_raster_kernel(const Walk w, const Epi ep) {
-  fma_tile<PPT, ZCLIP, EPI, SRC>(w, ep, blockIdx.x);
+  fma_tile<PPT, ZCLIP>(w, ep, blockIdx.x);
 }
 
-// ---- The split walk: K1, K3, K1-wf, K1-mxu and K3's mxu walk ----
+// ---- The split walk: K1, K3, K2b, K5, K6, K1-wf, K1-mxu and K3's mxu
+// walk ----
 
 enum Walker { WALK_FMA, WALK_MMA };
 
@@ -562,19 +545,33 @@ __device__ __forceinline__ const float* winner_row(
   return w.table + (size_t)row * ROW_W;
 }
 
-// K1's or K3's value of pixel (x, y) of tile b whose winning key is key:
-// the winner's row is found again from the key's slot (in staged, the
-// shared rows of the whole run, when it was staged at once; else in the
-// table) and its attributes recomputed on the CUDA cores in the plain
-// version's order: the FMA walk's edges (the walk's own bits) and their
-// interpolation, or the MMA walk's affine planes 4 + d.
-template <int EPI, bool MMA, int COLS>
+// The output of a pixel no triangle covers, a compile-time function of
+// the epilogue: the packed background (K1, K3, K6), -1 (K2b) or the key
+// SKY_KEY (K2a, K5; their attributes are 0).
+template <int EPI>
+__device__ __forceinline__ int sky_value(const Epi& ep) {
+  if constexpr (EPI == TEX_IDX)
+    return -1;
+  else if constexpr (EPI == KEYS_F32)
+    return SKY_KEY;
+  else
+    return *ep.packed_bg;
+}
+
+// K1's, K3's, K2b's or K6's value of pixel (x, y) of tile b whose winning
+// key is key (sky: bgp): the winner's row is found again from the key's
+// slot in the run of source SRC (in staged, the shared rows of the whole
+// run, when it was staged at once; else in the table or rows) and its
+// attributes recomputed on the CUDA cores in the plain version's order:
+// the FMA walk's edges (the walk's own bits) and their interpolation, or
+// the MMA walk's affine planes 4 + d.
+template <int EPI, bool MMA, int COLS, int SRC>
 __device__ __forceinline__ int split_value(const Walk& w, const Epi& ep,
                                            int b, int key, float x, float y,
                                            int bgp,
                                            const float (*staged)[COLS]) {
   if (key == SKY_KEY) return bgp;
-  const float* r = winner_row<PAIRS, COLS>(w, b, key, staged);
+  const float* r = winner_row<SRC, COLS>(w, b, key, staged);
   float e0 = 0.0f, e1 = 0.0f, e2 = 0.0f;
   if constexpr (MMA) {
     if (ep.mxu != 1) {   // one bf16 pass rounds the coordinates too
@@ -600,9 +597,13 @@ __device__ __forceinline__ int split_value(const Walk& w, const Epi& ep,
       packed |= (unsigned)quant_u8(value(d)) << (8 * d);
     return (int)packed;
   } else {
+    // the texel of (u / den, v / den), the denominator (attribute 2) first
     const float den = value(2);
-    return __ldg(ep.tex + texel_of(value(0), value(1), den, ep.tex_w,
-                                   ep.tex_h));
+    const int texel = texel_of(value(0), value(1), den, ep.tex_w, ep.tex_h);
+    if constexpr (EPI == TEX_IDX)
+      return texel;
+    else
+      return __ldg(ep.tex + texel);
   }
 }
 
@@ -632,13 +633,14 @@ __device__ __forceinline__ void split_keys_f32(const Walk& w, const Epi& ep,
 
 // The plan: block 0 lists the items of the tiles whose run is not empty
 // (long tiles' first, in tile order; with more items than cap, which runs
-// that partition their frames' pairs never need, every such tile becomes
-// one whole item; bins runs of at most K slots never need it either) and
-// zeroes the claim counter; every block zeroes the arrival counters of
-// its tiles, fills the output rows of long tiles with SKY_KEY, the start
-// of their atomicMin merge, and those of empty tiles with the background
-// (KEYS_F32: SKY_KEY and zero attributes), their whole epilogue (no walk
-// claims them).
+// that partition their frames' pairs or rows never need, every such tile
+// becomes one whole item; bins runs of at most K slots never need it
+// either) and zeroes the claim counter; every block zeroes the arrival
+// counters of its tiles, fills the output rows of long tiles with
+// SKY_KEY, the start of their atomicMin merge (the last item turns what
+// is still SKY_KEY into sky_value), and those of empty tiles with
+// sky_value (KEYS_F32: also zero attributes), their whole epilogue (no
+// walk claims them).
 __device__ __forceinline__ long long block_exclusive_sum(long long v,
                                                          long long* total) {
   __shared__ long long s_warp[WARPS];
@@ -703,7 +705,7 @@ split_plan_kernel(const Walk w, const Plan pl, const Epi ep, int nblocks) {
       pl.counters[2] = split;
     }
   }
-  const int bgp = EPI == KEYS_F32 ? SKY_KEY : *ep.packed_bg;
+  const int bgp = sky_value<EPI>(ep);
   for (int b = blockIdx.x; b < nblocks; b += gridDim.x) {
     if (threadIdx.x == 0) pl.counters[3 + b] = 0;
     const int c = run_count<SRC>(w, b);
@@ -1043,12 +1045,26 @@ __device__ __forceinline__ int pixel_slot(int q, int tile_h) {
 // registers, no spill; 4 ran 128x16 tiles faster one frame a launch but
 // spilled K1-mxu's, 2 ran no faster), 2 at 16.  K5 over bins at 16
 // pixels a thread without its warp boxes (tiles over 2048 pixels and
-// not 128 wide, no entry's default) spilled at 2 (128 registers): 1.
+// not 128 wide, no entry's default) spilled at 2 (128 registers): 1.  K6
+// at 8 pixels a thread (tiles of 1025-2048 pixels, not its entry's
+// 32x32) spilled at 4 (64 registers): 3.
 template <int PPT, int WALKER, int SRC, bool BOX>
 constexpr int split_min_blocks() {
   if (WALKER == WALK_MMA) return PPT <= 8 ? 3 : 2;
   if (SRC == BINS && !BOX && PPT > 8) return 1;
+  if (SRC == ROWS && PPT == 8) return 3;
   return PPT <= 4 ? 5 : PPT <= 8 ? 4 : 2;
+}
+
+// The plan's split flag and item count, read again from its counters
+// where a kernel keeps neither in a register through the walk (K2b's and
+// K6's: see tile_raster_split_kernel).
+__device__ __forceinline__ bool plan_split(const Plan& pl) {
+  return *(const volatile int*)(pl.counters + 2) != 0;
+}
+
+__device__ __forceinline__ int plan_items(const Plan& pl) {
+  return *(const volatile int*)(pl.counters + 1);
 }
 
 // The persistent split walk: blocks claim one item at a time, or with
@@ -1062,8 +1078,14 @@ constexpr int split_min_blocks() {
 // that K1 and K3 (one item a claim) keep no claim's bounds in registers:
 // at their 48-register budget the runtime grain's two registers spilled
 // and slowed them on an H100 (PERF.md).  SRC is the row source (PAIRS:
-// K1, K3 and their variants; BINS: K5), BOX K5's warp boxes and cull
-// (pixel_slot, fma_stage); K1 and K3 compile without either.
+// K1, K3, K2b and their variants; BINS: K5; ROWS: K6), BOX K5's warp
+// boxes and cull (pixel_slot, fma_stage); K1 and K3 compile without
+// either.  K2b's and K6's kernels (LEAN) keep nothing of the claim in
+// registers through the walk: the split flag is read again for each
+// item, and the next claim, its item and the item count after the walk
+// (s_claim, the list, the plan's counters; a load or two an item).  At
+// 48 registers (4 pixels a thread) their epilogues spilled otherwise;
+// K1's, K3's and K5's kernels keep them, as they were timed (PERF.md).
 template <int PPT, bool ZCLIP, int EPI, int WALKER, bool GRAIN, int SRC,
           bool BOX>
 __global__ void __launch_bounds__(THREADS,
@@ -1072,6 +1094,7 @@ tile_raster_split_kernel(const Walk w, const Epi ep, const Plan pl,
                          const int wf) {
   constexpr bool MMA = WALKER == WALK_MMA;
   constexpr int COLS = MMA ? ROW_W : STAGE_COLS;
+  constexpr bool LEAN = EPI == TEX_IDX || SRC == ROWS;
   __shared__ __align__(128) float s_rows[2][SEG][COLS];
   __shared__ __align__(128) unsigned char s_b[MMA ? SEG / 16 * B_OPERAND : 16];
   __shared__ int s_best[MMA ? PPT * THREADS : 1];
@@ -1080,7 +1103,7 @@ tile_raster_split_kernel(const Walk w, const Epi ep, const Plan pl,
   const int n_items = pl.counters[1];
   const bool split = pl.counters[2] != 0;
   const int P = w.tile_w * w.tile_h;
-  const int bgp = EPI == KEYS_F32 ? 0 : *ep.packed_bg;
+  const int bgp = sky_value<EPI>(ep);
 
   int end = 0;   // GRAIN, thread 0: the end of its block's claim
   if (threadIdx.x == 0) {
@@ -1093,7 +1116,8 @@ tile_raster_split_kernel(const Walk w, const Epi ep, const Plan pl,
   int2 it = pl.items[cur];
   {
     int lo, hi, k;
-    item_range<SRC>(w, split, it.x, it.y, lo, hi, k);
+    item_range<SRC>(w, LEAN ? plan_split(pl) : split, it.x, it.y, lo, hi,
+                    k);
     stage_rows<COLS, SRC>(w, it.x, lo, max(0, min(hi - lo, SEG)),
                           s_rows[0]);
   }
@@ -1113,14 +1137,16 @@ tile_raster_split_kernel(const Walk w, const Epi ep, const Plan pl,
     if (nxt < n_items) {
       nit = pl.items[nxt];
       int lo, hi, k;
-      item_range<SRC>(w, split, nit.x, nit.y, lo, hi, k);
+      item_range<SRC>(w, LEAN ? plan_split(pl) : split, nit.x, nit.y, lo,
+                      hi, k);
       stage_rows<COLS, SRC>(w, nit.x, lo, max(0, min(hi - lo, SEG)),
                             s_rows[buf ^ 1]);
     }
 
     const int b = it.x;
     int lo, hi, k;
-    item_range<SRC>(w, split, b, it.y, lo, hi, k);
+    item_range<SRC>(w, LEAN ? plan_split(pl) : split, b, it.y, lo, hi,
+                    k);
     const int t = b % w.nt;
     const int ox = (t % w.ntx) * w.tile_w;
     const int oy = (t / w.ntx) * w.tile_h;
@@ -1208,15 +1234,22 @@ tile_raster_split_kernel(const Walk w, const Epi ep, const Plan pl,
                                       k == 1,
                                       staged ? s_rows[buf] : nullptr);
           else
-            ep.out[(size_t)b * P + p] = split_value<EPI, MMA, COLS>(
+            ep.out[(size_t)b * P + p] = split_value<EPI, MMA, COLS, SRC>(
                 w, ep, b, best[q], px[q], py[q], bgp,
                 staged ? s_rows[buf] : nullptr);
         }
       }
     }
-    if (nxt >= n_items) return;
-    cur = nxt;
-    it = nit;
+    if constexpr (LEAN) {
+      const int again = s_claim[turn & 1];   // rewritten two turns on
+      if (again >= plan_items(pl)) return;
+      cur = again;
+      it = pl.items[again];
+    } else {
+      if (nxt >= n_items) return;
+      cur = nxt;
+      it = nit;
+    }
   }
 }
 
@@ -1284,33 +1317,31 @@ int fma_ppt(int P) {
   return ppt <= 1 ? 1 : ppt <= 2 ? 2 : ppt <= 4 ? 4 : ppt <= 8 ? 8 : 16;
 }
 
-template <int EPI, int SRC, int PPT>
+template <int PPT>
 cudaError_t launch_ppt(int nblocks, bool z_clip, const Walk& w,
                        const Epi& ep, cudaStream_t s) {
   if (z_clip)
-    tile_raster_kernel<PPT, true, EPI, SRC><<<nblocks, THREADS, 0, s>>>(w,
-                                                                        ep);
+    tile_raster_kernel<PPT, true><<<nblocks, THREADS, 0, s>>>(w, ep);
   else
-    tile_raster_kernel<PPT, false, EPI, SRC><<<nblocks, THREADS, 0, s>>>(w,
-                                                                         ep);
+    tile_raster_kernel<PPT, false><<<nblocks, THREADS, 0, s>>>(w, ep);
   return cudaGetLastError();
 }
 
-// Launches epilogue EPI on source SRC over nblocks = B * nt tiles on
+// Launches K2a (KEYS_F32 over PAIRS) over nblocks = B * nt tiles on
 // `stream` with the one-block-a-tile walk; returns the cudaError_t of the
 // launch (0 on success).
-template <int EPI, int SRC>
 int launch(int nblocks, int z_clip, const Walk& w, const Epi& ep,
            void* stream) {
-  if (const int e = check<EPI, SRC>(w, ep, nblocks)) return e < 0 ? 0 : e;
+  if (const int e = check<KEYS_F32, PAIRS>(w, ep, nblocks))
+    return e < 0 ? 0 : e;
   cudaStream_t s = (cudaStream_t)stream;
   const bool zc = z_clip != 0;
   switch (fma_ppt(w.tile_w * w.tile_h)) {
-    case 1: return (int)launch_ppt<EPI, SRC, 1>(nblocks, zc, w, ep, s);
-    case 2: return (int)launch_ppt<EPI, SRC, 2>(nblocks, zc, w, ep, s);
-    case 4: return (int)launch_ppt<EPI, SRC, 4>(nblocks, zc, w, ep, s);
-    case 8: return (int)launch_ppt<EPI, SRC, 8>(nblocks, zc, w, ep, s);
-    default: return (int)launch_ppt<EPI, SRC, 16>(nblocks, zc, w, ep, s);
+    case 1: return (int)launch_ppt<1>(nblocks, zc, w, ep, s);
+    case 2: return (int)launch_ppt<2>(nblocks, zc, w, ep, s);
+    case 4: return (int)launch_ppt<4>(nblocks, zc, w, ep, s);
+    case 8: return (int)launch_ppt<8>(nblocks, zc, w, ep, s);
+    default: return (int)launch_ppt<16>(nblocks, zc, w, ep, s);
   }
 }
 
@@ -1379,7 +1410,9 @@ cudaError_t launch_split_g(int nblocks, bool z_clip, const Walk& w,
 // table) with epilogue EPI, wf items a claim (only K1's epilogue takes
 // wf > 1, K1-wf); over BINS (K5) the FMA walk with the z test, with K5's
 // warp boxes and cull at tiles BOX_TILE_W wide (the production shapes,
-// 128x16 and 128x32), without them at other widths.
+// 128x16 and 128x32), without them at other widths; over ROWS (K6) the
+// FMA walk without the z test; TEX_IDX (K2b) the FMA walk.  Only those
+// kernels are instantiated; any other request is refused.
 template <int EPI, int SRC = PAIRS>
 int launch_split(int nblocks, int z_clip, const Walk& w, const Epi& ep,
                  const Plan& pl, int wf, void* stream) {
@@ -1395,6 +1428,16 @@ int launch_split(int nblocks, int z_clip, const Walk& w, const Epi& ep,
           nblocks, w, ep, pl, 1, s);
     return (int)launch_split_z<EPI, true, WALK_FMA, false, BINS, false>(
         nblocks, w, ep, pl, 1, s);
+  } else if constexpr (SRC == ROWS) {
+    if (z_clip || ep.mxu || wf != 1) return (int)cudaErrorInvalidValue;
+    return (int)launch_split_z<EPI, false, WALK_FMA, false, ROWS>(
+        nblocks, w, ep, pl, 1, s);
+  } else if constexpr (EPI == TEX_IDX) {
+    if (ep.mxu) return (int)cudaErrorInvalidValue;
+    return (int)(z_clip ? launch_split_z<EPI, true, WALK_FMA, false>(
+                              nblocks, w, ep, pl, 1, s)
+                        : launch_split_z<EPI, false, WALK_FMA, false>(
+                              nblocks, w, ep, pl, 1, s));
   } else {
     if constexpr (EPI == U8_GOURAUD)
       if (wf > 1)
@@ -1418,9 +1461,8 @@ int blocks_per_sm(K kernel, int* regs) {
   return n;
 }
 
-// walk 0: the one-block-a-tile walk (fma_tile) as K2b's kernel (TEX_U8)
-// or K6's (U8_GOURAUD) runs it; 1: the split FMA walk; 2: the split MMA
-// walk.
+// walk 0: the one-block-a-tile walk (fma_tile) as K2a's kernel runs it
+// (EPI not read); 1: the split FMA walk; 2: the split MMA walk.
 template <int EPI, bool ZC>
 int occupancy_z(int walk, int P, int* regs) {
 #define OCC(N)                                                              \
@@ -1432,10 +1474,7 @@ int occupancy_z(int walk, int P, int* regs) {
     return blocks_per_sm(                                                   \
         tile_raster_split_kernel<N, ZC, EPI, WALK_MMA, false, PAIRS, false>, \
         regs);                                                              \
-  if constexpr (EPI == TEX_U8)                                              \
-    return blocks_per_sm(tile_raster_kernel<N, ZC, TEX_IDX, PAIRS>, regs);  \
-  else                                                                      \
-    return blocks_per_sm(tile_raster_kernel<N, ZC, U8_GOURAUD, ROWS>, regs)
+  return blocks_per_sm(tile_raster_kernel<N, ZC>, regs)
   switch (fma_ppt(P)) {
     case 1: OCC(1);
     case 2: OCC(2);
@@ -1480,8 +1519,8 @@ int occupancy_k5(int P, int* regs) {
 extern "C" {
 
 // The split walk's scratch: items (cap int2, cap at least B * nt +
-// (B * ids_len) / SEG for the split to be on), counters (3 + nblocks
-// ints); none needs to be initialised.
+// (B * ids_len) / SEG for the split to be on; K6: B * nt + (B * nrows) /
+// SEG), counters (3 + nblocks ints); none needs to be initialised.
 #define SPLIT_ARGS int *items, int cap, int *counters
 #define PLAN {reinterpret_cast<int2*>(items), cap, counters}
 
@@ -1512,8 +1551,8 @@ int tile_raster_tex_u8(WALK_ARGS, const int* tex, int tex_w, int tex_h,
 // Registers (*regs) and resident blocks an SM (returned; negative: a
 // cudaError_t) of K1's (tex 0) or K3's (tex 1) kernel for tiles of
 // tile_p pixels: walk 1 the split FMA walk, 2 the split MMA walk, 0 the
-// one-block-a-tile walk, fma_tile, as K6's (tex 0) or K2b's (tex 1)
-// kernel runs it; walk 3 K5's kernel (tex and z_clip not read).
+// one-block-a-tile walk, fma_tile, as K2a's kernel runs it (tex not
+// read); walk 3 K5's kernel (tex and z_clip not read).
 int tile_raster_occupancy(int walk, int tex, int tile_p, int z_clip,
                           int* regs) {
   if (walk == 3) return occupancy_k5(tile_p, regs);
@@ -1524,19 +1563,22 @@ int tile_raster_occupancy(int walk, int tex, int tile_p, int z_clip,
                 : occupancy_z<U8_GOURAUD, false>(walk, tile_p, regs);
 }
 
-// K2b: out (B * nt, P) texel indices, -1 for sky.
+// K2b: out (B * nt, P) texel indices, -1 for sky, through the split walk
+// (two launches: the plan, the walk).
 int tile_raster_tex_idx(WALK_ARGS, int tex_w, int tex_h, int* out,
-                        void* stream) {
+                        SPLIT_ARGS, void* stream) {
   const Walk w = WALK;
   const Epi ep = {nullptr, 0, nullptr, tex_w, tex_h, out, nullptr, 0};
-  return launch<TEX_IDX, PAIRS>(nblocks, z_clip, w, ep, stream);
+  const Plan pl = PLAN;
+  return launch_split<TEX_IDX>(nblocks, z_clip, w, ep, pl, 1, stream);
 }
 
-// K2a: keys (B * nt, P) int32 and rgba (B * nt, 4, P) float32.
+// K2a: keys (B * nt, P) int32 and rgba (B * nt, 4, P) float32, the
+// one-block-a-tile walk.
 int tile_raster_keys_f32(WALK_ARGS, int* keys, float* rgba, void* stream) {
   const Walk w = WALK;
   const Epi ep = {nullptr, 0, nullptr, 0, 0, keys, rgba, 0};
-  return launch<KEYS_F32, PAIRS>(nblocks, z_clip, w, ep, stream);
+  return launch(nblocks, z_clip, w, ep, stream);
 }
 
 // K5: K2a's outputs, rows from bins (ids (B * nt, K), starts unused),
@@ -1551,12 +1593,15 @@ int tile_raster_bins_f32(WALK_ARGS, int* keys, float* rgba, SPLIT_ARGS,
 }
 
 // K6: K1's output, rows pre-gathered in pair order (table (B, nrows, 32),
-// ids unused).
+// ids unused), through the split walk (two launches: the plan, the
+// walk); z_clip must be 0.
 int tile_raster_rows_u8(WALK_ARGS, const int* packed_bg, int opaque,
-                        int* out, void* stream) {
+                        int* out, SPLIT_ARGS, void* stream) {
   const Walk w = WALK;
   const Epi ep = {packed_bg, opaque, nullptr, 0, 0, out, nullptr, 0};
-  return launch<U8_GOURAUD, ROWS>(nblocks, z_clip, w, ep, stream);
+  const Plan pl = PLAN;
+  return launch_split<U8_GOURAUD, ROWS>(nblocks, z_clip, w, ep, pl, 1,
+                                        stream);
 }
 
 // The MMA walk's layout probe (mma_probe_kernel), which chip_smoke.py

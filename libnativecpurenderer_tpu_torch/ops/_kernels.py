@@ -91,10 +91,10 @@ def tile_raster() -> ctypes.CDLL:
                                  [p, i, i, i, p] + split),
                                 ("tile_raster_tex_u8",
                                  [p, i, i, p, i, p] + split),
-                                ("tile_raster_tex_idx", [i, i, p]),
+                                ("tile_raster_tex_idx", [i, i, p] + split),
                                 ("tile_raster_keys_f32", [p, p]),
                                 ("tile_raster_bins_f32", [p, p] + split),
-                                ("tile_raster_rows_u8", [p, i, p])):
+                                ("tile_raster_rows_u8", [p, i, p] + split)):
             fn = getattr(lib, entry)
             fn.argtypes = walk + epilogue + [p]
             fn.restype = ctypes.c_int
@@ -145,9 +145,10 @@ def tile_raster_occupancy(walk: str, tex: bool, tile_p: int,
     """(registers a thread, resident blocks an SM) of K1's (K3's with
     ``tex``) kernel for tiles of ``tile_p`` pixels, ``walk`` one of
     :data:`WALKS`: the split walk on the CUDA cores or on the tensor cores
-    (K1-mxu, K3's mxu walk), or the one-block-a-tile walk as K6's (K2b's)
-    kernel runs it; "split bins" is K5's kernel (the split walk over bins
-    with its warp boxes and cull; ``tex`` and ``z_clip`` are not read)."""
+    (K1-mxu, K3's mxu walk), or the one-block-a-tile walk as K2a's kernel
+    runs it (``tex`` not read); "split bins" is K5's kernel (the split
+    walk over bins with its warp boxes and cull; ``tex`` and ``z_clip``
+    are not read)."""
     lib = tile_raster()
     regs = ctypes.c_int(0)
     n = lib.tile_raster_occupancy(WALKS.index(walk), int(tex), tile_p,

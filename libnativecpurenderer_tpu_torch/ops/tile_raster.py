@@ -425,12 +425,16 @@ def _check_tex_tile(tile_w: int, tile_h: int) -> int:
 
 
 def _split_scratch(sorted_pad, counts, table, bins=False):
-    """The split walk's launch arguments (K1, K3, K5): the item list (int2
-    a slot) sized for runs that partition each frame's pairs,
-    B * nt + B * ids_len // SEG items, or with ``bins`` (``sorted_pad``
-    the bins, K = ids_len slots a tile) B * nt * ceil(K / SEG), every
-    run's items; its size and the counters (3 + B * nt ints), in one
-    uninitialised allocation (the kernel's plan fills it)."""
+    """The split walk's launch arguments (K1, K3, K2b, K5, K6): the item
+    list (int2 a slot) sized for runs that partition each frame's pairs,
+    B * nt + B * ids_len // SEG items; with ``sorted_pad`` None (K6, whose
+    runs index ``table``, the CAP rows a frame gathered in pair order)
+    B * nt + B * CAP // SEG; or with ``bins`` (``sorted_pad`` the bins,
+    K = ids_len slots a tile) B * nt * ceil(K / SEG), every run's items;
+    its size and the counters (3 + B * nt ints), in one uninitialised
+    allocation (the kernel's plan fills it).  Runs that do not partition
+    them (a flagged frame) may not fit: the plan then walks every tile as
+    one item, with the same values."""
     if table.data_ptr() % 16:
         raise ValueError("the table must be 16-byte aligned (its rows are "
                          "copied 16 bytes at a time)")
@@ -438,7 +442,9 @@ def _split_scratch(sorted_pad, counts, table, bins=False):
     if bins:
         cap = nb * -(-sorted_pad.shape[-1] // SEG)
     else:
-        cap = nb + (nb // counts.shape[-1]) * sorted_pad.shape[-1] // SEG
+        span = (table.shape[-2] if sorted_pad is None
+                else sorted_pad.shape[-1])
+        cap = nb + (nb // counts.shape[-1]) * span // SEG
     scratch = torch.empty(2 * cap + 3 + nb, dtype=torch.int32,
                           device=table.device)
     return scratch, cap, scratch.data_ptr() + 8 * cap
@@ -588,7 +594,13 @@ def raster_tiles_tex_idx(sorted_pad, starts, counts, table, tex_dims,
     winner's interpolated attributes r0..r2, safe = r2 if r2 != 0 else 1,
     ui = clip(int(r0 / safe * tw), 0, tw - 1) and vi the same with r1 and
     th, the conversion truncating, saturating and sending NaN to 0
-    (``pallas_raster.py:356-374``)."""
+    (``pallas_raster.py:356-374``).  B frames (a leading B on each input)
+    give (B, NT, P) in one launch.
+
+    CUDA tensors launch the kernel on the current stream (no sync), K3's
+    split walk with the index as its epilogue (see
+    :func:`raster_tiles_flat_u8`); CPU tensors run
+    :func:`raster_tiles_tex_idx_reference`."""
     _check_inputs(sorted_pad, starts, counts, table, tile_w, tile_h,
                   tex_dims=tex_dims)
     if _on_cpu(table, "K2b"):
@@ -600,7 +612,7 @@ def raster_tiles_tex_idx(sorted_pad, starts, counts, table, tex_dims,
                       device=table.device)
     _launch("tile_raster_tex_idx", sorted_pad, starts, counts,
             counts.shape[-1], table, width, tile_w, tile_h, z_clip, tw, th,
-            out)
+            out, *_split_scratch(sorted_pad, counts, table))
     raster_tiles_tex_idx.launches += 1
     return out
 
@@ -698,10 +710,12 @@ def raster_tiles_rows_u8(rows, starts, counts, packed_bg, width: int,
     by the caller).  The same rows in the same order as K1's walk over
     the pair array, so the same bits as K1 (opaque, z_clip off).  The TPU
     kernel's g frames a program and 24 MiB operand groups were its grid
-    and compile limits: one launch covers the batch, one block a tile.
+    and compile limits: one launch covers the batch.
 
-    CUDA tensors launch the kernel on the current stream (no sync);
-    CPU tensors run :func:`raster_tiles_rows_u8_reference`."""
+    CUDA tensors launch the kernel on the current stream (no sync): K1's
+    split walk over the rows (see :func:`raster_tiles_flat_u8`), its item
+    list sized from CAP; CPU tensors run
+    :func:`raster_tiles_rows_u8_reference`."""
     _check_tensors(rows.device, rows=(rows, torch.float32),
                    starts=(starts, torch.int32),
                    counts=(counts, torch.int32),
@@ -721,7 +735,8 @@ def raster_tiles_rows_u8(rows, starts, counts, packed_bg, width: int,
     out = torch.empty(counts.shape + (tile_w * tile_h,), dtype=torch.int32,
                       device=rows.device)
     _launch("tile_raster_rows_u8", None, starts, counts, counts.shape[-1],
-            rows, width, tile_w, tile_h, False, packed_bg, 1, out)
+            rows, width, tile_w, tile_h, False, packed_bg, 1, out,
+            *_split_scratch(None, counts, rows))
     raster_tiles_rows_u8.launches += 1
     return out
 
@@ -989,6 +1004,12 @@ def _keys_f32_epilogue(best, attr):
     return best, rgba
 
 
+def _tex_idx_epilogue(best, attr, tex_dims):
+    """K2b's texel index of the winners, -1 for sky."""
+    return torch.where(best != SKY_KEY,
+                       _texel_index(attr, tex_dims).reshape(best.shape), -1)
+
+
 def _tex_u8_epilogue(best, attr, tex_packed, tex_dims, packed_bg):
     """K3's packed texel of the winners, packed bg for sky."""
     texel = tex_packed[_texel_index(attr, tex_dims).long()]
@@ -1022,8 +1043,7 @@ def raster_tiles_tex_idx_reference(sorted_pad, starts, counts, table,
     """Plain torch version of K2b, same values bit for bit."""
     best, attr = _pairs_walk(sorted_pad, starts, counts, table, width,
                              tile_w, tile_h, z_clip)
-    return torch.where(best != SKY_KEY,
-                       _texel_index(attr, tex_dims).reshape(best.shape), -1)
+    return _tex_idx_epilogue(best, attr, tex_dims)
 
 
 def raster_tiles_keys_f32_reference(sorted_pad, starts, counts, table,
@@ -1153,17 +1173,15 @@ def render_binned_pallas_flat_batch_u8(sorted_pads, starts, counts, tables,
 def render_binned_tex_idx_batch(sorted_pads, starts, counts, tables,
                                 width: int, height: int, tile_w: int,
                                 tile_h: int, tex_dims):
-    """B frames through K2b, detiled: (B, H, W) int32 texel indices,
-    -1 for sky — counterpart of ``pallas_raster.
-    render_binned_tex_idx_batch`` (``:1048-1078``), one launch a frame.
-    sorted_pads (B, Spad), starts and counts (B, NT), tables
-    (B, F + 1, ROW_W); the JAX entry's ``Kb`` and ``kcc`` are not
-    parameters (see :func:`render_binned_pallas_flat`)."""
-    return torch.stack([
-        _detile_plane(raster_tiles_tex_idx(sp, st, cn, tb, tex_dims, width,
-                                           tile_w, tile_h, z_clip=True),
-                      width, height, tile_w, tile_h)
-        for sp, st, cn, tb in zip(sorted_pads, starts, counts, tables)])
+    """B frames through K2b in one launch, detiled: (B, H, W) int32 texel
+    indices, -1 for sky — counterpart of ``pallas_raster.
+    render_binned_tex_idx_batch`` (``:1048-1078``).  sorted_pads
+    (B, Spad), starts and counts (B, NT), tables (B, F + 1, ROW_W); the
+    JAX entry's ``Kb`` and ``kcc`` are not parameters (see
+    :func:`render_binned_pallas_flat`)."""
+    idx = raster_tiles_tex_idx(sorted_pads, starts, counts, tables,
+                               tex_dims, width, tile_w, tile_h, z_clip=True)
+    return _detile_frames(idx, width, height, tile_w, tile_h)
 
 
 def render_binned_pallas(bins, counts, A, B, C, zplane_scaled, inv_area,

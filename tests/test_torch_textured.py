@@ -154,6 +154,32 @@ def test_k2b_crafted_uv_rows_match_jax_kernel(jax_kernels):
     assert len(np.unique(want)) > 100          # the rows spread
 
 
+def test_k2b_batch_entry_is_one_launch(jax_kernels, monkeypatch):
+    # render_binned_tex_idx_batch hands its B frames to K2b in one call
+    # with a leading B, as JAX's entry does; each frame equals the
+    # per-frame loop bit for bit and JAX's entry within the contract
+    jk = jax_kernels
+    frames = [_port_prep(jk), _port_prep(jk, jk["crafted"])]
+    sp, st, cn, tb = (torch.stack([f[i] for f in frames]) for i in range(4))
+    k2b, calls = tt.raster_tiles_tex_idx, []
+
+    def spy(*args, **kw):
+        calls.append(tuple(args[2].shape))
+        return k2b(*args, **kw)
+
+    monkeypatch.setattr(tt, "raster_tiles_tex_idx", spy)
+    got = tt.render_binned_tex_idx_batch(sp, st, cn, tb, W, H, 32, 8,
+                                         TEX_DIMS)
+    assert calls == [(2, 2 * 6)]
+    assert got.shape == (2, H, W) and got.dtype == torch.int32
+    loop = torch.stack([tt._detile_plane(
+        k2b(*f, TEX_DIMS, W, 32, 8, z_clip=True), W, H, 32, 8)
+        for f in frames])
+    assert torch.equal(got, loop)
+    for frame, want in zip(got.numpy(), (jk["idx"], jk["idx_crafted"])):
+        assert_index_close(frame, want)
+
+
 def test_k3_matches_jax_kernel(jax_kernels):
     jk = jax_kernels
     sp, st, cn, tb = _port_prep(jk)

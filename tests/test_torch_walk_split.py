@@ -12,11 +12,12 @@ it, on seeded runs at the split's boundaries (1, S, S + 1, 2S, 2S + 1
 and 1024 slots), a run whose reads run off the pair array (an
 overflowed run), NaN rows, and ``mesh_10k`` at a small frame (the
 affine planes of the MMA walk and the claim grain of K1-wf are held by
-tests/test_torch_mma_walk.py with this mirror).  Also the
-plan's item list at the kernel's S: every slot of every run walked by
-exactly one item, no item for an empty run, long tiles' items first,
-within the capacity the wrapper allocates (``_split_scratch``, one frame
-or several).
+tests/test_torch_mma_walk.py with this mirror, K2b's texel index and
+K6's rows gathered in pair order by tests/test_torch_walk_rows_idx.py).
+Also the plan's item list at the kernel's S: every slot of every run
+walked by exactly one item, no item for an empty run, long tiles' items
+first, within the capacity the wrapper allocates (``_split_scratch``,
+one frame or several).
 
 K5 on the same walk: its runs are bins rows (slot j of tile t is
 ``bins[t, j]``, a run walks min(counts[t], K) slots), its outputs K2a's
@@ -62,10 +63,13 @@ TEX = torch.from_numpy(np.random.default_rng(5).integers(
 BGP = tt.pack_bg(torch.tensor([0.2, 0.4, 0.6, 0.0]))
 
 
-def plan(counts, seg: int):
+def plan(counts, seg: int, cap=None):
     """The plan kernel's list: (items [(tile, lo, hi)], long tiles'
     first, and each tile's item count).  An empty run is no item: the
-    plan writes its tile's background itself."""
+    plan writes its tile's background itself.  With ``cap``, the item
+    list's capacity: a list that would not fit (runs that overlap, or a
+    K6 frame whose runs end past its rows) turns the split off, and every
+    tile whose run is not empty is one item of its whole run."""
     counts = counts.reshape(-1).tolist()
     long_items, short_items, k_of = [], [], []
     for b, c in enumerate(counts):
@@ -75,6 +79,11 @@ def plan(counts, seg: int):
             lo = s * seg if k > 1 else 0
             hi = c if s == k - 1 else lo + seg
             (long_items if k > 1 else short_items).append((b, lo, hi))
+    if cap is not None and len(long_items) + len(short_items) > cap:
+        whole = [(b, 0, c) for b, c in enumerate(counts) if c > 0]
+        return ([i for i in whole if i[2] > seg]
+                + [i for i in whole if i[2] <= seg],
+                [min(k, 1) for k in k_of])
     return long_items + short_items, k_of
 
 
@@ -88,8 +97,15 @@ def _pixels(b, nt, width, tile_w, tile_h):
 
 
 def _rows(sorted_pad, starts, table, b, nt, slots):
+    """Rows of slots ``slots`` of tile b's run: through the pair array
+    (PAIRS), or with ``sorted_pad`` None straight from ``table``, the
+    rows gathered in pair order (K6's ROWS), clamped below their count."""
     f = b // nt
-    spad, nrows = sorted_pad.shape[-1], table.shape[-2]
+    nrows = table.shape[-2]
+    if sorted_pad is None:
+        idx = (starts.reshape(-1)[b] + slots).clamp(max=nrows - 1)
+        return table.reshape(-1, nrows, tt.ROW_W)[f][idx.long()]
+    spad = sorted_pad.shape[-1]
     idx = (starts.reshape(-1)[b] + slots).clamp(max=spad - 1)
     tri = (sorted_pad.reshape(-1, spad)[f][idx.long()] & r3.IDX_MASK).clamp(
         max=nrows - 1)
@@ -116,16 +132,17 @@ def claim_sequence(n_items, wf, seed):
 
 
 def item_minima(sorted_pad, starts, counts, table, width, tile_w, tile_h,
-                z_clip, seg, mxu=0):
+                z_clip, seg, mxu=0, cap=None):
     """(items, each tile's item count, each item's minimum key (P,)): the
     walk of one item over its own slots, on the CUDA cores' planes (the
     FMA walk) or, with ``mxu``, on the affine planes of the MMA walk
     (``mxu=2`` rounding the table and the coordinates to bfloat16, as the
-    plain version does)."""
+    plain version does); the items of :func:`plan` with capacity
+    ``cap``.  ``sorted_pad`` None: the runs index ``table`` (ROWS)."""
     nt = counts.shape[-1]
     if mxu == 2:
         table = tt.bf16_round(table)
-    items, k_of = plan(counts, seg)
+    items, k_of = plan(counts, seg, cap)
     minima = []
     for b, lo, hi in items:
         x, y = _pixels(b, nt, width, tile_w, tile_h)
@@ -149,7 +166,8 @@ def item_minima(sorted_pad, starts, counts, table, width, tile_w, tile_h,
 
 
 def split_walk(sorted_pad, starts, counts, table, width, tile_w, tile_h,
-               z_clip, seg, mxu=0, wf=1, order=None, minima=None):
+               z_clip, seg, mxu=0, wf=1, order=None, minima=None,
+               cap=None):
     """(best keys (NB, P), attr) of the split walk: per item its minimum
     key, the items walked in the order blocks claiming ``wf`` at a time
     reach them (:func:`claim_sequence` with seed ``order``), merged by
@@ -157,13 +175,15 @@ def split_walk(sorted_pad, starts, counts, table, width, tile_w, tile_h,
     arrival counter); attr(d) the winners' attribute d recomputed from
     their rows: the interpolated attribute (FMA walk) or, with ``mxu``,
     the affine plane 4 + d.  ``minima`` is :func:`item_minima`'s result
-    for these inputs, when the caller has it."""
+    for these inputs, when the caller has it; ``cap`` the item list's
+    capacity (:func:`plan`); ``sorted_pad`` None: the runs index
+    ``table``, rows gathered in pair order (K6's ROWS source)."""
     nt = counts.shape[-1]
     nb = counts.numel()
     P = tile_w * tile_h
     if minima is None:
         minima = item_minima(sorted_pad, starts, counts, table, width,
-                             tile_w, tile_h, z_clip, seg, mxu)
+                             tile_w, tile_h, z_clip, seg, mxu, cap)
     items, k_of, item_min = minima
     merged = torch.full((nb, P), r3.SKY_KEY, dtype=torch.int32)
     best = merged.clone()

@@ -1,6 +1,6 @@
-"""K1's and K3's split walks, K5 and K4 of two checkouts of the PyTorch
-port, timed in turns on one card, so that a change to the kernels is
-measured against the commit before it.
+"""K1's, K3's, K2b's and K6's split walks, K5 and K4 of two checkouts of
+the PyTorch port, timed in turns on one card, so that a change to the
+kernels is measured against the commit before it.
 
     python3 tools/torch_walk_turns.py --base DIR [--approx]
 
@@ -12,12 +12,15 @@ On 1920x1080 ``mesh_10k`` for
 chip_smoke.py's 4 cameras, one frame a launch and the 4 frames in one
 launch: K1 at the video shape (32x32, span (5, 3), capacity 1024, opaque,
 no z test) and at render_gouraud_u8's defaults (128x16, span (8, 8),
-capacity 512, z test), K3 on bench.py's textured mesh (perspective-
-correct, z test) at 32x32 and at 128x16.  Both checkouts' outputs must be
-bit-equal.  Times are chip_smoke.in_turns: CUDA events, the calls queued
-behind a sleep (device time alone), each timed twice in the order base,
-this, this, base.  Also prints the registers and spills ptxas reported
-for both builds' split walks on the CUDA cores (and this build's K5).
+capacity 512, z test), K3 and K2b (``raster_tiles_tex_idx``) on bench.py's
+textured mesh (perspective-correct, z test) at 32x32 and at 128x16, K6
+(``raster_tiles_rows_u8``) at the video shape on each frame's table rows
+gathered in pair order (rows_cap 49152, render_gouraud_pallas_batch's
+default).  Both checkouts' outputs must be bit-equal.  Times are
+chip_smoke.in_turns: CUDA events, the calls queued behind a sleep (device
+time alone), each timed twice in the order base, this, this, base.  Also
+prints the registers and spills ptxas reported for both builds' split
+walks on the CUDA cores (K1, K3, K2b, K5, K6: whichever the build has).
 
 K5 (``raster_tiles_bins_f32``) on render_gouraud_pallas's prep of the same
 4 cameras: one frame a launch at its defaults (128x16, capacity 512, span
@@ -73,19 +76,28 @@ def load_base(root: Path):
     return mod
 
 
+# (EPI, SRC) of the split walk's CUDA-core instantiations, by kernel
+SPLIT_KERNELS = {(0, 0): "K1", (1, 0): "K3", (2, 0): "K2b", (3, 1): "K5",
+                 (0, 2): "K6"}
+
+
 def fma_split_regs(log: str) -> str:
-    """'PPT/ZCLIP/EPI regs spills' of K1's and K3's split walk's CUDA-core
-    instantiations (one item a claim, pair rows) in a ptxas -v log."""
+    """'kernel PPT/ZCLIP[/BOX] regs spills' of the split walk's CUDA-core
+    instantiations with one item a claim (K1, K3, K2b, K5, K6, as the
+    build has them) in a ptxas -v log."""
     out = []
     for e in cs.ptxas_summary(log).split("; "):
         # tile_raster_split_kernel<PPT, ZCLIP, EPI[, WALK_FMA, false[,
-        # PAIRS, false]]>
-        m = re.search(r"split_kernelILi(\d+)ELb([01])ELi(\d+)E(?:Li0ELb0E)?"
-                      r"(?:Li0ELb0E)?EEv\w*: (.*)", e)
+        # SRC, BOX]]>
+        m = re.search(r"split_kernelILi(\d+)ELb([01])ELi(\d+)E(?:Li0ELb0E"
+                      r"(?:Li(\d)ELb([01])E)?)?EEv\w*: (.*)", e)
         if m:
-            out.append(f"{m.group(1)}/{m.group(2)}/{m.group(3)} "
-                       f"{m.group(4)}")
-    return "; ".join(out)
+            name = SPLIT_KERNELS.get((int(m.group(3)), int(m.group(4) or 0)),
+                                     f"EPI {m.group(3)}")
+            box = "/box" if m.group(5) == "1" else ""
+            out.append(f"{name} {m.group(1)}/{m.group(2)}{box} "
+                       f"{m.group(6)}")
+    return "; ".join(sorted(out))
 
 
 def turns_line(card, what, t):
@@ -144,6 +156,47 @@ def k5_turns(card, dev, ours, base_tr, mvps, verts, faces, pre):
         turns_line(card, f"K5 at {label} ({cfg}), ms/frame in turns "
                    f"(queued, mean of 4 cameras; 'batch' = the 4 frames in "
                    f"one launch; keys and attribute bits equal)", t)
+
+
+def k6_turns(card, ours, base_tr, mvps, verts, faces, colors, pre):
+    """K6 of both checkouts on the 4 cameras at the video shape, each
+    frame's table rows gathered in pair order (rows_cap 49152), one frame
+    a launch and the 4 frames in one, in turns."""
+    r3, tr = ours["ops.raster3d"], ours["ops.tile_raster"]
+    cfg, rows_cap = SHAPES["32x32"], 49152
+    preps = [r3.prepare_frame(verts, faces, colors, cs.WIDTH, cs.HEIGHT, m,
+                              z_clip=False, pre=pre, **cfg) for m in mvps]
+    if any(bool(p["overflow"]) for p in preps):
+        raise AssertionError("a K6 prep overflows")
+    rows = cs.gathered_rows(torch.stack([p["sorted_pad"] for p in preps]),
+                            torch.stack([p["table"] for p in preps]),
+                            rows_cap)
+    starts, counts = (torch.stack([p[k] for p in preps])
+                      for k in ("starts", "counts"))
+    if bool((starts[:, -1] + counts[:, -1] > rows_cap).any()):
+        raise AssertionError("the K6 runs end past rows_cap")
+    tail = (preps[0]["packed_bg"], cs.WIDTH, cfg["tile_w"], cfg["tile_h"])
+    calls = {n: t.raster_tiles_rows_u8 for n, t in (("base", base_tr),
+                                                     ("this", tr))}
+    one = [(rows[i:i + 1], starts[i:i + 1], counts[i:i + 1])
+           for i in range(len(preps))]
+    outs = {n: (torch.cat([call(*a, *tail) for a in one]),
+                call(rows, starts, counts, *tail))
+            for n, call in calls.items()}
+    torch.cuda.synchronize()
+    bad = [cs.same_bits(outs["base"][i], outs["this"][i]) for i in range(2)]
+    if any(bad):
+        raise AssertionError(f"K6: the checkouts differ on {bad} pixels")
+    fns = {}
+    for n, call in calls.items():
+        fns[n] = lambda call=call: [call(*a, *tail) for a in one]
+        fns[f"{n} batch"] = lambda call=call: call(rows, starts, counts,
+                                                   *tail)
+    t = {k: [x / len(one) for x in vs] for k, vs in cs.in_turns(fns).items()}
+    turns_line(card, f"K6 at 32x32 ({cfg}, rows_cap {rows_cap}, opaque, no "
+               f"z test), ms/frame in turns (queued, mean of 4 cameras; "
+               f"'batch' = the 4 frames in one launch; outputs bit-equal)",
+               t)
 
 
 def k4_runs(dev):
@@ -212,7 +265,7 @@ def k4_turns(card, dev, ours, base_ck, approx: bool):
             ph = params.astype(npd)
             kt = torch.from_numpy(kinds.astype(np.int32))
             pt = torch.from_numpy(ph).to(dev)
-            calls = {"base": lambda fb: base_ck.render_span(fb, kt, pt),
+            calls = {"base": lambda fb: base_ck.render_span(fb, kt, pt, ph),
                      "this": lambda fb: ck.render_span(fb, kt, pt, ph)}
             outs = {n: call(fb0.clone()) for n, call in calls.items()}
             torch.cuda.synchronize()
@@ -277,14 +330,14 @@ def main() -> None:
     for name, k in (("base", base_k), ("this", ours["ops._kernels"])):
         k.tile_raster()
         k.canvas_span()
-        print(f"[walk turns] ptxas, split walk on the CUDA cores, "
-              f"PPT/ZCLIP/EPI registers spills, {name}: "
+        print(f"[walk turns] ptxas, split walk on the CUDA cores, one item "
+              f"a claim, kernel PPT/ZCLIP[/box] registers spills, {name}: "
               f"{fma_split_regs(k.build_log('tile_raster'))}", flush=True)
         print(f"[walk turns] ptxas, K4, {name}: "
               f"{cs.ptxas_summary(k.build_log('canvas_span'))}", flush=True)
-    print(f"[walk turns] this: "
-          f"{cs.check_k5_build(ours['ops._kernels'].build_log('tile_raster'))}",
-          flush=True)
+    log = ours["ops._kernels"].build_log("tile_raster")
+    print(f"[walk turns] this: {cs.check_k5_build(log)}; "
+          f"{cs.check_k2b_k6_build(log)}", flush=True)
     card = cs.nvidia_smi()
     mesh, interop = ours["models.mesh"], ours["interop"]
     r3, tr = ours["ops.raster3d"], ours["ops.tile_raster"]
@@ -302,7 +355,7 @@ def main() -> None:
     bgp = tr.pack_bg(torch.tensor([0.5, 0.25, 0.75, 0.0], device=dev))
     keys = ("sorted_pad", "starts", "counts", "table")
 
-    for kernel in ("K1", "K3"):
+    for kernel in ("K1", "K3", "K2b"):
         for label, cfg in SHAPES.items():
             if kernel == "K1":
                 opaque = label == "32x32"
@@ -320,12 +373,18 @@ def main() -> None:
                     tv, tf, fuv, cs.WIDTH, cs.HEIGHT, m,
                     perspective_correct=True, z_clip=True, v4f=v4f, **cfg)
                     for m in mvps]
-                tail = (tex, tex_dims, bgp, cs.WIDTH, cfg["tile_w"],
-                        cfg["tile_h"])
                 what = "perspective-correct, z_clip=True"
-                calls = {n: (lambda a, t=t: t.raster_tiles_tex_u8(
-                    *a, z_clip=True)) for n, t in (("base", base_tr),
-                                                   ("this", tr))}
+                if kernel == "K3":
+                    tail = (tex, tex_dims, bgp, cs.WIDTH, cfg["tile_w"],
+                            cfg["tile_h"])
+                    calls = {n: (lambda a, t=t: t.raster_tiles_tex_u8(
+                        *a, z_clip=True)) for n, t in (("base", base_tr),
+                                                       ("this", tr))}
+                else:
+                    tail = (tex_dims, cs.WIDTH, cfg["tile_w"], cfg["tile_h"])
+                    calls = {n: (lambda a, t=t: t.raster_tiles_tex_idx(
+                        *a, z_clip=True)) for n, t in (("base", base_tr),
+                                                       ("this", tr))}
             if any(bool(p["overflow"]) for p in preps):
                 raise AssertionError(f"a prep overflows at {cfg}")
             one = [tuple(p[k] for k in keys) + tail for p in preps]
@@ -348,6 +407,7 @@ def main() -> None:
             turns_line(card, f"{kernel} at {label} ({cfg}, {what}), ms/frame "
                        f"in turns (queued, mean of 4 cameras; 'batch' = the "
                        f"4 frames in one launch; outputs bit-equal)", t)
+    k6_turns(card, ours, base_tr, mvps, verts, faces, colors, pre)
     k5_turns(card, dev, ours, base_tr, mvps, verts, faces, pre)
     k4_turns(card, dev, ours, base_ck, args.approx)
 
