@@ -14,9 +14,10 @@ raising:
      spills for each instantiation, the MMA walk's held to no spill, at
      most MMA_MAX_REGS registers and no serialized wgmma (ptxas warning
      C7518) (phase 16 adds the count of HGMMA
-     instructions in the library's SASS, from cuobjdump), and K5's, K2b's
-     and K6's split walks held to no spill, their registers printed; then
-     the MMA
+     instructions in the library's SASS, from cuobjdump), and K5's, K2b's,
+     K6's and K2a's split walks held to no spill and every K2b, K6 and K2a
+     instantiation present, their registers printed, and no kernel of the
+     one-block-a-tile walk left in the build; then the MMA
      walk's layout probe: one wgmma of the walk's own operands against
      the float64 product of the same bf16 parts, before any walk uses it;
   3. k1 vs plain: the per-frame prep of mesh_10k at 1920x1080 (tiles
@@ -43,8 +44,7 @@ raising:
      the calls queue, so device time alone), one frame a launch and 4
      frames in one, at 32x32 and 128x16, beside the bound, with ptxas
      registers
-     and blocks an SM of the split walk on the CUDA and the tensor cores
-     and of the one-block-a-tile walk (K2a's kernel, the one left on it);
+     and blocks an SM of the split walk on the CUDA and the tensor cores;
   6. k4 vs plain: at 1920x1080, in float32 and float64, K4 and its plain
      version on (a) the two arithmetic runs of bench.py's 60-command
      canvas frame over a nonzero framebuffer, (b) a seeded 64-command
@@ -81,7 +81,12 @@ raising:
      float attributes' bits must be equal; K3's and K2b's split walks on
      phase 3's boundary runs (K2b also with crafted uv rows, and 4 frames
      in one launch: one with a run past its pair array, two with crafted
-     uv rows), z test on and off;
+     uv rows), z test on and off; K2a's split walk on the same boundary
+     runs (a run past the array, runs overlapping past the item list's
+     capacity: the plan's fallback) at 128x8, 128x16 and 32x32, one frame
+     a launch and 4 in one launch, z test on and off, and on knife-edge
+     rows on its warp boxes' borders at 128x16, keys and attribute bits
+     equal, with the share of (row, warp) pairs its cull keeps;
  11. textured main paths: MeshVideoPipeline(uvs=, tex_u8=) on its
      default device over 48 frames, batch 16, into a tiled and a plain
      sink, after 3 timed runs into a sink that drops the frames: no
@@ -98,7 +103,14 @@ raising:
      each bound; K3 beside K2b (both the split walk, apart by K3's texel
      load) in turns (calls queued behind a sleep), one frame a launch and
      4 in one, at 32x32 and 128x16, each beside its bound,
-     with registers and blocks an SM; the device time by kernel, host
+     with registers and blocks an SM; K2a in turns at its three main
+     paths' shapes (render_textured's 128x8 and render_gouraud_pallas
+     (flat=True)'s 128x16 one frame a launch, the batch entry's flat
+     route at 128x32 with the 4 frames in one launch), each beside its
+     bound (the larger of its bytes and its culled walk's operations,
+     the kept share from tile_raster.pairs_cull_keep) and the old
+     yardstick, with its registers and blocks an SM; the device time by
+     kernel, host
      launches and syncs a frame and the busy share (profiler, 16
      frames), pipeline frames/s, peak device memory;
  13. k5 / k6 vs plain: at 1920x1080 on mesh_10k for 4 cameras, K5 on
@@ -123,7 +135,10 @@ raising:
      u8 route: bit-equal;
  14. gouraud main path: render_gouraud_pallas at its defaults on the 4
      frames, K5 launched once a frame, no overflow, frame 0 equal to the
-     CPU's; render_gouraud_pallas_batch over the 4 frames on each route
+     CPU's; render_gouraud_pallas(flat=True) at its defaults (128x16) on
+     the 4 frames, K2a launched once a frame, each frame bit-equal to K2a's
+     plain version on its prep, frame 0 equal to the CPU's;
+     render_gouraud_pallas_batch over the 4 frames on each route
      (K5, K2a, K1, K6), one launch each, each frame equal to
      render_gouraud_pallas's at the same shapes; render_gouraud_binned,
      render_gouraud (naive), near clipping (the eye inside the ring of
@@ -382,6 +397,41 @@ def pairs_bound(frames, p: int, epi_ops: int, out_bytes_px: int):
     return max(bytes_ms, ops_ms), by, bytes_ms, ops_ms, pairs
 
 
+def culled_bound(old, keeps, p: int) -> tuple:
+    """K5's and K2a's bound, the larger of the bytes (``old``, their
+    pairs_bound with K2A_EPI_OPS and 4 + 16 B a pixel slot out) and the
+    culled walk's operations: per frame of ``keeps``, each (kept, tested,
+    tiles), the kept (row, warp) pairs x the pixels of a warp (tiles of
+    ``p``) x K1_OPS_PER_PAIR, plus CULL_OPS a tested (row, warp) and
+    K2A_EPI_OPS a pixel slot.  Returns (bound ms, 'bytes'|'operations',
+    bytes ms, culled operations ms, pairs, the old yardstick's operations
+    ms (every walked pair at every tile pixel), the kept share of the
+    tested (row, warp) pairs)."""
+    from libnativecpurenderer_tpu_torch.ops.tile_raster import WARPS
+    ops_ms = 1e3 * float(np.mean([
+        (kept * (p // WARPS) * K1_OPS_PER_PAIR + tested * CULL_OPS
+         + tiles * p * K2A_EPI_OPS) / PEAK_OPS_S[torch.float32]
+        for kept, tested, tiles in keeps]))
+    by = "bytes" if old[2] >= ops_ms else "operations"
+    share = sum(k[0] for k in keeps) / max(1, sum(k[1] for k in keeps))
+    return max(old[2], ops_ms), by, old[2], ops_ms, old[4], old[3], share
+
+
+def k2a_bound(preps, tile) -> tuple:
+    """:func:`culled_bound` of K2a on these frames' preps (sorted_pad,
+    starts, counts, table) made at ``tile``'s tile shape, the kept
+    (row, warp) pairs from the plain mirror tile_raster.pairs_cull_keep
+    on these inputs."""
+    from libnativecpurenderer_tpu_torch.ops import tile_raster
+    tw, th = tile["tile_w"], tile["tile_h"]
+    keeps = [(int(tile_raster.pairs_cull_keep(sp, st, c, t, WIDTH, tw,
+                                              th).sum()),
+              int(c.clamp(min=0).sum()) * tile_raster.WARPS, c.numel())
+             for sp, st, c, t, *_ in preps]
+    return culled_bound(walk_bound(preps, K2A_EPI_OPS, 4 + 4 * 4,
+                                   tile=tile), keeps, tw * th)
+
+
 def walk_bound(preps, epi_ops: int, out_bytes_px: int, extra_bytes: int = 0,
                tile=PROD):
     """:func:`pairs_bound` of the walk over the sorted pairs on these
@@ -439,13 +489,15 @@ def split_cases(dev, bgp, mxu: bool = False):
     return cases
 
 
-def split_frames(dev, seeds, past_end=(), uv=()):
+def split_frames(dev, seeds, past_end=(), uv=(), knife=(), tile=(32, 32)):
     """The boundary runs of :func:`split_cases` at the kernel's S, one
     frame a seed, stacked as B frames (a leading B on each input): frame
     i's last run read 300 slots past its pair array for i in
     ``past_end``, its uv rows crafted (testing.crafted_uv_table: huge,
-    negative, tiny, zero and NaN denominators) for i in ``uv``.  Returns
-    (sorted_pad, starts, counts, table) on ``dev`` and the width."""
+    negative, tiny, zero and NaN denominators) for i in ``uv``, every
+    third row of each run a knife-edge row (testing.knife_edge_rows) for
+    i in ``knife``; tiles of ``tile`` (w, h).  Returns (sorted_pad,
+    starts, counts, table) on ``dev`` and the width."""
     from libnativecpurenderer_tpu_torch.ops.tile_raster import SEG as seg
     from libnativecpurenderer_tpu_torch.testing import (crafted_runs,
                                                         crafted_uv_table)
@@ -453,7 +505,8 @@ def split_frames(dev, seeds, past_end=(), uv=()):
     frames = []
     for i, sd in enumerate(seeds):
         sp, st, ct, tb, w = crafted_runs(
-            lengths, seed=sd, past_end=300 if i in past_end else 0)
+            lengths, *tile, seed=sd, past_end=300 if i in past_end else 0,
+            knife=i in knife)
         frames.append((sp, st, ct, crafted_uv_table(tb) if i in uv else tb))
     return tuple(torch.stack([f[i] for f in frames]).to(dev)
                  for i in range(4)), w
@@ -467,17 +520,84 @@ def gathered_rows(sorted_pad, table, cap: int):
                         for s, t in zip(sorted_pad, table)])
 
 
-def occupancy(_kernels, tex: bool, p: int, z_clip: bool) -> str:
-    """ptxas registers and resident blocks an SM of K1's (K3's) walks at
-    tiles of p pixels: the split walk on the CUDA cores (K1, K3, K1-wf)
-    and on the tensor cores (K1-mxu, K3's mxu walk), and the
-    one-block-a-tile walk as K2a's kernel runs it, the one kernel left
-    on it."""
+def k2a_split_checks(dev) -> float:
+    """K2a against its plain version, keys and attribute bits, on the
+    split walk's boundary runs (testing.crafted_runs at the kernel's S: 1,
+    S, S + 1, 2S, 2S + 1 and 1024 slots with NaN rows and depths outside
+    [0, 1]), the same with the last run read 300 slots past the pair
+    array, runs that overlap past the item list's capacity (the plan's
+    fallback: every tile one item) and 4 frames in one launch (one with a
+    run past its array, one with knife-edge rows), at 128x8, 128x16 (K2a's
+    warp boxes and cull) and 32x32 (none), the z test on and off; then
+    knife-edge rows on the warp boxes' borders (testing.knife_edge_rows)
+    at 128x16.  Prints each with the share of (row, warp) pairs the cull
+    keeps (tile_raster.pairs_cull_keep); returns the largest |delta| of
+    the attributes."""
+    from libnativecpurenderer_tpu_torch.ops import tile_raster
+    from libnativecpurenderer_tpu_torch.testing import crafted_runs
+    seg = tile_raster.SEG
+    lengths = [1, seg, seg + 1, 2 * seg, 2 * seg + 1, 1024]
+    cases = []
+    for tile in ((128, 8), (128, 16), (32, 32)):
+        tag = f"{tile[0]}x{tile[1]}"
+        for label, past in (("boundaries", 0), ("run past the array", 300)):
+            sp, st, ct, tb, w = crafted_runs(lengths, *tile, seed=seg,
+                                             past_end=past)
+            cases.append((f"{label} {tag}", (sp, st, ct, tb), w, tile))
+        sp, st, ct, tb, w = crafted_runs(lengths, *tile, seed=seg + 1)
+        n = int(ct.sum())
+        cases.append((f"overlapping runs (the plan's fallback) {tag}",
+                      (sp, torch.zeros_like(st), torch.full_like(ct, n), tb),
+                      w, tile))
+        four, w4 = split_frames(dev, [41, 42, 43, 44], past_end=(1,),
+                                knife=(2,), tile=tile)
+        cases.append((f"4 frames in one launch (a run past the array, "
+                      f"knife-edge rows) {tag}", four, w4, tile))
+    sp, st, ct, tb, w = crafted_runs(lengths, 128, 16, seed=seg + 2,
+                                     knife=True)
+    cases.append(("knife-edge rows 128x16", (sp, st, ct, tb), w, (128, 16)))
+    err = 0.0
+    for label, walk, w, (tw, th) in cases:
+        walk = tuple(x.to(dev) for x in walk)
+        keep = tile_raster.pairs_cull_keep(*walk, w, tw, th)
+        n_walk = int(walk[2].clamp(min=0).sum()) * tile_raster.WARPS
+        for z_clip in (True, False):
+            args = (*walk, w, tw, th)
+            (gk, gr), (wk, wr) = (
+                tile_raster.raster_tiles_keys_f32(*args, z_clip=z_clip),
+                tile_raster.raster_tiles_keys_f32_reference(*args,
+                                                            z_clip=z_clip))
+            torch.cuda.synchronize()
+            bad = same_bits(gk, wk) + same_bits(gr, wr)
+            fin = torch.isfinite(gr) & torch.isfinite(wr)
+            d = float((gr - wr)[fin].abs().max()) if bool(fin.any()) else 0.0
+            err = max(err, d)
+            print(f"[tex vs plain] K2a split walk, {label}, z_clip={z_clip}: "
+                  f"{bad} of {gk.numel()} keys and {gr.numel()} attribute "
+                  f"values differ in their bits; "
+                  f"{float((wk != tile_raster.SKY_KEY).float().mean()):.3f} "
+                  f"covered, {int((wk < 0).sum())} negative keys (depths "
+                  f"above 1, z test off); runs {walk[2].tolist()}; (row, "
+                  f"warp) pairs the cull keeps {int(keep.sum())} of {n_walk}",
+                  flush=True)
+            if bad:
+                raise AssertionError(f"K2a differs from its plain version at "
+                                     f"{label}, z_clip={z_clip}")
+    return err
+
+
+def occupancy(_kernels, tex: bool, tile_w: int, tile_h: int, z_clip: bool,
+              walks=("split FMA", "split MMA")) -> str:
+    """ptxas registers and resident blocks an SM of the kernels a launch
+    at tiles of tile_w x tile_h runs, for each of ``walks``
+    (``_kernels.WALKS``): by default K1's (K3's) split walk on the CUDA
+    cores (K1, K3, K1-wf) and on the tensor cores (K1-mxu, K3's mxu
+    walk)."""
     out = []
-    for walk in _kernels.WALKS[:3]:     # the fourth is K5's
-        regs, n = _kernels.tile_raster_occupancy(walk, tex, p, z_clip)
-        who = " (K2a)" if walk.startswith("one") else ""
-        out.append(f"{walk} walk{who} {regs} registers, {n} blocks an SM")
+    for walk in walks:
+        regs, n = _kernels.tile_raster_occupancy(walk, tex, tile_w, tile_h,
+                                                 z_clip)
+        out.append(f"{walk} walk {regs} registers, {n} blocks an SM")
     return "; ".join(out)
 
 
@@ -550,30 +670,60 @@ ROWS_IDX_ENTRY = {
                      r"Lb0ELi2ELb0E")}
 
 
+def split_regs(log: str, name: str, pat, want: set) -> dict:
+    """{groups of ``pat``: registers} of the split walk's instantiations
+    whose mangled names ``pat`` matches in the build log; raises when one
+    spills or when the set of groups is not ``want``."""
+    found = {}
+    for e in ptxas_summary(log).split("; "):
+        k = pat.search(e)
+        if not k:
+            continue
+        m = re.search(r": (\d+) registers, (\d+)/(\d+) B spill", e)
+        if not m or int(m.group(2)) or int(m.group(3)):
+            raise AssertionError(f"{name}'s split walk spills: {e}")
+        found[tuple(int(g) for g in k.groups())] = int(m.group(1))
+    if set(found) != want:
+        raise AssertionError(f"{name}'s split walk instantiations "
+                             f"{sorted(found)}, expected {sorted(want)}")
+    return found
+
+
 def check_k2b_k6_build(log: str) -> str:
     """Raises when an instantiation of K2b's or K6's split walk spills, or
     when one is missing (K2b: 1-16 pixels a thread, z test on and off;
     K6: 1-16, z test off); returns their registers and spills."""
     out = []
     for name, pat in ROWS_IDX_ENTRY.items():
-        found = {}
-        for e in ptxas_summary(log).split("; "):
-            k = pat.search(e)
-            if not k:
-                continue
-            m = re.search(r": (\d+) registers, (\d+)/(\d+) B spill", e)
-            if not m or int(m.group(2)) or int(m.group(3)):
-                raise AssertionError(f"{name}'s split walk spills: {e}")
-            found[(int(k.group(1)), int(k.group(2)))] = int(m.group(1))
-        want = {(n, z) for n in (1, 2, 4, 8, 16)
-                for z in ((0, 1) if name == "K2b" else (0,))}
-        if set(found) != want:
-            raise AssertionError(f"{name}'s split walk instantiations "
-                                 f"{sorted(found)}, expected {sorted(want)}")
+        found = split_regs(log, name, pat, {
+            (n, z) for n in (1, 2, 4, 8, 16)
+            for z in ((0, 1) if name == "K2b" else (0,))})
         out.append(f"{name} " + ", ".join(
             f"PPT {n} z {z}: {r}" for (n, z), r in sorted(found.items())))
     return ("K2b's and K6's split walk (registers, no spill): "
             + "; ".join(out))
+
+
+# K2a's split walk instantiations, tile_raster_split_kernel<PPT, ZCLIP,
+# KEYS_F32, WALK_FMA, false, PAIRS, BOX>, by their mangled names
+K2A_ENTRY = re.compile(r"tile_raster_split_kernelILi(\d+)ELb([01])ELi3ELi0E"
+                       r"Lb0ELi0ELb([01])E")
+
+
+def check_k2a_build(log: str) -> str:
+    """Raises when an instantiation of K2a's split walk spills, when one is
+    missing (1-16 pixels a thread, z test on and off, with and without
+    the warp boxes) or when the one-block-a-tile walk's kernel
+    (tile_raster_kernel) is still in the build; returns their registers
+    and spills."""
+    if "tile_raster_kernel" in log:
+        raise AssertionError("the one-block-a-tile walk's kernel is in the "
+                             "build")
+    found = split_regs(log, "K2a", K2A_ENTRY, {
+        (n, z, b) for n in (1, 2, 4, 8, 16) for z in (0, 1) for b in (0, 1)})
+    return ("K2a's split walk (registers, no spill): " + ", ".join(
+        f"PPT {n} z {z} box {b}: {r}"
+        for (n, z, b), r in sorted(found.items())))
 
 
 # K4's instantiations, canvas_span_kernel<float> and <double>, and the
@@ -610,8 +760,9 @@ def check_k4_build(log: str) -> str:
 def build_kernels(_kernels) -> float:
     """Build every kernel library of the port in parallel (one nvcc per
     source), load them, print the ptxas summary and hold the MMA walk's,
-    K5's, K2b's and K6's and K4's builds to :func:`check_mma_build`,
-    :func:`check_k5_build`, :func:`check_k2b_k6_build` and
+    K5's, K2b's and K6's, K2a's and K4's builds to
+    :func:`check_mma_build`, :func:`check_k5_build`,
+    :func:`check_k2b_k6_build`, :func:`check_k2a_build` and
     :func:`check_k4_build`; returns the seconds."""
     names = ("tile_raster", "canvas_span")
     t0 = time.perf_counter()
@@ -631,6 +782,8 @@ def build_kernels(_kernels) -> float:
           flush=True)
     print(f"[build] "
           f"{check_k2b_k6_build(_kernels.build_log('tile_raster'))}",
+          flush=True)
+    print(f"[build] {check_k2a_build(_kernels.build_log('tile_raster'))}",
           flush=True)
     print(f"[build] {check_k4_build(_kernels.build_log('canvas_span'))}",
           flush=True)
@@ -827,7 +980,7 @@ def mesh_phases(dev, card: str) -> dict:
               f"u8 epilogue {be[0]}), K1 at {b[0] / min(t['K1']):.4f} "
               f"of it one frame a launch, {be[0] / min(t['K1 batch']):.4f}"
               f" of the epilogue bound batched; "
-              f"{occupancy(_kernels, False, cfg['tile_w'] * cfg['tile_h'], z_clip)}",
+              f"{occupancy(_kernels, False, cfg['tile_w'], cfg['tile_h'], z_clip)}",
               flush=True)
     k1.launches = saved
 
@@ -996,6 +1149,8 @@ def textured_phases(dev, card: str) -> list:
             if bad:
                 raise AssertionError(f"K2b differs from its plain version at "
                                      f"{label}")
+    # K2a's split walk on the boundary runs and knife-edge rows
+    errs[2] = max(errs[2], k2a_split_checks(dev))
     print(f"[tex runs] textured mesh_10k 1080p, 32x32, the 4 cameras: "
           f"{run_stats(preps)}", flush=True)
 
@@ -1199,8 +1354,62 @@ def textured_phases(dev, card: str) -> list:
               f"{b[0] / min(t['K3 batch']):.4f} batched; K2b bound {b2[0]} "
               f"ms/frame by {b2[1]}, K2b at {b2[0] / min(t['K2b']):.4f} of "
               f"it one frame a launch, {b2[0] / min(t['K2b batch']):.4f} "
-              f"batched; {occupancy(_kernels, True, tw * th, True)}; runs "
+              f"batched; {occupancy(_kernels, True, tw, th, True)}; runs "
               f"{run_stats(pp)}", flush=True)
+    # K2a in turns at its three main paths' shapes: render_textured's
+    # 128x8 (one frame a launch), render_gouraud_pallas(flat=True)'s
+    # 128x16 (one frame a launch) and the batch entry's flat route at
+    # 128x32 (the 4 frames in one launch), each beside its bound
+    cverts, cfaces, ccolors = interop.mesh_to_torch(
+        verts_np, faces_np, mesh.mesh_10k()[2], dev)
+    k2a_shapes = {"128x8 (render_textured)": (rt_preps, rt_cfg, False)}
+    for label, entry, batched in (
+            ("render_gouraud_pallas(flat=True)",
+             raster3d.render_gouraud_pallas, False),
+            ("render_gouraud_pallas_batch(flat=True)",
+             raster3d.render_gouraud_pallas_batch, True)):
+        shape = defaults(entry)
+        pp = []
+        for m in cams:
+            pr = raster3d.prepare_frame(
+                cverts, cfaces, ccolors, WIDTH, HEIGHT,
+                torch.from_numpy(m).to(dev), z_clip=True, exact_c=False,
+                **shape)
+            if bool(pr["overflow"]):
+                raise AssertionError(f"the {label} prep overflows")
+            pp.append(tuple(pr[k] for k in ("sorted_pad", "starts", "counts",
+                                            "table")))
+        k2a_shapes[f"{shape['tile_w']}x{shape['tile_h']} ({label})"] = (
+            pp, shape, batched)
+    k2a = tile_raster.raster_tiles_keys_f32
+    fns = {}
+    for label, (pp, shape, batched) in k2a_shapes.items():
+        tw, th = shape["tile_w"], shape["tile_h"]
+        if batched:
+            four = tuple(torch.stack([w[i] for w in pp]) for i in range(4))
+            fns[label] = (lambda four=four, tw=tw, th=th:
+                          k2a(*four, WIDTH, tw, th, z_clip=True))
+        else:
+            fns[label] = (lambda pp=pp, tw=tw, th=th:
+                          [k2a(*w, WIDTH, tw, th, z_clip=True) for w in pp])
+    k2a_turns = {k: [v / len(cams) for v in vs]
+                 for k, vs in in_turns(fns).items()}
+    for label, (pp, shape, batched) in k2a_shapes.items():
+        b = k2a_bound(pp, shape)
+        t = min(k2a_turns[label])
+        how = "the 4 frames in one launch" if batched else \
+            "one frame a launch"
+        print(f"[tex times] {card}: K2a at {label} ({shape}, z test on), "
+              f"{how}, ms/frame in turns (CUDA events, calls queued behind "
+              f"a sleep, mean of 4 cameras): {k2a_turns[label]}; bound "
+              f"{b[0]} ms/frame by {b[1]} (bytes {b[2]} ms, the culled "
+              f"walk's operations {b[3]} ms, the cull keeping {b[6]:.4f} of "
+              f"the (row, warp) pairs (the plain mirror pairs_cull_keep); "
+              f"pairs walked {b[4]}), K2a at {b[0] / t:.4f} of it; the old "
+              f"yardstick (every walked pair at every tile pixel) {b[5]} "
+              f"ms, K2a at {b[5] / t:.4f} of it; "
+              f"{occupancy(_kernels, False, shape['tile_w'], shape['tile_h'], True, walks=('split pairs f32',))}",
+              flush=True)
     for kk in kernels:
         kk.launches = 0
     pipe = MeshVideoPipeline(DropSink(), WIDTH, HEIGHT, verts_np, faces_np,
@@ -1224,10 +1433,9 @@ def textured_phases(dev, card: str) -> list:
     # outputs (K3 also reads the texture once)
     bounds = {"K3": walk_bound(preps, K3_EPI_OPS, 4, 4 * tex_packed.numel()),
               "K2b": walk_bound(preps, K2B_EPI_OPS, 4),
-              "K2a": walk_bound(rt_preps, K2A_EPI_OPS, 4 + 4 * 4,
-                                tile=rt_cfg)}
+              "K2a": k2a_bound(rt_preps, rt_cfg)}
     for name in ("K3", "K2b", "K2a"):
-        b_ms, b_by, bb, bo, pairs = bounds[name]
+        b_ms, b_by, bb, bo, pairs, *_ = bounds[name]
         shape = timed[name][1]
         how = (f" with the 4 frames in one launch ({k2b_one} one frame a "
                f"launch)" if name == "K2b" else "")
@@ -1281,12 +1489,14 @@ def same_bits(a, b) -> int:
     return int((a != b).sum())
 
 
-def gouraud_phases(dev, card: str) -> list:
+def gouraud_phases(dev, card: str, k2a_row: dict) -> list:
     """Phases 13-15: K5 and K6 against their plain versions (K6 also
     against K1's batched launch), the float and depth Gouraud main path
-    (render_gouraud_pallas, render_gouraud_pallas_batch on every route,
-    the tensor-op routes and near clipping, card against CPU) and its
-    times; returns K5's and K6's entries of the kernel table."""
+    (render_gouraud_pallas, with flat=True too, render_gouraud_pallas_batch
+    on every route, the tensor-op routes and near clipping, card against
+    CPU) and its times; returns K5's and K6's entries of the kernel
+    table, and adds K2a's launches on its two Gouraud main paths to
+    ``k2a_row``, its entry."""
     from libnativecpurenderer_tpu_torch import interop
     from libnativecpurenderer_tpu_torch.models import mesh
     from libnativecpurenderer_tpu_torch.ops import _kernels, raster3d, \
@@ -1555,6 +1765,45 @@ def gouraud_phases(dev, card: str) -> list:
     if d_rgba or d_z or bool(ovf_c):
         raise AssertionError("render_gouraud_pallas on the card differs from "
                              "the CPU")
+    # render_gouraud_pallas(flat=True) at its defaults (128x16): K2a once
+    # a frame, each frame equal to the plain version's on its own prep,
+    # and frame 0 to the CPU's
+    flat_frames, n_flat = counted(lambda: [
+        raster3d.render_gouraud_pallas(verts, faces, colors, WIDTH, HEIGHT,
+                                       mvp, flat=True) for mvp in mvps])
+    if n_flat != {"K5": 0, "K6": 0, "K1": 0, "K2a": len(cams)}:
+        raise AssertionError(f"render_gouraud_pallas(flat=True) launched "
+                             f"{n_flat} for {len(cams)} frames")
+    zeros = torch.zeros(4, device=dev)
+    d_plain = 0
+    for mvp, (rgba, zq, ovf) in zip(mvps, flat_frames):
+        pr = raster3d.prepare_frame(verts, faces, colors, WIDTH, HEIGHT, mvp,
+                                    bg=zeros, z_clip=True, exact_c=False,
+                                    **single)
+        keys_p, rgba_p = tile_raster.detile_keys_rgba(
+            *tile_raster.raster_tiles_keys_f32_reference(
+                pr["sorted_pad"], pr["starts"], pr["counts"], pr["table"],
+                WIDTH, single["tile_w"], single["tile_h"], z_clip=True),
+            WIDTH, HEIGHT, single["tile_w"], single["tile_h"], zeros,
+            torch.float32)
+        zq_p = (keys_p >> raster3d.IDX_BITS).to(torch.float32) \
+            / raster3d._z_levels(torch.float32, dev)
+        d_plain += same_bits(rgba, rgba_p) + same_bits(zq, zq_p)
+        if bool(ovf) or bool(pr["overflow"]):
+            raise AssertionError("a render_gouraud_pallas(flat=True) frame "
+                                 "overflows")
+    rgba_c, zq_c, ovf_c = raster3d.render_gouraud_pallas(
+        *cpu, WIDTH, HEIGHT, mvps[0].cpu(), flat=True)
+    d_cpu = int((flat_frames[0][0].cpu() != rgba_c).any(-1).sum()) + int(
+        (flat_frames[0][1].cpu() != zq_c).sum())
+    print(f"[gouraud main path] render_gouraud_pallas(flat=True) (defaults "
+          f"{single}) on {len(cams)} frames: launches {n_flat}; {d_plain} "
+          f"rgba values and depths differ in their bits from K2a's plain "
+          f"version on each frame's prep; frame 0 vs the CPU: {d_cpu} "
+          f"pixels and depths differ", flush=True)
+    if d_plain or d_cpu or bool(ovf_c):
+        raise AssertionError("render_gouraud_pallas(flat=True) differs from "
+                             "K2a's plain version or the CPU")
     routes = {"non-flat (K5)": (dict(), "K5"),
               "flat f32 (K2a)": (dict(flat=True), "K2a"),
               "flat u8 (K1)": (u8_kw, "K1"),
@@ -1725,26 +1974,16 @@ def gouraud_phases(dev, card: str) -> list:
                 for n, (_, c, t) in zip(walked, preps)]
 
     def k5_bound(preps, cfg):
-        """K5's bound: the larger of the bytes
-        (pairs_bound's) and the operations of the culled walk, the kept
-        (row, warp) pairs x the pixels of a warp's box x K1_OPS_PER_PAIR
-        plus CULL_OPS a walked (row, warp) and K2A_EPI_OPS a pixel slot;
-        and the old yardstick, every walked pair x every tile pixel x
-        K1_OPS_PER_PAIR (pairs_bound's operations)."""
-        p = cfg["tile_w"] * cfg["tile_h"]
-        old = pairs_bound(k5_frames(preps, cfg), p, K2A_EPI_OPS, 4 + 4 * 4)
-        ops_s = []
-        for b, c, t in preps:
-            keep = tile_raster.bins_cull_keep(b, c, t, WIDTH, cfg["tile_w"],
-                                              cfg["tile_h"])
-            walked = int(c.clamp(max=b.shape[-1]).sum()) * tile_raster.WARPS
-            ops_s.append((int(keep.sum()) * (p // tile_raster.WARPS)
-                          * K1_OPS_PER_PAIR + walked * CULL_OPS
-                          + c.numel() * p * K2A_EPI_OPS)
-                         / PEAK_OPS_S[torch.float32])
-        ops_ms = 1e3 * float(np.mean(ops_s))
-        by = "bytes" if old[2] >= ops_ms else "operations"
-        return max(old[2], ops_ms), by, old[2], ops_ms, old[4], old[3]
+        """:func:`culled_bound` of K5, the kept (row, warp) pairs from the
+        plain mirror bins_cull_keep on these inputs."""
+        tw, th = cfg["tile_w"], cfg["tile_h"]
+        keeps = [(int(tile_raster.bins_cull_keep(b, c, t, WIDTH, tw,
+                                                 th).sum()),
+                  int(c.clamp(max=b.shape[-1]).sum()) * tile_raster.WARPS,
+                  c.numel()) for b, c, t in preps]
+        return culled_bound(pairs_bound(k5_frames(preps, cfg), tw * th,
+                                        K2A_EPI_OPS, 4 + 4 * 4), keeps,
+                            tw * th)
 
     bounds = {
         "K5": k5_bound(k5_preps, single),
@@ -1781,7 +2020,7 @@ def gouraud_phases(dev, card: str) -> list:
               f"alone{yard}", flush=True)
     for label, cfg in (("128x16", single), ("128x32", batch)):
         regs, per_sm = _kernels.tile_raster_occupancy(
-            "split bins", False, cfg["tile_w"] * cfg["tile_h"], True)
+            "split bins", False, cfg["tile_w"], cfg["tile_h"], True)
         print(f"[gouraud times] K5's split walk at {label}: {regs} "
               f"registers, {per_sm} blocks an SM", flush=True)
 
@@ -1820,6 +2059,7 @@ def gouraud_phases(dev, card: str) -> list:
           f"peak device memory {peak_mib} MiB over {n4} frames, "
           f"{peak_mib - base_mib} MiB above the {base_mib} MiB held before "
           f"them", flush=True)
+    k2a_row["launches"] += n_flat["K2a"] + batch_launches["K2a"]
     tpu = "libnativecpurenderer_tpu/ops/pallas_raster.py"
     src = "libnativecpurenderer_tpu_torch/csrc/tile_raster.cu"
     return [{"name": "raster_tiles_bins_f32", "route": "cuda", "source": src,
@@ -2358,7 +2598,7 @@ def wf_mxu_phases(dev, card: str) -> list:
               f"{n4} cameras; 'batch' = the 4 frames in one launch; NT = "
               f"{nt}): " + "; ".join(f"{k} {v}" for k, v in tl.items())
               + f"; the kernel table's timer (not queued): {t[label]}; "
-              f"{occupancy(_kernels, False, cfg['tile_w'] * cfg['tile_h'], z_clip)}",
+              f"{occupancy(_kernels, False, cfg['tile_w'], cfg['tile_h'], z_clip)}",
               flush=True)
         for name, keys in (("K1-wf", [f"K1-wf {wf}" for wf in (1, 8, nt)]),
                            ("K1-mxu", ["K1-mxu 1", "K1-mxu 2"])):
@@ -2409,7 +2649,7 @@ def wf_mxu_phases(dev, card: str) -> list:
           f"CUDA cores {b[4]} ms; pairs {b[5]}); K3-mxu at "
           f"{b[0] / min(tl['K3-mxu']):.4f} of it one frame a launch, "
           f"{b[0] / min(tl['K3-mxu batch']):.4f} batched; "
-          f"{occupancy(_kernels, True, tcfg['tile_w'] * tcfg['tile_h'], True)}",
+          f"{occupancy(_kernels, True, tcfg['tile_w'], tcfg['tile_h'], True)}",
           flush=True)
     for k, s in zip(counted, saved):
         k.launches = s
@@ -2893,7 +3133,7 @@ def main() -> None:
     k4 = canvas_phases(dev, card)
     blit_phase(dev)
     tex_rows = textured_phases(dev, card)
-    gouraud_rows = gouraud_phases(dev, card)
+    gouraud_rows = gouraud_phases(dev, card, tex_rows[2])
     wf_mxu_rows = wf_mxu_phases(dev, card)
     print(json.dumps({"kernels": [k1, k4, *tex_rows, *gouraud_rows,
                                   *wf_mxu_rows]}))

@@ -10,7 +10,8 @@
 //     TEX_IDX    (K2b) tex_dims, raster_tiles_flat (:793), epilogue
 //                      :356-374, through the split walk;
 //     KEYS_F32   (K2a) the f32 branch, raster_tiles_flat (:805), epilogue
-//                      :597-599, the one-block-a-tile walk (below);
+//                      :597-599, through the split walk, with K5's warp
+//                      boxes and cull at 128-wide tiles (below);
 //   _make_kernel (:51-122), rows from a materialised bins row:
 //     KEYS_F32   (K5)  raster_tiles (:1433), the z test always on, through
 //                      the split walk with warp boxes and a cull (below);
@@ -93,20 +94,13 @@
 // of ~13), so the suspected bound is the tail of blocks that walk the
 // longest runs: one launch of 4 frames ran K1 at ~0.054 ms a frame.
 //
-// The one-block-a-tile walk (fma_tile: K2a alone, until it moves onto
-// the split walk too).  One block of 256 threads per tile; each thread
-// owns PPT = ceil(P / 256) pixels (4 at 32x32) and keeps its best key,
-// its winner's edge values and row in registers.  The run's rows
-// (the 12 walk columns) are staged through shared memory 32 at a time,
-// each read by all threads as a broadcast, two __syncthreads() a chunk.
-// Only the winner is shaded, after the walk: its attribute columns are
-// read once from the (L2-resident) table.  A long run stays in one block.
-//
-// The split walk (K1, K3, K2b, K5, K6, K1-wf, K1-mxu and K3's mxu walk).
-// The tail is
-// inside a tile, so no order of claims cures it: the long run itself is
-// cut.  One scheduler (the plan and the claim loop below) drives both
-// walks of an item, the FMA walk and the MMA walk.
+// The split walk (every kernel of the file: K1, K3, K2b, K2a, K5, K6,
+// K1-wf, K1-mxu and K3's mxu walk).  The tail is inside a tile, so no
+// order of claims cures it: the long run itself is cut.  One scheduler
+// (the plan and the claim loop below) drives both walks of an item, the
+// FMA walk and the MMA walk.  Each thread owns PPT = ceil(P / 256)
+// pixels of a tile (fma_ppt; 4 at 32x32) and keeps their best keys in
+// registers.
 //   * Items.  A run of count <= S slots is one item; a longer one is
 //     ceil(count / S) items, item s walking slots [s S, min((s + 1) S,
 //     count)) with row_of's clamps (an overflowed run still reads in
@@ -161,7 +155,7 @@
 // plan writes SKY_KEY into long and empty tiles' keys and zeros into
 // empty tiles' four planes; the last item of a tile writes the planes,
 // each pixel's winner's edges recomputed from the key's slot with the
-// walk's expression, as fma_tile did (split_keys_f32).  Keys are unique
+// walk's expression (split_keys_f32).  Keys are unique
 // in a tile (their low bits are the bin slot), so the atomicMin merge is
 // exact.  Box culling in the binning (raster3d.bin_triangles) leaves
 // ~25.5k pairs a 1080p mesh_10k frame at 128x16, each tested by all 2048
@@ -180,6 +174,22 @@
 // kept (row, warp) pairs: ~0.27 of them at 128x16 on mesh_10k's 4
 // cameras, ~0.37 at 128x32 (PERF.md), which with the cull's ~30
 // operations a (row, warp) sets K5's operations bound.
+//
+// K2a on the split walk.  K2a computes K5's outputs (KEYS_F32) with
+// its rows from the sorted pairs (PAIRS), so its item list is sized as
+// K1's (B nt + B ids_len / S).  Runs that overlap (a flagged frame) may
+// not fit; the plan then makes every tile one item of its whole run,
+// which still writes SKY_KEY into a long tile's keys first, and the
+// values are the plain version's.  Its three main paths (render_textured
+// at 128x8, render_gouraud_pallas(flat=True) at 128x16, the batch
+// entry's flat route at 128x32) are 128 wide, where it takes K5's warp
+// boxes and cull (BOX); at other widths the split walk without them.
+// On the CPU, tile_raster.pairs_cull_keep counts its kept (row, warp)
+// pairs: ~0.23 at 128x8, ~0.29 at 128x16 and ~0.40 at 128x32 on
+// mesh_10k's 4 cameras (PERF.md).  Its entry takes the z test on or off: with it off, a covered depth
+// above 1 makes a key whose shifted level wraps negative, which the
+// walk's signed `key < best` and the merge's signed atomicMin order as
+// the sequential walk does.
 //
 // K2b and K6 on the split walk.  K2b is K3's walk with the TEX_IDX
 // epilogue: the winner's texel index itself, -1 for sky (sky_value, a
@@ -260,7 +270,6 @@ constexpr int ATTR_COL = 14;    // vertex i, attribute d at ATTR_COL + 4 i + d
 constexpr int D = 4;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int CHUNK = 32;       // triangle rows staged per pass
 constexpr int SEG = 64;         // split walk: slots an item walks at most
 constexpr int STAGE_COLS = 28;  // FMA split walk: row columns staged (walk
                                 // and attributes: 0..27)
@@ -350,99 +359,8 @@ __device__ __forceinline__ int texel_of(float u, float v, float den, int tw,
   return min(max(vi, 0), th - 1) * tw + min(max(ui, 0), tw - 1);
 }
 
-// The one-block-a-tile body of K2a (KEYS_F32 over PAIRS): block-wide
-// walk of tile b's run, then the key and the four attributes.
-template <int PPT, bool ZCLIP>
-__device__ __forceinline__ void fma_tile(const Walk& w, const Epi& ep,
-                                         const int b) {
-  __shared__ float s_rows[CHUNK][WALK_COLS];
-  __shared__ int s_row[CHUNK];
-
-  const int f = b / w.nt;
-  const int t = b - f * w.nt;
-  const int P = w.tile_w * w.tile_h;
-  const int ox = (t % w.ntx) * w.tile_w;
-  const int oy = (t / w.ntx) * w.tile_h;
-  const int start = w.starts[b];
-  const int count = w.counts[b];
-
-  float px[PPT], py[PPT], be0[PPT], be1[PPT], be2[PPT];
-  int best[PPT], brow[PPT];
-#pragma unroll
-  for (int k = 0; k < PPT; ++k) {
-    const int p = threadIdx.x + k * THREADS;
-    px[k] = (float)(ox + p % w.tile_w);
-    py[k] = (float)(oy + p / w.tile_w);
-    best[k] = SKY_KEY;
-    brow[k] = 0;
-    be0[k] = be1[k] = be2[k] = 0.0f;
-  }
-
-  for (int base = 0; base < count; base += CHUNK) {
-    const int n = min(CHUNK, count - base);
-    __syncthreads();  // the previous chunk's rows are no longer read
-    for (int i = threadIdx.x; i < n * WALK_COLS; i += THREADS) {
-      const int r = i / WALK_COLS;
-      const int c = i - r * WALK_COLS;
-      const int row = row_of<PAIRS>(w, b, f, start, base + r);
-      s_rows[r][c] = w.table[(size_t)row * ROW_W + c];
-      if (c == 0) s_row[r] = row;
-    }
-    __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      const float* row = s_rows[j];
-      const int slot = base + j;
-#pragma unroll
-      for (int k = 0; k < PPT; ++k) {
-        const float e0 = __fadd_rn(__fadd_rn(__fmul_rn(row[0], px[k]),
-                                             __fmul_rn(row[1], py[k])),
-                                   row[2]);
-        const float e1 = __fadd_rn(__fadd_rn(__fmul_rn(row[3], px[k]),
-                                             __fmul_rn(row[4], py[k])),
-                                   row[5]);
-        const float e2 = __fadd_rn(__fadd_rn(__fmul_rn(row[6], px[k]),
-                                             __fmul_rn(row[7], py[k])),
-                                   row[8]);
-        const float zz = __fadd_rn(__fadd_rn(__fmul_rn(e0, row[9]),
-                                             __fmul_rn(e1, row[10])),
-                                   __fmul_rn(e2, row[11]));
-        bool cov = (e0 >= 0.0f) && (e1 >= 0.0f) && (e2 >= 0.0f);
-        if (ZCLIP) cov = cov && (zz >= 0.0f) && (zz <= 1.0f);
-        const unsigned zq =
-            (unsigned)__float2int_rz(__fmul_rn(zz, (float)Z_LEVELS));
-        const int key = (int)((zq << IDX_BITS) | (unsigned)slot);
-        if (cov && key < best[k]) {
-          best[k] = key;
-          brow[k] = s_row[j];
-          be0[k] = e0;
-          be1[k] = e1;
-          be2[k] = e2;
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int k = 0; k < PPT; ++k) {
-    const int p = threadIdx.x + k * THREADS;
-    if (p >= P) break;
-    const bool hit = best[k] != SKY_KEY;
-    const float* a = w.table + (size_t)brow[k] * ROW_W + ATTR_COL;
-    ep.out[(size_t)b * P + p] = best[k];
-    for (int d = 0; d < D; ++d)
-      ep.rgba[((size_t)b * D + d) * P + p] =
-          hit ? attr(a, be0[k], be1[k], be2[k], d) : 0.0f;
-  }
-}
-
-template <int PPT, bool ZCLIP>
-__global__ void __launch_bounds__(THREADS)
-tile_raster_kernel(const Walk w, const Epi ep) {
-  fma_tile<PPT, ZCLIP>(w, ep, blockIdx.x);
-}
-
-// ---- The split walk: K1, K3, K2b, K5, K6, K1-wf, K1-mxu and K3's mxu
-// walk ----
+// ---- The split walk: K1, K3, K2b, K2a, K5, K6, K1-wf, K1-mxu and K3's
+// mxu walk ----
 
 enum Walker { WALK_FMA, WALK_MMA };
 
@@ -607,7 +525,8 @@ __device__ __forceinline__ int split_value(const Walk& w, const Epi& ep,
   }
 }
 
-// K5's (KEYS_F32) outputs at slot p of tile b whose winning key is key:
+// K2a's and K5's (KEYS_F32) outputs at slot p of tile b whose winning
+// key is key:
 // the key (when this item writes it: a long tile's merged keys are
 // already in place) and the winner's four attributes, its edges
 // recomputed with the walk's own expression at (x, y), 0 for sky.
@@ -742,7 +661,7 @@ __device__ __forceinline__ bool box_culled(const float* r, float x0, float x1,
 
 // The FMA walk of one stage: slots base .. base + n - 1 (n <= SEG) of a
 // run, their rows in rows; each thread keeps its PPT pixels' best keys.
-// With BOX (K5) the warp walks only the rows box_culled keeps for its
+// With BOX (K5, K2a) the warp walks only the rows box_culled keeps for its
 // box: each lane tests rows lane and lane + 32 once, a ballot makes the
 // warp's mask of kept rows, and the warp walks the mask's rows in order
 // (the same rows in every lane, so nothing diverges).  A culled row
@@ -1024,7 +943,7 @@ __device__ __forceinline__ void mma_stage(const float (*rows)[ROW_W], int n,
 }
 
 // Slot of this thread's pixel q of a tile: threadIdx.x + q THREADS
-// (row-major), or with BOX (K5 at tiles BOX_TILE_W wide) pixel (lane %
+// (row-major), or with BOX (K5, K2a at tiles BOX_TILE_W wide) pixel (lane %
 // 16, lane / 16 + 2 q) of its warp's strip of the BOX_W columns from
 // BOX_W warp, every row (16x16 boxes at 128x16): P where that row is
 // past the tile.  With BOX a thread's pixels share their column, so its
@@ -1045,13 +964,14 @@ __device__ __forceinline__ int pixel_slot(int q, int tile_h) {
 // registers, no spill; 4 ran 128x16 tiles faster one frame a launch but
 // spilled K1-mxu's, 2 ran no faster), 2 at 16.  K5 over bins at 16
 // pixels a thread without its warp boxes (tiles over 2048 pixels and
-// not 128 wide, no entry's default) spilled at 2 (128 registers): 1.  K6
-// at 8 pixels a thread (tiles of 1025-2048 pixels, not its entry's
-// 32x32) spilled at 4 (64 registers): 3.
-template <int PPT, int WALKER, int SRC, bool BOX>
+// not 128 wide, no entry's default) spilled at 2 (128 registers): 1, and
+// so K2a, whose epilogue is K5's, there too.  K6 at 8 pixels a thread
+// (tiles of 1025-2048 pixels, not its entry's 32x32) spilled at 4 (64
+// registers): 3.
+template <int PPT, int EPI, int WALKER, int SRC, bool BOX>
 constexpr int split_min_blocks() {
   if (WALKER == WALK_MMA) return PPT <= 8 ? 3 : 2;
-  if (SRC == BINS && !BOX && PPT > 8) return 1;
+  if (EPI == KEYS_F32 && !BOX && PPT > 8) return 1;
   if (SRC == ROWS && PPT == 8) return 3;
   return PPT <= 4 ? 5 : PPT <= 8 ? 4 : 2;
 }
@@ -1078,9 +998,9 @@ __device__ __forceinline__ int plan_items(const Plan& pl) {
 // that K1 and K3 (one item a claim) keep no claim's bounds in registers:
 // at their 48-register budget the runtime grain's two registers spilled
 // and slowed them on an H100 (PERF.md).  SRC is the row source (PAIRS:
-// K1, K3, K2b and their variants; BINS: K5; ROWS: K6), BOX K5's warp
-// boxes and cull (pixel_slot, fma_stage); K1 and K3 compile without
-// either.  K2b's and K6's kernels (LEAN) keep nothing of the claim in
+// K1, K3, K2b, K2a and their variants; BINS: K5; ROWS: K6), BOX the
+// warp boxes and cull of K5 and K2a (pixel_slot, fma_stage); K1 and K3
+// compile without either.  K2b's and K6's kernels (LEAN) keep nothing of the claim in
 // registers through the walk: the split flag is read again for each
 // item, and the next claim, its item and the item count after the walk
 // (s_claim, the list, the plan's counters; a load or two an item).  At
@@ -1089,7 +1009,7 @@ __device__ __forceinline__ int plan_items(const Plan& pl) {
 template <int PPT, bool ZCLIP, int EPI, int WALKER, bool GRAIN, int SRC,
           bool BOX>
 __global__ void __launch_bounds__(THREADS,
-                                  split_min_blocks<PPT, WALKER, SRC, BOX>())
+                                  split_min_blocks<PPT, EPI, WALKER, SRC, BOX>())
 tile_raster_split_kernel(const Walk w, const Epi ep, const Plan pl,
                          const int wf) {
   constexpr bool MMA = WALKER == WALK_MMA;
@@ -1317,34 +1237,6 @@ int fma_ppt(int P) {
   return ppt <= 1 ? 1 : ppt <= 2 ? 2 : ppt <= 4 ? 4 : ppt <= 8 ? 8 : 16;
 }
 
-template <int PPT>
-cudaError_t launch_ppt(int nblocks, bool z_clip, const Walk& w,
-                       const Epi& ep, cudaStream_t s) {
-  if (z_clip)
-    tile_raster_kernel<PPT, true><<<nblocks, THREADS, 0, s>>>(w, ep);
-  else
-    tile_raster_kernel<PPT, false><<<nblocks, THREADS, 0, s>>>(w, ep);
-  return cudaGetLastError();
-}
-
-// Launches K2a (KEYS_F32 over PAIRS) over nblocks = B * nt tiles on
-// `stream` with the one-block-a-tile walk; returns the cudaError_t of the
-// launch (0 on success).
-int launch(int nblocks, int z_clip, const Walk& w, const Epi& ep,
-           void* stream) {
-  if (const int e = check<KEYS_F32, PAIRS>(w, ep, nblocks))
-    return e < 0 ? 0 : e;
-  cudaStream_t s = (cudaStream_t)stream;
-  const bool zc = z_clip != 0;
-  switch (fma_ppt(w.tile_w * w.tile_h)) {
-    case 1: return (int)launch_ppt<1>(nblocks, zc, w, ep, s);
-    case 2: return (int)launch_ppt<2>(nblocks, zc, w, ep, s);
-    case 4: return (int)launch_ppt<4>(nblocks, zc, w, ep, s);
-    case 8: return (int)launch_ppt<8>(nblocks, zc, w, ep, s);
-    default: return (int)launch_ppt<16>(nblocks, zc, w, ep, s);
-  }
-}
-
 // The split walk: the plan, then the persistent walk, its grid at most
 // the blocks the card holds at once and never more than ceil(cap / wf),
 // the claims the longest list could fill.
@@ -1411,8 +1303,10 @@ cudaError_t launch_split_g(int nblocks, bool z_clip, const Walk& w,
 // wf > 1, K1-wf); over BINS (K5) the FMA walk with the z test, with K5's
 // warp boxes and cull at tiles BOX_TILE_W wide (the production shapes,
 // 128x16 and 128x32), without them at other widths; over ROWS (K6) the
-// FMA walk without the z test; TEX_IDX (K2b) the FMA walk.  Only those
-// kernels are instantiated; any other request is refused.
+// FMA walk without the z test; TEX_IDX (K2b) the FMA walk; KEYS_F32 over
+// PAIRS (K2a) the FMA walk, the z test on or off, with the warp boxes and
+// cull at tiles BOX_TILE_W wide (each of its main paths' shapes).  Only
+// those kernels are instantiated; any other request is refused.
 template <int EPI, int SRC = PAIRS>
 int launch_split(int nblocks, int z_clip, const Walk& w, const Epi& ep,
                  const Plan& pl, int wf, void* stream) {
@@ -1438,6 +1332,14 @@ int launch_split(int nblocks, int z_clip, const Walk& w, const Epi& ep,
                               nblocks, w, ep, pl, 1, s)
                         : launch_split_z<EPI, false, WALK_FMA, false>(
                               nblocks, w, ep, pl, 1, s));
+  } else if constexpr (EPI == KEYS_F32) {
+    if (ep.mxu) return (int)cudaErrorInvalidValue;
+#define K2A(Z, BOX) \
+  launch_split_z<EPI, Z, WALK_FMA, false, PAIRS, BOX>(nblocks, w, ep, pl, 1, s)
+    if (w.tile_w == BOX_TILE_W)   // warp boxes and the cull
+      return (int)(z_clip ? K2A(true, true) : K2A(false, true));
+    return (int)(z_clip ? K2A(true, false) : K2A(false, false));
+#undef K2A
   } else {
     if constexpr (EPI == U8_GOURAUD)
       if (wf > 1)
@@ -1461,20 +1363,14 @@ int blocks_per_sm(K kernel, int* regs) {
   return n;
 }
 
-// walk 0: the one-block-a-tile walk (fma_tile) as K2a's kernel runs it
-// (EPI not read); 1: the split FMA walk; 2: the split MMA walk.
-template <int EPI, bool ZC>
-int occupancy_z(int walk, int P, int* regs) {
-#define OCC(N)                                                              \
-  if (walk == 1)                                                            \
-    return blocks_per_sm(                                                   \
-        tile_raster_split_kernel<N, ZC, EPI, WALK_FMA, false, PAIRS, false>, \
-        regs);                                                              \
-  if (walk == 2)                                                            \
-    return blocks_per_sm(                                                   \
-        tile_raster_split_kernel<N, ZC, EPI, WALK_MMA, false, PAIRS, false>, \
-        regs);                                                              \
-  return blocks_per_sm(tile_raster_kernel<N, ZC>, regs)
+// Registers and resident blocks an SM of the split walk's kernel at
+// tiles of P pixels, without a claim grain.  Instantiate only what
+// launch_split instantiates.
+template <int EPI, int WALKER, int SRC, bool ZC, bool BOX>
+int occupancy_n(int P, int* regs) {
+#define OCC(N)                                                          \
+  return blocks_per_sm(                                                 \
+      tile_raster_split_kernel<N, ZC, EPI, WALKER, false, SRC, BOX>, regs)
   switch (fma_ppt(P)) {
     case 1: OCC(1);
     case 2: OCC(2);
@@ -1485,21 +1381,10 @@ int occupancy_z(int walk, int P, int* regs) {
 #undef OCC
 }
 
-// K5's kernel at tiles BOX_TILE_W wide (the split walk over bins, warp
-// boxes and cull, the z test on) at tiles of P pixels.
-int occupancy_k5(int P, int* regs) {
-#define OCC(N)                                                         \
-  return blocks_per_sm(tile_raster_split_kernel<N, true, KEYS_F32, WALK_FMA, \
-                                                false, BINS, true>,         \
-                       regs)
-  switch (fma_ppt(P)) {
-    case 1: OCC(1);
-    case 2: OCC(2);
-    case 4: OCC(4);
-    case 8: OCC(8);
-    default: OCC(16);
-  }
-#undef OCC
+template <int EPI, int WALKER, int SRC, bool BOX>
+int occupancy_z(bool z_clip, int P, int* regs) {
+  return z_clip ? occupancy_n<EPI, WALKER, SRC, true, BOX>(P, regs)
+                : occupancy_n<EPI, WALKER, SRC, false, BOX>(P, regs);
 }
 
 }  // namespace
@@ -1549,18 +1434,33 @@ int tile_raster_tex_u8(WALK_ARGS, const int* tex, int tex_w, int tex_h,
 }
 
 // Registers (*regs) and resident blocks an SM (returned; negative: a
-// cudaError_t) of K1's (tex 0) or K3's (tex 1) kernel for tiles of
-// tile_p pixels: walk 1 the split FMA walk, 2 the split MMA walk, 0 the
-// one-block-a-tile walk, fma_tile, as K2a's kernel runs it (tex not
-// read); walk 3 K5's kernel (tex and z_clip not read).
-int tile_raster_occupancy(int walk, int tex, int tile_p, int z_clip,
-                          int* regs) {
-  if (walk == 3) return occupancy_k5(tile_p, regs);
-  if (tex)
-    return z_clip ? occupancy_z<TEX_U8, true>(walk, tile_p, regs)
-                  : occupancy_z<TEX_U8, false>(walk, tile_p, regs);
-  return z_clip ? occupancy_z<U8_GOURAUD, true>(walk, tile_p, regs)
-                : occupancy_z<U8_GOURAUD, false>(walk, tile_p, regs);
+// cudaError_t) of the kernel that a launch at tiles of tile_w x tile_h
+// pixels runs, for each walk (its name in ops/_kernels.py's WALKS; the
+// z test as z_clip):
+int tile_raster_occupancy(int walk, int tex, int tile_w, int tile_h,
+                          int z_clip, int* regs) {
+  const int P = tile_w * tile_h;
+  const bool zc = z_clip != 0, box = tile_w == BOX_TILE_W;
+  switch (walk) {
+    case 0:  // "split FMA": K1's (tex: K3's) split walk, the CUDA cores
+      return tex ? occupancy_z<TEX_U8, WALK_FMA, PAIRS, false>(zc, P, regs)
+                 : occupancy_z<U8_GOURAUD, WALK_FMA, PAIRS, false>(zc, P,
+                                                                   regs);
+    case 1:  // "split MMA": K1-mxu's (tex: K3's mxu walk), the tensor cores
+      return tex ? occupancy_z<TEX_U8, WALK_MMA, PAIRS, false>(zc, P, regs)
+                 : occupancy_z<U8_GOURAUD, WALK_MMA, PAIRS, false>(zc, P,
+                                                                   regs);
+    case 2:  // "split bins": K5's (the z test on; tex, z_clip not read)
+      return box ? occupancy_n<KEYS_F32, WALK_FMA, BINS, true, true>(P, regs)
+                 : occupancy_n<KEYS_F32, WALK_FMA, BINS, true, false>(P,
+                                                                      regs);
+    case 3:  // "split pairs f32": K2a's (tex not read)
+      return box ? occupancy_z<KEYS_F32, WALK_FMA, PAIRS, true>(zc, P, regs)
+                 : occupancy_z<KEYS_F32, WALK_FMA, PAIRS, false>(zc, P,
+                                                                 regs);
+    default:
+      return -(int)cudaErrorInvalidValue;
+  }
 }
 
 // K2b: out (B * nt, P) texel indices, -1 for sky, through the split walk
@@ -1573,12 +1473,15 @@ int tile_raster_tex_idx(WALK_ARGS, int tex_w, int tex_h, int* out,
   return launch_split<TEX_IDX>(nblocks, z_clip, w, ep, pl, 1, stream);
 }
 
-// K2a: keys (B * nt, P) int32 and rgba (B * nt, 4, P) float32, the
-// one-block-a-tile walk.
-int tile_raster_keys_f32(WALK_ARGS, int* keys, float* rgba, void* stream) {
+// K2a: keys (B * nt, P) int32 and rgba (B * nt, 4, P) float32, rows
+// from sorted pairs, through the split walk with K5's warp boxes and
+// cull at tiles BOX_TILE_W wide (two launches: the plan, the walk).
+int tile_raster_keys_f32(WALK_ARGS, int* keys, float* rgba, SPLIT_ARGS,
+                         void* stream) {
   const Walk w = WALK;
   const Epi ep = {nullptr, 0, nullptr, 0, 0, keys, rgba, 0};
-  return launch(nblocks, z_clip, w, ep, stream);
+  const Plan pl = PLAN;
+  return launch_split<KEYS_F32>(nblocks, z_clip, w, ep, pl, 1, stream);
 }
 
 // K5: K2a's outputs, rows from bins (ids (B * nt, K), starts unused),

@@ -92,7 +92,7 @@ def tile_raster() -> ctypes.CDLL:
                                 ("tile_raster_tex_u8",
                                  [p, i, i, p, i, p] + split),
                                 ("tile_raster_tex_idx", [i, i, p] + split),
-                                ("tile_raster_keys_f32", [p, p]),
+                                ("tile_raster_keys_f32", [p, p] + split),
                                 ("tile_raster_bins_f32", [p, p] + split),
                                 ("tile_raster_rows_u8", [p, i, p] + split)):
             fn = getattr(lib, entry)
@@ -101,7 +101,7 @@ def tile_raster() -> ctypes.CDLL:
         # rows, n, ox, oy, tile_w, mxu, out, stream
         lib.tile_raster_mma_probe.argtypes = [p, i, i, i, i, i, p, p]
         lib.tile_raster_mma_probe.restype = ctypes.c_int
-        lib.tile_raster_occupancy.argtypes = [i, i, i, i, p]
+        lib.tile_raster_occupancy.argtypes = [i, i, i, i, i, p]
         lib.tile_raster_occupancy.restype = ctypes.c_int
         lib.tile_raster_error_string.argtypes = [ctypes.c_int]
         lib.tile_raster_error_string.restype = ctypes.c_char_p
@@ -137,22 +137,24 @@ def launch_canvas_span(fb, width, height, kinds, params, n, tiles, n_tiles,
             f"({lib.canvas_span_error_string(err).decode()})")
 
 
-WALKS = ("one block a tile", "split FMA", "split MMA", "split bins")
+# The walks of ``tile_raster_occupancy``, each at its C entry's number
+# (its index here)
+WALKS = ("split FMA", "split MMA", "split bins", "split pairs f32")
 
 
-def tile_raster_occupancy(walk: str, tex: bool, tile_p: int,
+def tile_raster_occupancy(walk: str, tex: bool, tile_w: int, tile_h: int,
                           z_clip: bool) -> tuple[int, int]:
-    """(registers a thread, resident blocks an SM) of K1's (K3's with
-    ``tex``) kernel for tiles of ``tile_p`` pixels, ``walk`` one of
-    :data:`WALKS`: the split walk on the CUDA cores or on the tensor cores
-    (K1-mxu, K3's mxu walk), or the one-block-a-tile walk as K2a's kernel
-    runs it (``tex`` not read); "split bins" is K5's kernel (the split
-    walk over bins with its warp boxes and cull; ``tex`` and ``z_clip``
-    are not read)."""
+    """(registers a thread, resident blocks an SM) of the kernel a launch
+    at tiles of ``tile_w`` x ``tile_h`` pixels runs, ``walk`` one of
+    :data:`WALKS`: K1's (K3's with ``tex``) split walk on the CUDA cores
+    or on the tensor cores (K1-mxu, K3's mxu walk); "split bins" K5's
+    kernel (``tex`` and ``z_clip`` not read) and "split pairs f32" K2a's
+    (``tex`` not read), each with its warp boxes and cull at tiles 128
+    wide, as their launches take them."""
     lib = tile_raster()
     regs = ctypes.c_int(0)
-    n = lib.tile_raster_occupancy(WALKS.index(walk), int(tex), tile_p,
-                                  int(z_clip), ctypes.byref(regs))
+    n = lib.tile_raster_occupancy(WALKS.index(walk), int(tex), tile_w,
+                                  tile_h, int(z_clip), ctypes.byref(regs))
     if n < 0:
         raise RuntimeError(f"tile_raster_occupancy failed: cudaError {-n} "
                            f"({lib.tile_raster_error_string(-n).decode()})")

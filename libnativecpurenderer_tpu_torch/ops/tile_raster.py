@@ -68,11 +68,11 @@ ROW_W = 32      # padded row width
 D = 4           # attributes per vertex
 MAX_P = 4096    # pixels per tile the kernel takes (16 per thread)
 REF_CHUNK = 16  # run slots the plain versions evaluate per pass
-SEG = 64        # the split walk (K1, K3, K5): run slots an item walks
-                # (S), the kernel's compile-time SEG
+SEG = 64        # the split walk (every tile kernel): run slots an item
+                # walks (S), the kernel's compile-time SEG
 WARPS = 8       # warps a block of the kernel (256 threads)
-BOX_W = 16      # K5's warp boxes: the columns a warp owns, at tiles
-BOX_TILE_W = BOX_W * WARPS   # this wide (the kernel's BOX_TILE_W, 128)
+BOX_W = 16      # K5's and K2a's warp boxes: the columns a warp owns, at
+BOX_TILE_W = BOX_W * WARPS   # tiles this wide (the kernel's BOX_TILE_W)
 _ALPHA_255 = -(1 << 24)   # 255 << 24 as an int32
 
 
@@ -248,6 +248,32 @@ def cull_keep(rows, box):
     return ~culled
 
 
+def _runs_cull_keep(n_walk, L: int, rows_at, nt: int, width: int,
+                    tile_w: int, tile_h: int):
+    """(NB, L, WARPS) bool: True where warp w of tile b walks run slot j
+    (j < n_walk[b] and, at tiles :data:`BOX_TILE_W` wide, :func:`cull_keep`
+    keeps the row for the warp's box); ``rows_at(tiles, slots)`` the rows
+    of those slots of those tiles, as :func:`_walk` takes them."""
+    nb, dev = n_walk.shape[0], n_walk.device
+    ntx = (width + tile_w - 1) // tile_w
+    walked = torch.arange(L, device=dev)[None, :] < n_walk[:, None]
+    layout = warp_boxes(tile_w, tile_h)
+    if layout is None:
+        return walked[..., None].expand(nb, L, WARPS).clone()
+    t = torch.arange(nb, device=dev) % nt
+    org = torch.stack([t % ntx * tile_w, t % ntx * tile_w,
+                       t // ntx * tile_h, t // ntx * tile_h], dim=1)
+    box = (org[:, None, :] + layout[0].to(dev)).to(torch.float32)
+    keep = torch.zeros((nb, L, WARPS), dtype=torch.bool, device=dev)
+    for j0 in range(0, L, 64):
+        act = torch.nonzero(n_walk > j0).squeeze(1)
+        j = torch.arange(j0, min(j0 + 64, L), device=dev)
+        rows = rows_at(act, j.expand(act.shape[0], -1))
+        k = cull_keep(rows[:, :, None, :], box[act][:, None, :, :])
+        keep[act[:, None], j[None, :]] = k & walked[act][:, j, None]
+    return keep
+
+
 def bins_cull_keep(bins, counts, table, width: int, tile_w: int,
                    tile_h: int):
     """K5's cull over its bins: (NB, K, WARPS) bool, True where warp w of
@@ -258,26 +284,30 @@ def bins_cull_keep(bins, counts, table, width: int, tile_w: int,
     nt, K, nrows = counts.shape[-1], bins.shape[-1], table.shape[-2]
     bn = bins.reshape(-1, K)
     tb = table.reshape(-1, ROW_W)
-    nb = bn.shape[0]
-    ntx = (width + tile_w - 1) // tile_w
-    t = torch.arange(nb, device=bn.device) % nt
-    n_walk = counts.reshape(-1).clamp(max=K)
-    walked = torch.arange(K, device=bn.device)[None, :] < n_walk[:, None]
-    layout = warp_boxes(tile_w, tile_h)
-    if layout is None:
-        return walked[..., None].expand(nb, K, WARPS).clone()
-    boxes = layout[0]
-    org = torch.stack([t % ntx * tile_w, t % ntx * tile_w,
-                       t // ntx * tile_h, t // ntx * tile_h], dim=1)
-    box = (org[:, None, :] + boxes.to(bn.device)).to(torch.float32)
-    f = (torch.arange(nb, device=bn.device) // nt)[:, None]
-    keep = torch.zeros((nb, K, WARPS), dtype=torch.bool, device=bn.device)
-    for j0 in range(0, K, 64):
-        j = torch.arange(j0, min(j0 + 64, K), device=bn.device)
-        rows = tb[f * nrows + bn[:, j].clamp(0, nrows - 1)]
-        k = cull_keep(rows[:, :, None, :], box[:, None, :, :])
-        keep[:, j] = k & walked[:, j, None]
-    return keep
+
+    def rows_at(tiles, slots):
+        f = _frame_of(tiles, nt, slots)
+        tri = bn[tiles.reshape(f.shape), slots]
+        return tb[f * nrows + tri.clamp(0, nrows - 1)]
+
+    return _runs_cull_keep(counts.reshape(-1).clamp(max=K), K, rows_at, nt,
+                           width, tile_w, tile_h)
+
+
+def pairs_cull_keep(sorted_pad, starts, counts, table, width: int,
+                    tile_w: int, tile_h: int):
+    """K2a's cull over its runs of sorted pairs, the twin of
+    :func:`bins_cull_keep`: (NB, L, WARPS) bool with L the longest run
+    (at least 1), True where warp w of tile b walks run slot j
+    (j < counts[b] and, at tiles :data:`BOX_TILE_W` wide, :func:`cull_keep`
+    keeps the row for the warp's box); inputs as
+    :func:`raster_tiles_keys_f32`, one frame or B frames.  Its sum is the
+    (row, warp) pairs the kernel walks, P / WARPS pixels each."""
+    n_walk = counts.reshape(-1).clamp(min=0)
+    L = max(1, int(n_walk.max()) if n_walk.numel() else 1)
+    return _runs_cull_keep(n_walk, L, _pairs_rows_at(sorted_pad, starts,
+                                                     counts, table),
+                           counts.shape[-1], width, tile_w, tile_h)
 
 
 def _quant_u8(v):
@@ -425,7 +455,7 @@ def _check_tex_tile(tile_w: int, tile_h: int) -> int:
 
 
 def _split_scratch(sorted_pad, counts, table, bins=False):
-    """The split walk's launch arguments (K1, K3, K2b, K5, K6): the item
+    """The split walk's launch arguments (K1, K3, K2b, K2a, K5, K6): the item
     list (int2 a slot) sized for runs that partition each frame's pairs,
     B * nt + B * ids_len // SEG items; with ``sorted_pad`` None (K6, whose
     runs index ``table``, the CAP rows a frame gathered in pair order)
@@ -629,7 +659,15 @@ def raster_tiles_keys_f32(sorted_pad, starts, counts, table, width: int,
     winner, 0 for sky (the JAX accumulators start at zero and a chunk
     without cover leaves them, ``pallas_raster.py:597-599``).  B frames
     (a leading B on each input) give (B, NT, P) and (B, NT, D, P) in one
-    launch."""
+    launch.
+
+    CUDA tensors launch the kernel on the current stream (no sync): K1's
+    split walk (see :func:`raster_tiles_flat_u8`) with K5's epilogue, and
+    at tiles :data:`BOX_TILE_W` wide (each of its entries' defaults) K5's
+    warp boxes and cull (:func:`raster_tiles_bins_f32`,
+    :func:`pairs_cull_keep`), which change no value; one call, counted
+    once in ``launches``.  CPU tensors run
+    :func:`raster_tiles_keys_f32_reference`."""
     _check_inputs(sorted_pad, starts, counts, table, tile_w, tile_h)
     if _on_cpu(table, "K2a"):
         return raster_tiles_keys_f32_reference(
@@ -638,7 +676,7 @@ def raster_tiles_keys_f32(sorted_pad, starts, counts, table, width: int,
     keys, rgba = _keys_rgba_out(counts, tile_w * tile_h, table.device)
     _launch("tile_raster_keys_f32", sorted_pad, starts, counts,
             counts.shape[-1], table, width, tile_w, tile_h, z_clip, keys,
-            rgba)
+            rgba, *_split_scratch(sorted_pad, counts, table))
     raster_tiles_keys_f32.launches += 1
     return keys, rgba
 
@@ -940,18 +978,15 @@ def _frame_of(tiles, nt: int, slots):
     return (tiles // nt).reshape((-1,) + (1,) * (slots.dim() - 1))
 
 
-def _pairs_walk(sorted_pad, starts, counts, table, width, tile_w, tile_h,
-                z_clip, mxu=0):
-    """:func:`_walk` over the sorted pair array (K1, K3, K2b, K2a and the
-    matrix-unit walk), one frame or B frames (leading B); the keys keep
-    the leading shape.  ``mxu=2`` rounds the table to bfloat16."""
+def _pairs_rows_at(sorted_pad, starts, counts, table):
+    """The rows of run slots of tiles through the sorted pair array, with
+    the kernel's clamps (``row_of<PAIRS>``): ``rows_at(tiles, slots)`` as
+    :func:`_walk` takes it, one frame or B frames (leading B)."""
     nt = counts.shape[-1]
     spad, nrows = sorted_pad.shape[-1], table.shape[-2]
     sp = sorted_pad.reshape(-1)
     st = starts.reshape(-1)
     tb = table.reshape(-1, ROW_W)
-    if mxu == 2:
-        tb = bf16_round(tb)
 
     def rows_at(tiles, slots):
         f = _frame_of(tiles, nt, slots)
@@ -959,8 +994,18 @@ def _pairs_walk(sorted_pad, starts, counts, table, width, tile_w, tile_h,
         tri = (sp[f * spad + idx] & IDX_MASK).clamp(max=nrows - 1)
         return tb[f * nrows + tri]
 
-    best, attr = _walk(counts.reshape(-1), rows_at, nt, width, tile_w,
-                       tile_h, z_clip, mxu)
+    return rows_at
+
+
+def _pairs_walk(sorted_pad, starts, counts, table, width, tile_w, tile_h,
+                z_clip, mxu=0):
+    """:func:`_walk` over the sorted pair array (K1, K3, K2b, K2a and the
+    matrix-unit walk), one frame or B frames (leading B); the keys keep
+    the leading shape.  ``mxu=2`` rounds the table to bfloat16."""
+    rows_at = _pairs_rows_at(sorted_pad, starts, counts,
+                             bf16_round(table) if mxu == 2 else table)
+    best, attr = _walk(counts.reshape(-1), rows_at, counts.shape[-1], width,
+                       tile_w, tile_h, z_clip, mxu)
     return best.reshape(counts.shape + best.shape[1:]), attr
 
 

@@ -31,7 +31,7 @@ def crafted_uv_table(table):
 
 def crafted_runs(lengths, tile_w: int = 32, tile_h: int = 32, seed: int = 0,
                  nan_share: float = 0.1, past_end: int = 0,
-                 mxu: bool = False):
+                 mxu: bool = False, knife: bool = False):
     """One row of ``len(lengths)`` tiles whose runs hold exactly
     ``lengths`` triangles each, for the split walk's boundaries: seeded
     triangles around their tile (most cover some of it, at depths partly
@@ -44,8 +44,12 @@ def crafted_runs(lengths, tile_w: int = 32, tile_h: int = 32, seed: int = 0,
     ``width`` x ``tile_h``, its attributes in [0, 1] (the third in
     [0.5, 1.5], a texel denominator); with ``mxu`` the table is the
     matrix-unit walk's affine one (``tile_raster.build_table_mxu``) of the
-    same triangles."""
+    same triangles; with ``knife`` every third triangle of each run is a
+    :func:`knife_edge_rows` row of its tile (on the warp boxes' borders at
+    tiles 128 wide), as :func:`crafted_bins` makes them."""
     from .ops import raster3d, tile_raster
+    if knife and mxu:
+        raise ValueError("knife-edge rows are edge-table rows: not with mxu")
     rng = np.random.default_rng(seed)
     nt = len(lengths)
     F = int(sum(lengths))
@@ -69,6 +73,10 @@ def crafted_runs(lengths, tile_w: int = 32, tile_h: int = 32, seed: int = 0,
                      dtype=torch.int32)
     counts = torch.tensor(lengths, dtype=torch.int32)
     starts = (torch.cumsum(counts, 0) - counts).int()
+    if knife:
+        for t, n in enumerate(lengths):
+            _knife(table, torch.arange(int(starts[t]), int(starts[t]) + n),
+                   tile_w, tile_h, t, seed)
     counts[-1] += past_end
     return torch.cat([ids, pad]), starts, counts, table, nt * tile_w
 
@@ -145,10 +153,16 @@ def crafted_bins(lengths, K: int, tile_w: int = 128, tile_h: int = 16,
         ids = tri[int(st[t]):int(st[t]) + min(n, K)]
         bins[t, :ids.numel()] = ids
         if knife:
-            sel = ids[1::3].long()
-            table[sel] = knife_edge_rows(tile_w, tile_h, t * tile_w,
-                                         sel.numel(), seed + 7 * t)
+            _knife(table, ids, tile_w, tile_h, t, seed)
     return bins, ct, table, width
+
+
+def _knife(table, ids, tile_w: int, tile_h: int, t: int, seed: int):
+    """Rows ids[1::3] of the table become :func:`knife_edge_rows` rows of
+    tile t of a row of tiles (seed + 7 t)."""
+    sel = ids[1::3].long()
+    table[sel] = knife_edge_rows(tile_w, tile_h, t * tile_w, sel.numel(),
+                                 seed + 7 * t)
 
 
 def mma_probe_plain(rows, ox: int, oy: int, tile_w: int, mxu: int):

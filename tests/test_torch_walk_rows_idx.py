@@ -18,10 +18,12 @@ rows (huge, negative, tiny, zero and NaN denominators,
 the item list fitting its capacity, and overflowing it: the plan then
 walks every tile as one item), ``mesh_10k`` at a small frame, one frame
 and 3 in one launch.  The plan for ROWS walks every slot once within the
-capacity the wrapper allocates.  Source-level checks: both entries take
-the split walk, and the one-block-a-tile walk (``fma_tile``) is K2a's
-alone.  The kernels themselves are held to the plain versions on the
-card by ``chip_smoke.py`` (phases 10, 11 and 13).
+capacity the wrapper allocates.  Source-level checks: K2b's, K6's and
+K2a's entries take the split walk, every walk entry of the file does
+and the one-block-a-tile walk (``fma_tile``) is gone, and
+``_kernels.WALKS`` names the occupancy entry's walk numbers.  The kernels
+themselves are held to the plain versions on the card by
+``chip_smoke.py`` (phases 10, 11 and 13).
 """
 
 import functools
@@ -34,6 +36,7 @@ import torch
 
 from libnativecpurenderer_tpu_torch import interop
 from libnativecpurenderer_tpu_torch.models import mesh
+from libnativecpurenderer_tpu_torch.ops import _kernels
 from libnativecpurenderer_tpu_torch.ops import raster3d as r3
 from libnativecpurenderer_tpu_torch.ops import tile_raster as tt
 from libnativecpurenderer_tpu_torch.testing import (crafted_runs,
@@ -208,7 +211,8 @@ def _body(src, head):
 
 @pytest.mark.parametrize("entry,epi,source", [
     ("tile_raster_tex_idx", "TEX_IDX", None),
-    ("tile_raster_rows_u8", "U8_GOURAUD", "ROWS")])
+    ("tile_raster_rows_u8", "U8_GOURAUD", "ROWS"),
+    ("tile_raster_keys_f32", "KEYS_F32", None)])
 def test_k2b_k6_entries_take_the_split_walk(entry, epi, source):
     # the entry launches the split walk (the plan kernel, then the
     # persistent walk) with its epilogue and row source, and takes the
@@ -221,20 +225,30 @@ def test_k2b_k6_entries_take_the_split_walk(entry, epi, source):
 
 
 def test_fma_tile_is_k2a_only():
-    # the one-block-a-tile walk is K2a's kernel alone: fma_tile carries no
-    # epilogue or row source of its own, and only K2a's entry launches it
+    # no kernel is left on the one-block-a-tile walk: fma_tile, its
+    # kernel, its launchers and its row chunk are gone, and every walk
+    # entry of the file returns a launch of the split walk
     src = _source()
-    tile = _body(src, "template <int PPT, bool ZCLIP>\n__device__ "
-                      "__forceinline__ void fma_tile(")
-    for name in ("U8_GOURAUD", "TEX_U8", "TEX_IDX", "ROWS", "BINS", "EPI"):
-        assert name not in tile
-    assert "row_of<PAIRS>" in tile and "ep.rgba" in tile
-    entries = re.findall(r"\nint (tile_raster_\w+)\(", src)
-    assert {"tile_raster_tex_idx", "tile_raster_rows_u8",
-            "tile_raster_keys_f32"} <= set(entries)
-    callers = [e for e in entries
-               if "return launch(" in _body(src, f"int {e}(")]
-    assert callers == ["tile_raster_keys_f32"]
-    assert re.findall(r"tile_raster_kernel<[^>]*>", src) == [
-        "tile_raster_kernel<PPT, true>", "tile_raster_kernel<PPT, false>",
-        "tile_raster_kernel<N, ZC>"]
+    for name in ("fma_tile", "tile_raster_kernel", "launch_ppt", "CHUNK =",
+                 "CHUNK]"):
+        assert name not in src
+    assert not re.search(r"[^_\w]launch\(", src)
+    entries = [e for e in re.findall(r"\nint (tile_raster_\w+)\(", src)
+               if e not in ("tile_raster_occupancy", "tile_raster_mma_probe")]
+    assert {"tile_raster_u8", "tile_raster_tex_u8", "tile_raster_tex_idx",
+            "tile_raster_keys_f32", "tile_raster_bins_f32",
+            "tile_raster_rows_u8"} == set(entries)
+    for e in entries:
+        assert re.search(r"return launch_split<[^>]*>\(",
+                         _body(src, f"int {e}(")), e
+    assert re.findall(r"__global__ void[^;{]*\n(\w+)\(", src) == [
+        "split_plan_kernel", "tile_raster_split_kernel", "mma_probe_kernel"]
+
+
+def test_occupancy_walks_are_the_c_entrys():
+    # _kernels.WALKS names the C entry's walk numbers in order: its index
+    # is the number tile_raster_occupancy switches on
+    body = _body(_source(), "int tile_raster_occupancy(")
+    cases = re.findall(r'case (\d+):\s*// "([^"]+)"', body)
+    assert [(int(n), w) for n, w in cases] == list(enumerate(_kernels.WALKS))
+    assert "default:" in body

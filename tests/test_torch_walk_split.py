@@ -13,7 +13,9 @@ and 1024 slots), a run whose reads run off the pair array (an
 overflowed run), NaN rows, and ``mesh_10k`` at a small frame (the
 affine planes of the MMA walk and the claim grain of K1-wf are held by
 tests/test_torch_mma_walk.py with this mirror, K2b's texel index and
-K6's rows gathered in pair order by tests/test_torch_walk_rows_idx.py).
+K6's rows gathered in pair order by tests/test_torch_walk_rows_idx.py,
+K2a's keys and float attributes with its warp-box cull over pairs by
+tests/test_torch_walk_keys.py).
 Also the plan's item list at the kernel's S: every slot of every run
 walked by exactly one item, no item for an empty run, long tiles' items
 first, within the capacity the wrapper allocates (``_split_scratch``,
@@ -132,16 +134,20 @@ def claim_sequence(n_items, wf, seed):
 
 
 def item_minima(sorted_pad, starts, counts, table, width, tile_w, tile_h,
-                z_clip, seg, mxu=0, cap=None):
+                z_clip, seg, mxu=0, cap=None, cull=False):
     """(items, each tile's item count, each item's minimum key (P,)): the
     walk of one item over its own slots, on the CUDA cores' planes (the
     FMA walk) or, with ``mxu``, on the affine planes of the MMA walk
     (``mxu=2`` rounding the table and the coordinates to bfloat16, as the
     plain version does); the items of :func:`plan` with capacity
-    ``cap``.  ``sorted_pad`` None: the runs index ``table`` (ROWS)."""
+    ``cap``.  ``sorted_pad`` None: the runs index ``table`` (ROWS).  With
+    ``cull`` (K2a at tiles 128 wide) a pixel sees only the rows
+    ``tile_raster.cull_keep`` keeps for its warp's box
+    (``tile_raster.warp_boxes``; other widths cull nothing)."""
     nt = counts.shape[-1]
     if mxu == 2:
         table = tt.bf16_round(table)
+    layout = tt.warp_boxes(tile_w, tile_h) if cull else None
     items, k_of = plan(counts, seg, cap)
     minima = []
     for b, lo, hi in items:
@@ -158,6 +164,9 @@ def item_minima(sorted_pad, starts, counts, table, width, tile_w, tile_h,
         cov = (e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0)
         if z_clip:
             cov = cov & (zz >= 0.0) & (zz <= 1.0)
+        if layout is not None:
+            keep = tt.cull_keep(r, _warp_box(b, nt, width, tile_w, tile_h))
+            cov = cov & keep[:, layout[1]]
         keys = ((zz * r3.Z_LEVELS).to(torch.int32) << r3.IDX_BITS) \
             | slots[:, None]
         keys = torch.where(cov, keys, r3.SKY_KEY)
@@ -167,7 +176,7 @@ def item_minima(sorted_pad, starts, counts, table, width, tile_w, tile_h,
 
 def split_walk(sorted_pad, starts, counts, table, width, tile_w, tile_h,
                z_clip, seg, mxu=0, wf=1, order=None, minima=None,
-               cap=None):
+               cap=None, cull=False):
     """(best keys (NB, P), attr) of the split walk: per item its minimum
     key, the items walked in the order blocks claiming ``wf`` at a time
     reach them (:func:`claim_sequence` with seed ``order``), merged by
@@ -177,13 +186,14 @@ def split_walk(sorted_pad, starts, counts, table, width, tile_w, tile_h,
     the affine plane 4 + d.  ``minima`` is :func:`item_minima`'s result
     for these inputs, when the caller has it; ``cap`` the item list's
     capacity (:func:`plan`); ``sorted_pad`` None: the runs index
-    ``table``, rows gathered in pair order (K6's ROWS source)."""
+    ``table``, rows gathered in pair order (K6's ROWS source); ``cull``
+    K2a's warp-box cull (:func:`item_minima`)."""
     nt = counts.shape[-1]
     nb = counts.numel()
     P = tile_w * tile_h
     if minima is None:
         minima = item_minima(sorted_pad, starts, counts, table, width,
-                             tile_w, tile_h, z_clip, seg, mxu, cap)
+                             tile_w, tile_h, z_clip, seg, mxu, cap, cull)
     items, k_of, item_min = minima
     merged = torch.full((nb, P), r3.SKY_KEY, dtype=torch.int32)
     best = merged.clone()

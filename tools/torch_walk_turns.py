@@ -1,6 +1,6 @@
-"""K1's, K3's, K2b's and K6's split walks, K5 and K4 of two checkouts of
-the PyTorch port, timed in turns on one card, so that a change to the
-kernels is measured against the commit before it.
+"""K1's, K3's, K2b's, K6's and K2a's split walks, K5 and K4 of two
+checkouts of the PyTorch port, timed in turns on one card, so that a
+change to the kernels is measured against the commit before it.
 
     python3 tools/torch_walk_turns.py --base DIR [--approx]
 
@@ -20,7 +20,16 @@ default).  Both checkouts' outputs must be bit-equal.  Times are
 chip_smoke.in_turns: CUDA events, the calls queued behind a sleep (device
 time alone), each timed twice in the order base, this, this, base.  Also
 prints the registers and spills ptxas reported for both builds' split
-walks on the CUDA cores (K1, K3, K2b, K5, K6: whichever the build has).
+walks on the CUDA cores (K1, K3, K2b, K2a, K5, K6: whichever the build
+has) and for the one-block-a-tile walk's kernel (``fma_tile``, where a
+build still has it).
+
+K2a (``raster_tiles_keys_f32``) at its three main paths' shapes, z test
+on: render_textured's prep of bench.py's textured mesh at 128x8 (span
+(2, 10), capacity 512) one frame a launch, render_gouraud_pallas
+(flat=True)'s at 128x16 (span (8, 8)) one frame a launch and the batch
+entry's flat prep at 128x32 (span (8, 4)) with the 4 frames in one
+launch; keys and attribute bits equal between the checkouts.
 
 K5 (``raster_tiles_bins_f32``) on render_gouraud_pallas's prep of the same
 4 cameras: one frame a launch at its defaults (128x16, capacity 512, span
@@ -77,14 +86,16 @@ def load_base(root: Path):
 
 
 # (EPI, SRC) of the split walk's CUDA-core instantiations, by kernel
-SPLIT_KERNELS = {(0, 0): "K1", (1, 0): "K3", (2, 0): "K2b", (3, 1): "K5",
-                 (0, 2): "K6"}
+SPLIT_KERNELS = {(0, 0): "K1", (1, 0): "K3", (2, 0): "K2b", (3, 0): "K2a",
+                 (3, 1): "K5", (0, 2): "K6"}
 
 
 def fma_split_regs(log: str) -> str:
     """'kernel PPT/ZCLIP[/BOX] regs spills' of the split walk's CUDA-core
-    instantiations with one item a claim (K1, K3, K2b, K5, K6, as the
-    build has them) in a ptxas -v log."""
+    instantiations with one item a claim (K1, K3, K2b, K2a, K5, K6, as the
+    build has them) and of the one-block-a-tile walk's kernel
+    (tile_raster_kernel<PPT, ZCLIP>, K2a's where a build has it) in a
+    ptxas -v log."""
     out = []
     for e in cs.ptxas_summary(log).split("; "):
         # tile_raster_split_kernel<PPT, ZCLIP, EPI[, WALK_FMA, false[,
@@ -97,6 +108,10 @@ def fma_split_regs(log: str) -> str:
             box = "/box" if m.group(5) == "1" else ""
             out.append(f"{name} {m.group(1)}/{m.group(2)}{box} "
                        f"{m.group(6)}")
+        m = re.search(r"tile_raster_kernelILi(\d+)ELb([01])EEEv\w*: (.*)", e)
+        if m:
+            out.append(f"fma_tile (K2a) {m.group(1)}/{m.group(2)} "
+                       f"{m.group(3)}")
     return "; ".join(sorted(out))
 
 
@@ -156,6 +171,62 @@ def k5_turns(card, dev, ours, base_tr, mvps, verts, faces, pre):
         turns_line(card, f"K5 at {label} ({cfg}), ms/frame in turns "
                    f"(queued, mean of 4 cameras; 'batch' = the 4 frames in "
                    f"one launch; keys and attribute bits equal)", t)
+
+
+def k2a_turns(card, ours, base_tr, mvps, verts, faces, colors, tex_mesh):
+    """K2a of both checkouts on the 4 cameras at its three main paths'
+    shapes, in turns (see the module docstring); ``tex_mesh`` = (verts,
+    faces, face uvs) of the textured scene."""
+    r3, tr = ours["ops.raster3d"], ours["ops.tile_raster"]
+    keys = ("sorted_pad", "starts", "counts", "table")
+    shapes = (
+        ("128x8 (render_textured)", cs.defaults(r3.render_textured), True,
+         False),
+        ("128x16 (render_gouraud_pallas(flat=True))",
+         cs.defaults(r3.render_gouraud_pallas), False, False),
+        ("128x32 (render_gouraud_pallas_batch(flat=True))",
+         cs.defaults(r3.render_gouraud_pallas_batch), False, True))
+    tv, tf, fuv = tex_mesh
+    for label, cfg, textured, batched in shapes:
+        if textured:
+            preps = [r3.prepare_textured_frame(
+                tv, tf, fuv, cs.WIDTH, cs.HEIGHT, m, perspective_correct=True,
+                z_clip=True, exact_c=False, **cfg) for m in mvps]
+        else:
+            preps = [r3.prepare_frame(verts, faces, colors, cs.WIDTH,
+                                      cs.HEIGHT, m, z_clip=True,
+                                      exact_c=False, **cfg) for m in mvps]
+        if any(bool(p["overflow"]) for p in preps):
+            raise AssertionError(f"a K2a prep overflows at {label}")
+        tail = (cs.WIDTH, cfg["tile_w"], cfg["tile_h"])
+        one = [tuple(p[k] for k in keys) for p in preps]
+        four = tuple(torch.stack([p[k] for p in preps]) for k in keys)
+        calls = {n: t.raster_tiles_keys_f32 for n, t in (("base", base_tr),
+                                                          ("this", tr))}
+        outs = {n: [call(*a, *tail, z_clip=True) for a in one]
+                + [call(*four, *tail, z_clip=True)]
+                for n, call in calls.items()}
+        torch.cuda.synchronize()
+        bad = sum(cs.same_bits(a, b)
+                  for x, y in zip(outs["base"], outs["this"])
+                  for a, b in zip(x, y))
+        if bad:
+            raise AssertionError(f"K2a at {label}: the checkouts differ on "
+                                 f"{bad} values")
+        fns = {}
+        for n, call in calls.items():
+            if batched:
+                fns[f"{n} batch"] = lambda call=call: call(*four, *tail,
+                                                           z_clip=True)
+            else:
+                fns[n] = lambda call=call: [call(*a, *tail, z_clip=True)
+                                            for a in one]
+        t = {k: [x / len(one) for x in vs]
+             for k, vs in cs.in_turns(fns).items()}
+        turns_line(card, f"K2a at {label} ({cfg}, z test on), ms/frame in "
+                   f"turns (queued, mean of 4 cameras; 'batch' = the 4 "
+                   f"frames in one launch; keys and attribute bits equal)",
+                   t)
 
 
 def k6_turns(card, ours, base_tr, mvps, verts, faces, colors, pre):
@@ -337,7 +408,8 @@ def main() -> None:
               f"{cs.ptxas_summary(k.build_log('canvas_span'))}", flush=True)
     log = ours["ops._kernels"].build_log("tile_raster")
     print(f"[walk turns] this: {cs.check_k5_build(log)}; "
-          f"{cs.check_k2b_k6_build(log)}", flush=True)
+          f"{cs.check_k2b_k6_build(log)}; {cs.check_k2a_build(log)}",
+          flush=True)
     card = cs.nvidia_smi()
     mesh, interop = ours["models.mesh"], ours["interop"]
     r3, tr = ours["ops.raster3d"], ours["ops.tile_raster"]
@@ -408,6 +480,7 @@ def main() -> None:
                        f"in turns (queued, mean of 4 cameras; 'batch' = the "
                        f"4 frames in one launch; outputs bit-equal)", t)
     k6_turns(card, ours, base_tr, mvps, verts, faces, colors, pre)
+    k2a_turns(card, ours, base_tr, mvps, verts, faces, colors, (tv, tf, fuv))
     k5_turns(card, dev, ours, base_tr, mvps, verts, faces, pre)
     k4_turns(card, dev, ours, base_ck, args.approx)
 
