@@ -1,6 +1,7 @@
 """On-card smoke run of the PyTorch port: the mesh -> u8 frame path, the
 2D canvas, the textured mesh -> u8 frame path, the float/depth Gouraud
-rasterizer and the wf= and mxu= routes of the u8 entries.
+rasterizer, the wf= and mxu= routes of the u8 entries and the recorded
+2D frame -> u8 pipeline.
 
     python3 chip_smoke.py
 
@@ -183,7 +184,23 @@ raising:
      video shape and the entries' defaults; K3's mxu walk beside K3 the
      same way; the plain versions; bounds (K1-mxu's the larger of its
      tensor-core work at the dense bf16 peak and its CUDA-core work),
-     registers and blocks an SM.
+     registers and blocks an SM;
+ 18. frame pipeline: bench.py:700-775's e2e mix (a fill, 24 split blits
+     of 4 seeded 128x128 textures, 8 rects) recorded at 1920x1080
+     float32 on a MultiThreadedVideoRenderContextPreparer, 45 frames
+     through BatchedVideoPipeline at batch 15 from a zero fb0, both on
+     their default device, the card; K4 launched twice a frame (added to
+     its kernel-table entry), every frame the sink receives bit-equal to
+     the same frame flushed by a RenderContext on the card from fb0, the
+     last one to the CPU port's; then the mix beside a 256x256 shared
+     texture its owner redraws every frame and 2 hit effects of it: each
+     frame bit-equal to its flush at its record point (from an owner of
+     its own) outside the hit effects' windows, within HIT_FLIP_SHARE
+     inside, the store no longer growing after 2 batches and the
+     retired region sets bounded; then ms/frame and frames/s on the host
+     clock (3 runs after a warm one, into a sink that drops the frames),
+     launches, syncs and copies a frame, the device's busy share
+     (profiler, 15 frames) and peak device memory.
 The line before the last is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}.
 """
@@ -3116,6 +3133,235 @@ def canvas_phases(dev, card: str) -> dict:
             "bound_by": bound[3], "library_ms": None}
 
 
+PIPE_FRAMES, PIPE_BATCH = 45, 15
+SHARED_SIZE = 256
+
+
+def e2e_draw(ctx, texs, t):
+    """bench.py:720-732's draw(t), the e2e cell's frame at 1920x1080: a dim
+    full-frame fill, 24 split blits of 4 textures and 8 rects."""
+    W, H = WIDTH, HEIGHT
+    ctx.fill_color(0.05, 0.05, 0.08, 0.25)
+    r2 = np.random.default_rng(42)
+    for i in range(24):
+        x = float(r2.uniform(0, W - 140) + 40 * math.sin(t * 2 + i))
+        y = float(r2.uniform(0, H - 140))
+        ctx.draw_splitted_texture(texs[i % 4], x, y, 100.0, 50.0,
+                                  0.1, 0.9, 0.0, 1.0)
+    for i in range(8):
+        ctx.draw_rect(float(r2.uniform(0, W - 60)),
+                      float(r2.uniform(0, H - 60)),
+                      40.0, 24.0, 0.2, 0.8, 0.4, 0.7)
+
+
+def owner_draw(owner, i):
+    """Frame i of the shared texture's owner: a fill and a circle, both
+    changing with i."""
+    s = SHARED_SIZE
+    owner.fill_color((i % 8) / 8.0, 0.3, 1.0 - (i % 5) / 5.0,
+                     0.5 + (i % 2) / 4.0)
+    owner.draw_circle(s / 2 + 40 * math.sin(i), s / 2, 30.0 + 2 * (i % 20),
+                      0.9, 0.8, 0.1, 0.9)
+
+
+def shared_draw(ctx, shared, hit, i):
+    """The shared variant's draws beside the e2e mix: the owner's shared
+    texture, moving with i, and two hit effects of it (the fast path and
+    a rotated one)."""
+    ctx.draw_texture(shared, 200.0 + 8 * i, 300.0, 256.0, 256.0)
+    ctx.draw_texture(hit, 900.0, 200.0, 300.0, 300.0)
+    ctx.save_state()
+    ctx.translate(1400.0, 700.0)
+    ctx.rotate(0.05 * i)
+    ctx.draw_texture(hit, -150.0, -150.0, 300.0, 300.0)
+    ctx.restore_state()
+
+
+def pipeline_phase(dev, card: str, k4_row: dict) -> None:
+    """Phase 18: the record -> u8 pipeline on bench.py:700-775's e2e mix;
+    adds its K4 launches to K4's entry of the kernel table."""
+    from libnativecpurenderer_tpu_torch import (
+        BatchedVideoPipeline, HitEffectTexture,
+        MultiThreadedVideoRenderContextPreparer, RenderContext, Texture)
+    from libnativecpurenderer_tpu_torch import atlas
+    from libnativecpurenderer_tpu_torch.ops import canvas_kernel
+    from libnativecpurenderer_tpu_torch.ops import commands as C
+    from libnativecpurenderer_tpu_torch.ops.executor import sample_window
+
+    rng = np.random.default_rng(0)
+    texs = [Texture._from_array(rng.random((128, 128, 4)), True)
+            for _ in range(4)]
+    # the proxy, the pipelines and the flushing contexts on their default
+    # device, the card
+    rec = MultiThreadedVideoRenderContextPreparer(None, WIDTH, HEIGHT, True)
+    dtype = rec._dtype
+    fb0 = torch.zeros((HEIGHT, WIDTH, 4), dtype=dtype, device=dev)
+    flush_ctx = RenderContext(WIDTH, HEIGHT, True)
+    if rec.device.type != dev.type or flush_ctx.device.type != dev.type:
+        raise AssertionError("the proxy is not on the card")
+
+    def record(n, sink, extra=None):
+        """Record n frames of the mix on the proxy (extra(i) draws more
+        after each) into a pipeline of batch PIPE_BATCH from fb0."""
+        pipe = BatchedVideoPipeline(sink, WIDTH, HEIGHT, PIPE_BATCH, dtype,
+                                    fb0)
+        if pipe.device.type != dev.type:
+            raise AssertionError("the pipeline is not on the card")
+        for i in range(n):
+            e2e_draw(rec, texs, i * 0.016)
+            if extra is not None:
+                extra(i)
+            pipe.submit(*rec._cmds.snapshot())
+            rec._cmds.clear()
+        pipe.finish()
+
+    def flushed(draw):
+        """The u8 frame of draw(ctx) flushed by a RenderContext from fb0."""
+        flush_ctx._fb.copy_(fb0)
+        draw(flush_ctx)
+        return flush_ctx.uint8_buffer()
+
+    # (a), (b): the main path, K4's launches counted from zero
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mib = torch.cuda.memory_allocated() / 2 ** 20
+    sink = PlainSink()
+    canvas_kernel.render_span.launches = 0
+    record(PIPE_FRAMES, sink)
+    launches = canvas_kernel.render_span.launches
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    if launches != 2 * PIPE_FRAMES:
+        raise AssertionError(f"K4 launched {launches} times for "
+                             f"{PIPE_FRAMES} pipeline frames")
+    if len(sink.frames) != PIPE_FRAMES:
+        raise AssertionError(f"the sink got {len(sink.frames)} frames")
+    bad = []
+    for i, fr in enumerate(sink.frames):
+        if fr.shape != (HEIGHT, WIDTH, 4) or fr.dtype != np.uint8:
+            raise AssertionError(f"frame {fr.shape} {fr.dtype}")
+        want = flushed(lambda c: e2e_draw(c, texs, i * 0.016))
+        if not np.array_equal(fr, want):
+            bad.append(i)
+    k = PIPE_FRAMES - 1
+    cpu = RenderContext(WIDTH, HEIGHT, True, device="cpu")
+    e2e_draw(cpu, texs, k * 0.016)
+    cpu_diff = int((cpu.uint8_buffer() != sink.frames[k]).sum())
+    lit = float((sink.frames[k][..., :3] > 0).any(-1).mean())
+    print(f"[pipeline main path] MultiThreadedVideoRenderContextPreparer "
+          f"-> BatchedVideoPipeline at {WIDTH}x{HEIGHT} "
+          f"{str(dtype)[6:]} on the card, {PIPE_FRAMES} frames of "
+          f"bench.py's e2e mix at batch {PIPE_BATCH} from a zero fb0: K4 "
+          f"launches {launches} = 2 x frames; frames differing from their "
+          f"RenderContext flush on the card: {bad}; frame {k} vs the CPU "
+          f"port: {cpu_diff} bytes differ; {lit:.4f} of its pixels lit",
+          flush=True)
+    if bad or cpu_diff:
+        raise AssertionError("a pipeline frame differs from its flush")
+    if lit < 0.05:
+        raise AssertionError("the pipeline frame is mostly dark")
+    del sink
+
+    # (c), (d): a shared texture and hit effects of it beside the mix,
+    # against their own owner's on the flushing path
+    owners = [RenderContext(SHARED_SIZE, SHARED_SIZE, True)
+              for _ in range(2)]
+    shared = [o.as_texture_shared() for o in owners]
+    hits = [HitEffectTexture(m, 0.37, 0.45, 0.59, 0.56, 0.99)
+            for m in shared]
+    store = atlas.get_store(dtype, rec.device)
+    wants, inside, marks, retired = [], [], [], []
+
+    def extra(i):
+        for o in owners:
+            owner_draw(o, i)
+        shared_draw(rec, shared[0], hits[0], i)
+        kinds, params = rec._cmds.snapshot()
+        box = np.zeros((HEIGHT, WIDTH), bool)
+        for kd, q in zip(kinds.tolist(), params[:, 6:10].astype(np.float32)):
+            win = sample_window(q, WIDTH, HEIGHT)
+            if kd == C.KIND_HITEFFECT and win is not None:
+                box[win[2]:win[3], win[0]:win[1]] = True
+        inside.append(box)
+        wants.append(flushed(lambda c: (e2e_draw(c, texs, i * 0.016),
+                                        shared_draw(c, shared[1], hits[1],
+                                                    i))))
+        marks.append(store._y_next)
+        retired.append(len(shared[0]._retired))
+
+    sink = PlainSink()
+    record(PIPE_FRAMES, sink, extra)
+    flips, outside, allowed = [], 0, 0
+    for fr, want, box in zip(sink.frames, wants, inside):
+        px = (fr != want).any(-1)
+        outside += int(px[~box].sum())
+        flips.append(int(px.sum()))
+        allowed = max(allowed, int(HIT_FLIP_SHARE * box.sum()))
+    settled = 2 * PIPE_BATCH
+    print(f"[pipeline shared texture] {PIPE_FRAMES} frames of the mix with "
+          f"a {SHARED_SIZE}x{SHARED_SIZE} shared texture its owner redraws "
+          f"each frame and 2 hit effects of it, batch {PIPE_BATCH}, "
+          f"against the same frames flushed at their record point: "
+          f"{outside} pixels differ outside the hit effects' windows, "
+          f"pixels differing a frame {flips} (allowed {allowed} inside); "
+          f"store rows in use after each batch "
+          f"{marks[PIPE_BATCH - 1::PIPE_BATCH]}, retired region sets at "
+          f"most {max(retired)}, {len(shared[0]._region_pool.get(store, []))}"
+          f" regions in the pool", flush=True)
+    if outside or max(flips) > allowed:
+        raise AssertionError("a shared-texture pipeline frame differs from "
+                             "its flush")
+    if marks[-1] != marks[settled]:
+        raise AssertionError(f"the store still grows: {marks}")
+    if max(retired) > 2 * PIPE_BATCH + 2:
+        raise AssertionError(f"retired region sets pile up: {retired}")
+    if not (sink.frames[-1][..., 3] > 0).any():
+        raise AssertionError("the shared variant drew nothing")
+    del sink, wants
+
+    # (e) times, with a sink that drops the frames
+    drop = DropSink()
+    record(PIPE_FRAMES, drop)                       # warm
+    frame_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        record(PIPE_FRAMES, drop)
+        torch.cuda.synchronize()
+        frame_ms.append(1e3 * (time.perf_counter() - t) / PIPE_FRAMES)
+    t = time.perf_counter()
+    for i in range(PIPE_FRAMES):              # the record alone
+        e2e_draw(rec, texs, i * 0.016)
+        rec._cmds.snapshot()
+        rec._cmds.clear()
+    record_ms = 1e3 * (time.perf_counter() - t) / PIPE_FRAMES
+    per_frame, busy, prof = profile_frames(
+        lambda: record(PIPE_BATCH, drop), PIPE_BATCH)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    mid = sorted(frame_ms)[1]
+    print(f"[pipeline times] {card}: e2e record -> u8 at {WIDTH}x{HEIGHT} "
+          f"{str(dtype)[6:]}, batch {PIPE_BATCH}: {sorted(frame_ms)} "
+          f"ms/frame, {1e3 / mid} frames/s at the median (host clock, 3 "
+          f"runs of {PIPE_FRAMES} frames after a warm run, record, render, "
+          f"u8 and the pinned copy to a sink that drops the frames); per "
+          f"frame over {PIPE_BATCH} profiled frames: "
+          f"{per_frame['cudaLaunchKernel']} cudaLaunchKernel, "
+          f"{per_frame['cudaStreamSynchronize']} cudaStreamSynchronize, "
+          f"{per_frame['cudaMemcpyAsync']} cudaMemcpyAsync; device {busy}; "
+          f"peak device memory {peak_mib} MiB in the main path, "
+          f"{peak_mib - base_mib} MiB above the {base_mib} MiB held before "
+          f"it; the record alone {record_ms} ms/frame (host clock, "
+          f"{PIPE_FRAMES} frames)", flush=True)
+    print(f"[pipeline times] device ms per frame by kernel (profiler): "
+          + "; ".join(f"{name[:60]} {1e-3 * us / PIPE_BATCH:.4f}"
+                      for name, us in top), flush=True)
+    k4_row["launches"] += launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -3135,6 +3381,7 @@ def main() -> None:
     tex_rows = textured_phases(dev, card)
     gouraud_rows = gouraud_phases(dev, card, tex_rows[2])
     wf_mxu_rows = wf_mxu_phases(dev, card)
+    pipeline_phase(dev, card, k4)
     print(json.dumps({"kernels": [k1, k4, *tex_rows, *gouraud_rows,
                                   *wf_mxu_rows]}))
     print(card)

@@ -17,6 +17,13 @@ reference it is tested against.  Slices so far:
   * the 2D canvas: ``RenderContext`` records draw calls on the host and
     its flush runs arithmetic command runs through a hand-written CUDA
     kernel (``csrc/canvas_span.cu``) and texture blits as torch ops;
+  * the 2D frame pipeline: ``MultiThreadedVideoRenderContextPreparer``
+    records frames without executing them, ``BatchedVideoPipeline``
+    renders them in batches through the canvas flush from a shared
+    ``fb0``, quantises them to u8 on the device and hands them to a sink;
+    a shared texture the proxy samples is refreshed into fresh atlas
+    regions, and the superseded ones are recycled once no pending frame
+    can read them;
   * the float and depth Gouraud rasterizer: ``render_gouraud_pallas``
     and ``render_gouraud_pallas_batch`` (the gridded kernel over
     materialised bins, the flat f32 and u8 kernels, the kernel over rows
@@ -34,7 +41,7 @@ Nothing here imports JAX.
 """
 
 from . import config
-from .context import RenderContext
+from .context import MultiThreadedVideoRenderContextPreparer, RenderContext
 from .helpers import Helpers
 from .interop import (canvas_to_torch, commands_to_torch,
                       kernel_inputs_to_torch, mesh_to_torch, prep_to_torch,
@@ -45,7 +52,7 @@ from .ops.raster3d import (pack_texture_u8, render_blended, render_gouraud,
                            render_gouraud_u8_loop, render_textured,
                            render_textured_binned, render_textured_u8,
                            render_textured_u8_batch, render_textured_u8_loop)
-from .pipeline import MeshVideoPipeline
+from .pipeline import BatchedVideoPipeline, MeshVideoPipeline
 from .texture import HitEffectTexture, PtrCreatedTexture, Texture
 
 VERSION = 1  # same LIB_NATIVE_CPU_RENDERER_VERSION as the JAX package
@@ -56,9 +63,11 @@ def get_version() -> int:
 
 
 __all__ = [
+    "BatchedVideoPipeline",
     "Helpers",
     "HitEffectTexture",
     "MeshVideoPipeline",
+    "MultiThreadedVideoRenderContextPreparer",
     "PtrCreatedTexture",
     "RenderContext",
     "Texture",

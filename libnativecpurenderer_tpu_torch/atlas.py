@@ -5,15 +5,20 @@ a context samples live in one fixed-width ``(AH, ATLAS_WIDTH, 4)`` tensor
 (shelf packing); a sampling command references its texture by an
 ``(ox, oy, w, h)`` region.  There is one store for each (dtype, device),
 so contexts on the CPU and on the card, in float32 and float64, each
-sample their own.  Regions are never freed, as the reference's Destroy*
-functions are intentional no-op leaks (cpp:33-37,356-360).
+sample their own.  A texture's region is not freed when the texture
+dies, as the reference's Destroy* functions are intentional no-op leaks
+(cpp:33-37,356-360); the superseded regions of a shared texture that a
+recording proxy samples are recycled (``texture.py``, with the dispatch
+fences below).
 
 The store is updated in place.  A flush reads it on the stream that
-wrote it, so a command sees every upload made before its flush.
+wrote it, so a command sees every upload made before its flush, and none
+made after: everything runs on the device's current stream.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Dict, List, Tuple
 
 import torch
@@ -99,3 +104,34 @@ def get_store(dtype, device) -> TextureStore:
 def reset_stores() -> None:
     """Testing hook: drop all atlas state."""
     _stores.clear()
+    _pipelines.clear()
+
+
+# -- dispatch fences (``libnativecpurenderer_tpu/atlas.py:106-147``) ------
+# Each frame pipeline counts its flushes: a fence means that every frame
+# pending in it was queued on the stream.  A retired shared-texture
+# region is reused once every pipeline alive when its samplers let go
+# has fenced again or died (texture.py); counters of their own keep
+# interleaved pipelines from stalling each other.
+
+_pipelines: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def register_pipeline(pipe) -> None:
+    pipe._fence_count = 0
+    _pipelines.add(pipe)
+
+
+def dispatch_fence(pipe) -> None:
+    """Called by a pipeline once it has queued its pending frames."""
+    pipe._fence_count += 1
+
+
+def pipeline_stamp():
+    """(weak reference, fence count) of every live pipeline."""
+    return [(weakref.ref(p), p._fence_count) for p in _pipelines]
+
+
+def stamp_passed(stamp) -> bool:
+    """True once every stamped pipeline has fenced again or died."""
+    return all(p() is None or p()._fence_count > c for p, c in stamp)

@@ -73,6 +73,13 @@ def execute(fb, kinds, params, atlas, host_params):
 
 
 class RenderContext:
+    # True on recording proxies, whose command buffer is snapshotted each
+    # frame (MultiThreadedVideoRenderContextPreparer): a flush in the
+    # middle of a frame would execute its queued commands into _fb and
+    # drop them from the submitted frame, so a shared texture's refresh
+    # must not flush one (see _tex_specific)
+    _no_flush_record = False
+
     def __init__(self, width: int, height: int, enable_alpha: bool,
                  dtype=None, *, device="cuda"):
         self.width = int(width)
@@ -270,14 +277,34 @@ class RenderContext:
 
     def _tex_specific(self, tex, x, y, width, height):
         # a shared texture aliases its owner's live framebuffer; when the
-        # owner has drawn since the last snapshot, first flush THIS
-        # context (earlier recorded samples must see the old texels),
-        # then re-snapshot (texture._refresh_shared flushes the owner)
+        # owner has drawn since the last snapshot, take a new one
+        # (``libnativecpurenderer_tpu/context.py:530-570``)
         owner = tex._shared_ctx
         if owner is not None and tex._shared_seq != owner._seq:
-            self.flush()
-            tex._refresh_shared()
+            if owner._no_flush_record and owner._cmds.n > 0:
+                # refreshing would flush the owner, consuming its queued
+                # frame into its framebuffer
+                raise ValueError(
+                    "shared texture sampled while its owner (a recording "
+                    "proxy) has pending commands: the owner's framebuffer "
+                    "is undefined until its batch executes")
+            if self._no_flush_record:
+                # a proxy cannot flush, and frames pending in a pipeline
+                # still read the current texels: give the new ones fresh
+                # regions (texture.py recycles the old)
+                tex._refresh_shared_new_region()
+            else:
+                # earlier recorded samples must see the old texels: flush
+                # this context first, then update the regions in place
+                # (texture._refresh_shared flushes the owner)
+                self.flush()
+                tex._refresh_shared()
             tex._shared_seq = owner._seq
+        # the command references the current regions of the texture it
+        # samples (a hit effect's mask's): guard them until it has run
+        src = tex._source
+        if src._shared_ctx is not None:
+            src._note_recording_sampler(self)
         scale_x = tex.width / width
         scale_y = tex.height / height
         ox, oy = tex.region_for(self._store)
@@ -407,3 +434,32 @@ class RenderContext:
         mode = "RGBA" if self.enable_alpha else "RGB"
         return Image.frombytes(mode, (self.width, self.height),
                                bytes(self.uint8_buffer().tobytes()))
+
+
+class MultiThreadedVideoRenderContextPreparer(RenderContext):
+    """A recording proxy (the reference's unfinished frame-batching proxy,
+    pybind:302-367; ``libnativecpurenderer_tpu/context.py:707-726``).
+
+    Draw calls record as on a ``RenderContext`` (``*args`` and
+    ``**kwargs`` are its arguments, ``device="cuda"`` by default), but
+    the proxy never flushes them itself: :meth:`end_of_frame` appends the
+    frame's ``(kinds, params)`` snapshot to ``frames`` and starts a fresh
+    buffer, and a ``BatchedVideoPipeline`` renders the frames.  A shared
+    texture it samples is refreshed into fresh atlas regions, so each
+    recorded frame keeps the texels of its own record point."""
+
+    _no_flush_record = True
+
+    def __init__(self, v_cap, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.v_cap = v_cap
+        self.frames = []
+
+    def end_of_frame(self):
+        # the snapshot's views keep their params array, and with it the
+        # recycling guard of the regions they sample, alive
+        self.frames.append(self._cmds.snapshot())
+        self._cmds = C.CommandBuffer()
+
+    def renderer(self):  # parity stub (pybind:362-367)
+        pass

@@ -50,6 +50,8 @@ Param layout (host float64, cast to the framebuffer dtype at flush):
 
 from __future__ import annotations
 
+import weakref
+
 import numpy as np
 
 PARAM_W = 32
@@ -78,11 +80,23 @@ class CommandBuffer:
         self.kinds = np.zeros(capacity, dtype=np.int32)
         self.params = np.zeros((capacity, PARAM_W), dtype=np.float64)
         self.n = 0
+        # bumped by clear(): shared-texture region recycling reads it to
+        # see that the recorded commands were handed off (texture.py)
+        self.gen = 0
+        # every params array the buffer has held, weakly: a snapshot
+        # view keeps its array alive after the buffer grew or was dropped
+        self.arrays = [weakref.ref(self.params)]
 
     def _grow(self) -> None:
-        cap = self.kinds.shape[0] * 2
-        self.kinds = np.resize(self.kinds, cap)
-        self.params = np.resize(self.params, (cap, PARAM_W))
+        # new arrays that own their memory (np.resize returns a view, of
+        # which a snapshot would keep only the base alive)
+        n = self.kinds.shape[0]
+        kinds = np.zeros(2 * n, dtype=np.int32)
+        params = np.zeros((2 * n, PARAM_W), dtype=np.float64)
+        kinds[:n] = self.kinds
+        params[:n] = self.params
+        self.kinds, self.params = kinds, params
+        self.arrays.append(weakref.ref(self.params))
 
     def append(self, kind: int, common, specific) -> None:
         """common = (inv6, aabb4, ct4); specific = flat list for slots 14+."""
@@ -101,6 +115,7 @@ class CommandBuffer:
 
     def clear(self) -> None:
         self.n = 0
+        self.gen += 1
 
     def snapshot(self):
         """Return (kinds, params) views of the recorded region."""

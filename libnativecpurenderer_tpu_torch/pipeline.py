@@ -1,13 +1,15 @@
-"""Mesh -> video frame pipeline (Gouraud and textured), in PyTorch.
+"""Frame pipelines, in PyTorch: recorded 2D frames and meshes -> u8
+video frames.
 
-Counterpart of ``MeshVideoPipeline`` in
-``libnativecpurenderer_tpu/pipeline.py:219-320``: MVPs are submitted per
-frame, rendered in device batches by ``raster3d.render_gouraud_u8_loop``
-or ``raster3d.render_textured_u8_loop``, and handed to a frame sink.  The
-MP4 encoder of the JAX package (``VideoCap``, ROADMAP M4) is not ported
-yet; a sink is any object with
-``put_frame_u8(frame (H, W, 4) uint8)`` or, for the kernel's per-tile
-layout, ``put_frame_tiled_u8(tiles (NT, P, 4) uint8, w, h, tw, th)``.
+Counterparts of ``BatchedVideoPipeline`` and ``MeshVideoPipeline`` in
+``libnativecpurenderer_tpu/pipeline.py:48-320``.  Frames are rendered in
+device batches, quantised to u8 on the device and handed to a frame
+sink through pinned host memory, one batch behind: batch k reaches the
+sink while batch k + 1 renders.  The MP4 encoder of the JAX package
+(``VideoCap``, ROADMAP M4) is not ported yet; a sink is any object with
+``put_frame_u8(frame (H, W, 4) uint8)`` or, for the mesh kernel's
+per-tile layout, ``put_frame_tiled_u8(tiles (NT, P, 4) uint8, w, h, tw,
+th)``.
 """
 
 from __future__ import annotations
@@ -17,8 +19,124 @@ import inspect
 import numpy as np
 import torch
 
-from . import interop
-from .ops import raster3d
+from . import atlas, config, interop
+from .context import _NP_DTYPES, _float_dtype, execute
+from .ops import executor, raster3d
+
+
+class _HostFrames:
+    """The u8 frames of one batch on their way to the sink: a pinned
+    device-to-host copy queued on the current stream and the event that
+    marks its end (on the CPU, the frames themselves)."""
+
+    def __init__(self, frames) -> None:
+        self.done = None
+        if frames.device.type == "cuda":
+            self.host = torch.empty(frames.shape, dtype=frames.dtype,
+                                    pin_memory=True)
+            self.host.copy_(frames, non_blocking=True)
+            self.done = torch.cuda.Event()
+            self.done.record(torch.cuda.current_stream(frames.device))
+        else:
+            self.host = frames
+
+    def numpy(self) -> np.ndarray:
+        if self.done is not None:
+            self.done.synchronize()
+        return self.host.numpy()
+
+
+class BatchedVideoPipeline:
+    """Render recorded 2D frames in batches of ``batch`` on ``device``
+    (the card unless the caller asks for ``"cpu"``) and feed them to
+    ``cap.put_frame_u8``.
+
+        rec = MultiThreadedVideoRenderContextPreparer(None, W, H, True)
+        pipe = BatchedVideoPipeline(sink, W, H, batch=16)
+        for each frame:
+            record on rec ...
+            pipe.submit(*rec._cmds.snapshot()); rec._cmds.clear()
+        pipe.finish()
+
+    :meth:`submit` copies a frame's ``(kinds, params)`` (a recorded
+    command list, ``ops/commands.py``).  Each frame starts from a copy of
+    ``fb0`` ((H, W, 4), zeros by default; e.g. a pre-composited static
+    background) and runs through ``context.execute``, the flush of a
+    ``RenderContext``: K4 for each run of arithmetic commands, torch ops
+    for each sampling command, reading the atlas store of (``dtype``,
+    ``device``) as it stands at the flush.  Every upload and every frame
+    goes on the device's current stream, so a frame reads each atlas
+    region as the uploads queued before its batch left it.  The JAX
+    package's XLA routes (scan buckets, fused and vmapped programs) have
+    no counterpart.  Without a card the default ``device="cuda"``
+    raises."""
+
+    def __init__(self, cap, width: int, height: int, batch: int = 16,
+                 dtype=None, fb0=None, *, device="cuda"):
+        self.cap = cap
+        self.width = int(width)
+        self.height = int(height)
+        self.batch = batch
+        self.device = interop.as_device(device)
+        self._dtype = _float_dtype(dtype or config.default_dtype())
+        self._store = atlas.get_store(self._dtype, self.device)
+        shape = (self.height, self.width, 4)
+        if fb0 is None:
+            self._fb0 = torch.zeros(shape, dtype=self._dtype,
+                                    device=self.device)
+        else:
+            self._fb0 = torch.as_tensor(fb0).to(self.device, self._dtype)
+            if tuple(self._fb0.shape) != shape:
+                raise ValueError(f"fb0 must be {shape}, got "
+                                 f"{tuple(self._fb0.shape)}")
+        self._pending: list = []
+        self._inflight = None
+        atlas.register_pipeline(self)   # shared-texture region fences
+
+    def submit(self, kinds, params) -> None:
+        self._pending.append((np.array(kinds, np.int32),
+                              np.array(params, np.float64)))
+        if len(self._pending) >= self.batch:
+            self.flush()
+
+    def flush(self) -> None:
+        """Render the pending frames, start their copy to the host, and
+        hand the previous batch to the sink."""
+        if not self._pending:
+            return
+        pending, self._pending = self._pending, []
+        # the params in the frames' dtype, as RenderContext.flush casts
+        # them; one upload for the batch, queued from pinned memory
+        host = [p.astype(_NP_DTYPES[self._dtype]) for _, p in pending]
+        p_dev = torch.from_numpy(np.concatenate(host))
+        if self.device.type == "cuda":
+            p_dev = p_dev.pin_memory().to(self.device, non_blocking=True)
+        frames = torch.empty((len(pending), self.height, self.width, 4),
+                             dtype=torch.uint8, device=self.device)
+        store_atlas = self._store.atlas      # _grow replaces the tensor
+        lo = 0
+        for i, ((kinds, _), ph) in enumerate(zip(pending, host)):
+            fb = self._fb0.clone()
+            execute(fb, torch.from_numpy(kinds), p_dev[lo:lo + len(ph)],
+                    store_atlas, ph)
+            frames[i] = executor.quantize_u8(fb)
+            lo += len(ph)
+        out = _HostFrames(frames)
+        atlas.dispatch_fence(self)
+        self._drain()
+        self._inflight = out
+
+    def _drain(self) -> None:
+        if self._inflight is None:
+            return
+        frames = self._inflight.numpy()
+        self._inflight = None
+        for fr in frames:
+            self.cap.put_frame_u8(fr)
+
+    def finish(self) -> None:
+        self.flush()
+        self._drain()
 
 
 class MeshVideoPipeline:
@@ -80,7 +198,7 @@ class MeshVideoPipeline:
         self._tile_h = kw["tile_h"]
         self._kw = kw
         self._pending: list = []
-        self._inflight = None     # (host frames, copy-done event, n)
+        self._inflight = None     # _HostFrames of the last batch
         self._ovf: list = []      # per-batch overflow flags (device)
 
     def submit(self, mvp) -> None:
@@ -102,33 +220,21 @@ class MeshVideoPipeline:
         frames, ovf = self._render(*self._mesh, self.width, self.height,
                                    mvps, tiled=self._tiled, **self._kw)
         self._ovf.append(ovf)
-        done = None
-        if cuda:
-            host = torch.empty(frames.shape, dtype=frames.dtype,
-                               pin_memory=True)
-            host.copy_(frames, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self.device))
-        else:
-            host = frames
+        out = _HostFrames(frames)
         self._drain()
-        self._inflight = (host, done, int(mvps.shape[0]))
+        self._inflight = out
 
     def _drain(self) -> None:
         if self._inflight is None:
             return
-        host, done, n = self._inflight
+        frames = self._inflight.numpy()
         self._inflight = None
-        if done is not None:
-            done.synchronize()
-        frames = host.numpy()
-        for i in range(n):
+        for fr in frames:
             if self._tiled:
-                self.cap.put_frame_tiled_u8(frames[i], self.width,
-                                            self.height, self._tile_w,
-                                            self._tile_h)
+                self.cap.put_frame_tiled_u8(fr, self.width, self.height,
+                                            self._tile_w, self._tile_h)
             else:
-                self.cap.put_frame_u8(frames[i])
+                self.cap.put_frame_u8(fr)
 
     def finish(self) -> None:
         self.flush()
