@@ -1,7 +1,7 @@
 """On-card smoke run of the PyTorch port: the mesh -> u8 frame path, the
 2D canvas, the textured mesh -> u8 frame path, the float/depth Gouraud
-rasterizer, the wf= and mxu= routes of the u8 entries and the recorded
-2D frame -> u8 pipeline.
+rasterizer, the wf= and mxu= routes of the u8 entries, the recorded
+2D frame -> u8 pipeline, and the audio engine with the MIDI -> WAV app.
 
     python3 chip_smoke.py
 
@@ -201,7 +201,31 @@ raising:
      clock (3 runs after a warm one, into a sink that drops the frames),
      launches, syncs and copies a frame, the device's busy share
      (profiler, 15 frames) and peak device memory.
-The line before the last is the kernel table as JSON, the last line
+ 19. audio vs cpu: each AudioClip op at bench.py:778-822's scale (a
+     112 s, 44.1 kHz stereo float64 target), run twice on the card and
+     once on the CPU port: gain, resample (48 -> 44.1 kHz stereo, 44.1
+     -> 18 kHz, 2 -> 1 channel), cut (in range, past the end, from a
+     negative start), overlay (with a negative start), overlay_many on
+     the scatter route (64 events x 4,096 frames) and on the FFT route,
+     overlay_groups (200 groups of 1-40 events, clips of 2k-48k frames);
+     the two card runs bit-identical, card = CPU bit for bit but on the
+     FFT route (within AUDIO_FFT_ATOL), and the save_as_wav bytes equal
+     (on the FFT route within one level, the share printed);
+ 20. audio main path: apps.hjm_mixer.main on its default device, the
+     card, on a seeded song (SONG_NOTES notes, ~2 minutes) and a seeded
+     bank of 396 48 kHz WAVs written to a temporary directory: the WAV
+     bytes bit-equal to the same call with device="cpu"; groups, events,
+     launches and busy share (profiler), wall time and xRT (host clock),
+     the bank's decode and resample share, peak device memory; then the
+     web service's mix_request on the card and the CPU (synth_base within
+     AUDIO_FFT_ATOL, the answer within one level), and which encoder ran;
+ 21. audio times: bench.py's mixdown (876 overlays of a 0.5 s clip onto
+     the 112 s target, the FFT route, then to_int16_device) in float64
+     and float32: best of 3 on the host clock after a warm run, CUDA-event
+     device time, xRT, save_as_wav time and bytes, launches and busy
+     share (profiler), peak device memory.
+The line before the last is the kernel table as JSON (the audio path has
+no Pallas kernel, so no row of its own), the last line
 {"ok": true, "device": {...}}.
 """
 
@@ -3362,6 +3386,453 @@ def pipeline_phase(dev, card: str, k4_row: dict) -> None:
     k4_row["launches"] += launches
 
 
+
+# Phases 19-21: the audio engine and the MIDI -> WAV path.  bench.py's
+# audio cell (bench.py:778-822): a 112 s, 44.1 kHz stereo target and 876
+# overlays of a 0.5 s clip.  No Pallas kernel lies on this path, so no row
+# joins the kernel table.
+AUDIO_RATE, AUDIO_SECONDS = 44100, 112.0
+AUDIO_OVERLAYS = 876
+# the FFT route's tolerance, card against CPU: the JAX package's own for
+# that route (tests/test_audio_golden.py:244-269); every other route is
+# held bit-equal
+AUDIO_FFT_ATOL = 1e-9
+# phase 20's seeded stand-ins for the reference's rr.mid and instrument
+# banks (neither is in the repo): ~2 minutes, 1,500 notes on 4 channels,
+# notes 36-108, two tempo changes; banks ha/ji/mi x files 12-143 of 1.0 s
+# decaying tones, 48 kHz s16 stereo, as the reference's are laid out
+SONG_NOTES, SONG_CHANNELS, SONG_LO, SONG_HI = 1500, 4, 36, 108
+BANK_RATE, BANK_SECONDS = 48000, 1.0
+
+
+def wav_i16(wav: bytes) -> np.ndarray:
+    """The int16 samples of a WAV's data chunk (header of 44 bytes)."""
+    return np.frombuffer(wav[44:], "<i2").astype(np.int32)
+
+
+def same_wav(a: bytes, b: bytes) -> tuple:
+    """(bytes equal, samples differing, largest difference in levels)."""
+    if a == b:
+        return True, 0, 0
+    if len(a) != len(b) or a[:44] != b[:44]:
+        raise AssertionError("the WAV headers or lengths differ")
+    d = np.abs(wav_i16(a) - wav_i16(b))
+    return False, int((d > 0).sum()), int(d.max())
+
+
+def audio_ops_phase(dev, card: str) -> None:
+    """Phase 19: each AudioClip op at bench scale on the card twice and on
+    the CPU port, float64."""
+    from libnativecpurenderer_tpu_torch import AudioClip, config
+
+    rng = np.random.default_rng(19)
+    n = int(AUDIO_RATE * AUDIO_SECONDS)
+    tgt = rng.standard_normal((n, 2)) * 0.05
+    src48 = rng.standard_normal((int(48000 * AUDIO_SECONDS), 2)) * 0.05
+    three = rng.standard_normal((3 * AUDIO_RATE, 2)) * 0.1
+    short = rng.standard_normal((4096, 2)) * 0.1
+    half = rng.standard_normal((AUDIO_RATE // 2, 2)) * 0.1
+    scatter_secs = np.concatenate([rng.uniform(0, AUDIO_SECONDS, 61),
+                                   [-0.05, AUDIO_SECONDS - 0.01, 200.0]])
+    fft_secs = np.concatenate([rng.uniform(0, AUDIO_SECONDS, 124),
+                               [-0.2, -0.2, AUDIO_SECONDS, 300.0]])
+    groups = [(rng.standard_normal((int(rng.integers(2000, 48001)), 2))
+               * 0.1, rng.uniform(-0.5, AUDIO_SECONDS,
+                                  int(rng.integers(1, 41))))
+              for _ in range(200)]
+
+    def clip(arr, d, rate=AUDIO_RATE):
+        return AudioClip._from_array(rate, 2, arr, device=d)
+
+    def overlays(d):
+        c = clip(tgt, d)
+        c.overlay(clip(three, d), 0.45 * AUDIO_SECONDS, time_unit="second")
+        c.overlay(clip(three, d), -AUDIO_RATE)       # wraps to the end
+        return c
+
+    def many(src, secs):
+        def run(d):
+            c = clip(tgt, d)
+            c.overlay_many(clip(src, d), secs)
+            return c
+        return run
+
+    def grouped(d):
+        c = clip(tgt, d)
+        c.overlay_groups([(clip(a, d), secs) for a, secs in groups])
+        return c
+
+    def op(fn):
+        def run(d):
+            c = clip(tgt, d)
+            fn(c)
+            return c
+        return run
+
+    def bucketed(k, rows):
+        b = 1
+        while b < k:
+            b *= 2
+        return b * rows <= 2 ** 20
+
+    assert bucketed(len(scatter_secs), len(short))
+    assert not bucketed(len(fft_secs), len(half))
+    cases = [
+        ("gain x0.7", False, op(lambda c: c.apply_volume_gain(0.7))),
+        ("resample 48 -> 44.1 kHz stereo", False,
+         lambda d: (lambda c: (c.resample(AUDIO_RATE, 2), c)[1])(
+             clip(src48, d, 48000))),
+        ("resample 44.1 -> 18 kHz", False, op(lambda c: c.resample(18000,
+                                                                   2))),
+        ("resample 2 -> 1 channel", False,
+         op(lambda c: c.resample(AUDIO_RATE, 1))),
+        ("cut 10-70 s of 112", False,
+         op(lambda c: c.cut(AUDIO_SECONDS * 10 / 112,
+                            AUDIO_SECONDS * 70 / 112, time_unit="second"))),
+        ("cut past the end", False, op(lambda c: c.cut(n - 1000,
+                                                       n + AUDIO_RATE))),
+        # dynamic_slice counts a negative start from the padded end
+        ("cut from a negative start", False,
+         op(lambda c: c.cut(-(n // 2), AUDIO_RATE - n // 2))),
+        ("overlay of 3 s at 50 s of 112 and at -1 s", False, overlays),
+        (f"overlay_many scatter route ({len(scatter_secs)} events x "
+         f"{len(short)} frames)", False, many(short, scatter_secs)),
+        (f"overlay_many FFT route ({len(fft_secs)} events x {len(half)} "
+         f"frames)", True, many(half, fft_secs)),
+        (f"overlay_groups ({len(groups)} groups, "
+         f"{sum(len(g[1]) for g in groups)} events, 2k-48k frames)", False,
+         grouped),
+    ]
+    prev = config.default_dtype()
+    config.set_default_dtype(torch.float64)
+    try:
+        for name, fft, run in cases:
+            a, b, c = run(dev), run(dev), run("cpu")
+            if a.device.type != dev.type or c.device.type != "cpu":
+                raise AssertionError(f"{name}: not on the devices asked")
+            ha, hb, hc = a.numpy(), b.numpy(), c.numpy()
+            if ha.shape != hc.shape:
+                raise AssertionError(f"{name}: shapes {ha.shape} "
+                                     f"{hc.shape}")
+            repeat = int((ha.view(np.uint64) != hb.view(np.uint64)).sum())
+            off = int((ha.view(np.uint64) != hc.view(np.uint64)).sum())
+            err = float(np.abs(ha - hc).max())
+            eq, wav_n, wav_lv = same_wav(a.save_as_wav(), c.save_as_wav())
+            print(f"[audio vs cpu] {card}: {name}, {ha.shape[0]} frames "
+                  f"float64: card twice {'bit-identical' if not repeat else f'{repeat} samples differ'}; card vs "
+                  f"CPU {off} of {ha.size} samples differ, largest "
+                  f"{err} (allowed {AUDIO_FFT_ATOL if fft else 0}); "
+                  f"save_as_wav bytes "
+                  f"{'equal' if eq else f'differ on {wav_n} samples of {ha.size} ({wav_n / ha.size} of them), by at most {wav_lv} level'}",
+                  flush=True)
+            if repeat:
+                raise AssertionError(f"{name}: two card runs differ")
+            if (err > AUDIO_FFT_ATOL) if fft else off:
+                raise AssertionError(f"{name}: the card differs from the "
+                                     f"CPU")
+            if (wav_lv > 1) if fft else not eq:
+                raise AssertionError(f"{name}: the WAV bytes differ")
+            if not np.isfinite(ha).all() or not ha.any():
+                raise AssertionError(f"{name}: not finite or all zero")
+            del a, b, c
+    finally:
+        config.set_default_dtype(prev)
+
+
+def seeded_song() -> bytes:
+    """Phase 20's song: SONG_NOTES notes on SONG_CHANNELS channels, notes
+    SONG_LO-SONG_HI, chords and runs, program changes, two tempo changes;
+    a format-0 SMF at 480 ticks a quarter, ~2 minutes."""
+    rng = np.random.default_rng(20)
+    ev = [(0, bytes([0xFF, 0x51, 0x03]) + (500000).to_bytes(3, "big"))]
+    ev += [(0, bytes([0xC0 | c, int(rng.integers(0, 128))]))
+           for c in range(SONG_CHANNELS)]
+    tick = 0
+    for k in range(SONG_NOTES):
+        tick += 0 if rng.random() < 0.25 else int(rng.integers(50, 150))
+        c = int(rng.integers(0, SONG_CHANNELS))
+        note = int(rng.integers(SONG_LO, SONG_HI + 1))
+        ev.append((tick, bytes([0x90 | c, note,
+                                int(rng.integers(40, 128))])))
+        ev.append((tick + int(rng.integers(60, 900)),
+                   bytes([0x80 | c, note, 0])))
+        if k in (SONG_NOTES // 3, 2 * SONG_NOTES // 3):
+            uspq = 420000 if k < SONG_NOTES // 2 else 560000
+            ev.append((tick, bytes([0xFF, 0x51, 0x03])
+                       + uspq.to_bytes(3, "big")))
+    ev.sort(key=lambda e: e[0])
+
+    def vlq(v):
+        out = [v & 0x7F]
+        v >>= 7
+        while v:
+            out.append((v & 0x7F) | 0x80)
+            v >>= 7
+        return bytes(reversed(out))
+
+    track, last = b"", 0
+    for t, data in ev:
+        track += vlq(t - last) + data
+        last = t
+    track += b"\x00\xFF\x2F\x00"
+    return (b"MThd" + (6).to_bytes(4, "big") + (0).to_bytes(2, "big")
+            + (1).to_bytes(2, "big") + (480).to_bytes(2, "big")
+            + b"MTrk" + len(track).to_bytes(4, "big") + track)
+
+
+def write_bank(root: str) -> None:
+    """Phase 20's seeded instrument banks: ha/ji/mi x files 12-143, each a
+    1.0 s decaying tone (the file's note, an instrument's harmonics, a
+    little seeded noise), 48 kHz s16 stereo."""
+    import os
+    import wave
+    rng = np.random.default_rng(21)
+    t = np.arange(int(BANK_RATE * BANK_SECONDS)) / BANK_RATE
+    for bi, name in enumerate(("ha", "ji", "mi")):
+        os.makedirs(os.path.join(root, name))
+        for n in range(12, 144):
+            f = 440.0 * 2 ** ((n - 69) / 12)
+            tone = sum(np.sin(2 * np.pi * f * (h + 1) * t) / (h + 1)
+                       for h in range(bi + 1))
+            tone = 0.25 * tone * np.exp(-t * (3.0 + bi))
+            pcm = np.stack([tone, tone * 0.9], 1)
+            pcm += rng.standard_normal(pcm.shape) * 0.002
+            with wave.open(os.path.join(root, name, f"{n}.wav"), "wb") as w:
+                w.setnchannels(2)
+                w.setsampwidth(2)
+                w.setframerate(BANK_RATE)
+                w.writeframes((np.clip(pcm, -1, 1) * 32767).astype(
+                    "<i2").tobytes())
+
+
+def audio_main_phase(dev, card: str) -> None:
+    """Phase 20: apps.hjm_mixer.main on the card (the default device) on a
+    seeded song and bank, against the same call on the CPU; then the web
+    service's request, card against CPU."""
+    import os
+    import tempfile
+    import types
+    from libnativecpurenderer_tpu_torch import media
+    from libnativecpurenderer_tpu_torch.apps import hjm_mixer
+    from libnativecpurenderer_tpu_torch.apps import hjm_mixer_server as srv
+    from libnativecpurenderer_tpu_torch.audio import AudioClip
+
+    song = seeded_song()
+    with tempfile.TemporaryDirectory() as td:
+        t = time.perf_counter()
+        write_bank(os.path.join(td, "bank"))
+        bank_s = time.perf_counter() - t
+        mid_fp = os.path.join(td, "song.mid")
+        with open(mid_fp, "wb") as f:
+            f.write(song)
+
+        def mix(out, **kw):
+            hjm_mixer.main(types.SimpleNamespace(
+                res=os.path.join(td, "bank"), input=mid_fp,
+                output=os.path.join(td, out), min_note=SONG_LO,
+                max_note=SONG_HI, dnote=0, base=None, offset=0, **kw))
+            with open(os.path.join(td, out), "rb") as f:
+                return f.read()
+
+        seen = {}
+        real_groups = AudioClip.overlay_groups
+        real_file = AudioClip.from_file
+        real_like = AudioClip.resample_like
+
+        def spy_groups(self, pairs):
+            pairs = list(pairs)
+            seen["groups"] = len(pairs)
+            seen["events"] = sum(len(s) for _, s in pairs)
+            seen["device"] = self.device.type
+            return real_groups(self, pairs)
+
+        AudioClip.overlay_groups = spy_groups
+        try:
+            card_wav = mix("card.wav")                  # warm, the default
+            if seen["device"] != dev.type:
+                raise AssertionError("the mix did not run on the card")
+        finally:
+            AudioClip.overlay_groups = real_groups
+        walls = []
+        torch.cuda.reset_peak_memory_stats()
+        base_mib = torch.cuda.memory_allocated() / 2 ** 20
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            again = mix("card2.wav")
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            if again != card_wav:
+                raise AssertionError("two card mixes differ")
+        peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+        # the bank's share: decode on the host and resample on the card,
+        # each ended by a sync, in a run of its own
+        spent = [0.0]
+
+        def timed(real):
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = real(*a, **k)
+                torch.cuda.synchronize()
+                spent[0] += time.perf_counter() - t0
+                return out
+            return run
+
+        AudioClip.from_file = staticmethod(timed(real_file))
+        AudioClip.resample_like = timed(real_like)
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            mix("card3.wav")
+            torch.cuda.synchronize()
+            bank_wall = time.perf_counter() - t
+        finally:
+            AudioClip.from_file = staticmethod(real_file)
+            AudioClip.resample_like = real_like
+        calls, busy, _ = profile_frames(lambda: mix("card4.wav"), 1)
+        t = time.perf_counter()
+        cpu_wav = mix("cpu.wav", device="cpu")
+        cpu_s = time.perf_counter() - t
+        eq, n_off, lv = same_wav(card_wav, cpu_wav)
+        song_s = (len(card_wav) - 44) / (4 * 44100)
+        best = min(walls)
+        print(f"[audio main path] {card}: hjm_mixer.main on the card (its "
+              f"default device), a seeded {len(song)}-byte song of "
+              f"{SONG_NOTES} notes on {SONG_CHANNELS} channels (notes "
+              f"{SONG_LO}-{SONG_HI}, two tempo changes; {song_s} s) and a "
+              f"seeded 48 kHz bank of 396 x {BANK_SECONDS} s files "
+              f"(written in {bank_s} s): {seen['groups']} groups, "
+              f"{seen['events']} events, one overlay_groups call; WAV "
+              f"bytes card vs CPU "
+              f"{'bit-equal' if eq else f'DIFFER on {n_off} samples by up to {lv}'}"
+              f" ({len(card_wav)} bytes); wall {sorted(walls)} s (host "
+              f"clock, after a warm run), xRT {song_s / best} at the best; "
+              f"the bank's decode (host) and resample (card) "
+              f"{spent[0]} s of a {bank_wall} s run, share "
+              f"{spent[0] / bank_wall}; {calls['cudaLaunchKernel']} "
+              f"cudaLaunchKernel, {calls['cudaStreamSynchronize']} "
+              f"cudaStreamSynchronize, {calls['cudaMemcpyAsync']} "
+              f"cudaMemcpyAsync a mix, device {busy}; peak device memory "
+              f"{peak_mib} MiB, {peak_mib - base_mib} MiB above the "
+              f"{base_mib} MiB held; the CPU port's mix {cpu_s} s",
+              flush=True)
+        if not eq:
+            raise AssertionError("the card's WAV differs from the CPU's")
+        pcm = wav_i16(card_wav)
+        if song_s < 0.05 * SONG_NOTES or not (pcm != 0).mean() > 0.5:
+            raise AssertionError("the mix is short or mostly silent")
+
+        # the web service's request: synth -> mix -> 18 kHz -> encode
+        base_card = srv.synth_base(song, device=dev)
+        base_cpu = srv.synth_base(song, device="cpu")
+        syn_err = float(np.abs(base_card.numpy() - base_cpu.numpy()).max())
+        del base_card, base_cpu
+        t = time.perf_counter()
+        body_card = srv.mix_request(song, SONG_LO, SONG_HI, 0, 0,
+                                    os.path.join(td, "bank"), device=dev)
+        req_s = time.perf_counter() - t
+        body_cpu = srv.mix_request(song, SONG_LO, SONG_HI, 0, 0,
+                                   os.path.join(td, "bank"), device="cpu")
+        enc = ("the native MP3 encoder (libtpurmedia.so)"
+               if media.native_available() else
+               "no native runtime: a WAV at the MP3 rate 18 kHz snaps to")
+        if media.native_available():
+            req_eq, req_n, req_lv = body_card == body_cpu, -1, -1
+        else:
+            req_eq, req_n, req_lv = same_wav(body_card, body_cpu)
+        print(f"[audio main path] {card}: mix_request on the card "
+              f"{req_s} s (host clock, synth on the host, mix and "
+              f"resample on the card), {len(body_card)} bytes from {enc}; "
+              f"synth_base card vs CPU largest difference {syn_err} "
+              f"(allowed {AUDIO_FFT_ATOL}); the answer card vs CPU "
+              f"{'bit-equal' if req_eq else f'differs on {req_n} samples by up to {req_lv} level'}",
+              flush=True)
+        if syn_err > AUDIO_FFT_ATOL:
+            raise AssertionError("synth_base: the card differs from the CPU")
+        if not req_eq and (media.native_available() or req_lv > 1):
+            raise AssertionError("mix_request: the card differs from the "
+                                 "CPU")
+
+
+def audio_times_phase(dev, card: str) -> None:
+    """Phase 21: bench.py:778-822's mixdown on the port's card, float64
+    and float32."""
+    from libnativecpurenderer_tpu_torch import AudioClip, config
+    from libnativecpurenderer_tpu_torch.ops import audio_ops
+
+    prev = config.default_dtype()
+    try:
+        for dtype in (torch.float64, torch.float32):
+            config.set_default_dtype(dtype)
+            rng = np.random.default_rng(0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base_mib = torch.cuda.memory_allocated() / 2 ** 20
+            target = AudioClip._from_array(
+                AUDIO_RATE, 2, rng.standard_normal(
+                    (int(AUDIO_RATE * AUDIO_SECONDS), 2)) * 0.05,
+                device=dev)
+            sfx = AudioClip._from_array(
+                AUDIO_RATE, 2, rng.standard_normal(
+                    (AUDIO_RATE // 2, 2)) * 0.1, device=dev)
+            offsets = np.sort(rng.uniform(0, AUDIO_SECONDS - 1,
+                                          AUDIO_OVERLAYS))
+
+            def mixdown():
+                target.overlay_many(sfx, offsets)
+                return audio_ops.to_int16_device(target._buf)
+
+            mixdown()                                   # warm
+            torch.cuda.synchronize()
+            walls, dev_ms = [], []
+            for _ in range(3):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                e0.record()
+                pcm = mixdown()
+                e1.record()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t)
+                dev_ms.append(e0.elapsed_time(e1))
+            peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+            t = time.perf_counter()
+            wav = target.save_as_wav()
+            wav_s = time.perf_counter() - t
+            calls, busy, prof = profile_frames(mixdown, 1)
+            by_name = {}
+            for e in prof.events():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    by_name[e.name] = by_name.get(e.name, 0.0) + (
+                        e.time_range.end - e.time_range.start)
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+            if not (torch.isfinite(target._buf).all() and pcm.any()):
+                raise AssertionError("the mixdown is not finite")
+            best = min(walls)
+            print(f"[audio times] {card}: bench.py's mixdown, "
+                  f"{AUDIO_OVERLAYS} overlays of a 0.5 s clip onto a "
+                  f"{AUDIO_SECONDS} s 44.1 kHz stereo target "
+                  f"({str(dtype)[6:]}, the FFT route) + to_int16_device: "
+                  f"{sorted(walls)} s (host clock, 3 runs after a warm "
+                  f"one, each ended by a sync), xRT {AUDIO_SECONDS / best}"
+                  f" at the best; device {sorted(dev_ms)} ms (CUDA "
+                  f"events); save_as_wav {wav_s} s for {len(wav)} bytes; "
+                  f"{calls['cudaLaunchKernel']} cudaLaunchKernel, "
+                  f"{calls['cudaStreamSynchronize']} cudaStreamSynchronize,"
+                  f" {calls['cudaMemcpyAsync']} cudaMemcpyAsync a mixdown,"
+                  f" device {busy}; peak device memory {peak_mib} MiB, "
+                  f"{peak_mib - base_mib} MiB above the {base_mib} MiB "
+                  f"held", flush=True)
+            print(f"[audio times] {str(dtype)[6:]} device ms of the "
+                  f"mixdown by kernel (profiler): "
+                  + "; ".join(f"{name[:60]} {1e-3 * us:.4f}"
+                              for name, us in top), flush=True)
+            del target, sfx, pcm
+    finally:
+        config.set_default_dtype(prev)
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -3382,6 +3853,9 @@ def main() -> None:
     gouraud_rows = gouraud_phases(dev, card, tex_rows[2])
     wf_mxu_rows = wf_mxu_phases(dev, card)
     pipeline_phase(dev, card, k4)
+    audio_ops_phase(dev, card)
+    audio_main_phase(dev, card)
+    audio_times_phase(dev, card)
     print(json.dumps({"kernels": [k1, k4, *tex_rows, *gouraud_rows,
                                   *wf_mxu_rows]}))
     print(card)

@@ -36,14 +36,23 @@ reference it is tested against.  Slices so far:
     time; ``mxu=1|2`` of
     those two, of ``render_gouraud_pallas_batch``'s u8 route and of
     ``render_textured_u8_batch`` walks an affine table on the tensor
-    cores (K1-mxu, K3's matrix-unit walk).
+    cores (K1-mxu, K3's matrix-unit walk);
+  * the audio engine and the MIDI -> WAV path: ``AudioClip`` (and
+    ``Int16CreatedAudioClip``, ``PtrCreatedAudioClip``) over the torch
+    ops of ``ops/audio_ops`` (no kernel lies on this path: the overlay
+    sums run in one fixed order, so the card and the CPU give the same
+    bits, the FFT route aside), the host media loader ``media`` (the
+    shared native runtime when built, stdlib WAV otherwise), the SMF
+    parser ``models/midi`` and the apps ``apps/hjm_mixer`` and
+    ``apps/hjm_mixer_server``.
 Nothing here imports JAX.
 """
 
 from . import config
+from .audio import AudioClip, Int16CreatedAudioClip, PtrCreatedAudioClip
 from .context import MultiThreadedVideoRenderContextPreparer, RenderContext
 from .helpers import Helpers
-from .interop import (canvas_to_torch, commands_to_torch,
+from .interop import (audio_clip_to_torch, canvas_to_torch, commands_to_torch,
                       kernel_inputs_to_torch, mesh_to_torch, prep_to_torch,
                       textured_mesh_to_torch)
 from .ops.raster3d import (pack_texture_u8, render_blended, render_gouraud,
@@ -63,14 +72,18 @@ def get_version() -> int:
 
 
 __all__ = [
+    "AudioClip",
     "BatchedVideoPipeline",
     "Helpers",
     "HitEffectTexture",
+    "Int16CreatedAudioClip",
     "MeshVideoPipeline",
     "MultiThreadedVideoRenderContextPreparer",
+    "PtrCreatedAudioClip",
     "PtrCreatedTexture",
     "RenderContext",
     "Texture",
+    "audio_clip_to_torch",
     "canvas_to_torch",
     "commands_to_torch",
     "config",

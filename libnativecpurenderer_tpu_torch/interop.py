@@ -5,7 +5,8 @@ helpers build those tensors: the mesh arrays that parameterise a render,
 the per-frame prep arrays of the JAX package (so that a test can feed
 JAX's own binning and row table into the port's tile kernel), and a
 canvas's recorded commands, framebuffer and atlas (so that a test can
-replay a JAX context's flush in the port).  All take numpy-convertible
+replay a JAX context's flush in the port), and an audio clip's samples
+and rate snapshot.  All take numpy-convertible
 arrays (a JAX array converts with ``np.asarray``); none imports JAX.
 """
 
@@ -102,3 +103,17 @@ def canvas_to_torch(fb, atlas, device):
     dev = as_device(device)
     return (torch.tensor(np.asarray(fb), device=dev),
             torch.tensor(np.asarray(atlas), device=dev))
+
+
+def audio_clip_to_torch(sample_rate, channels, pcm, device, cached_rate=None):
+    """An audio clip's state (a JAX clip's ``np.asarray(clip._buf)``, its
+    rate and channels, and its ``_cached_rate``, which ``cut`` in seconds
+    reads) -> an ``AudioClip`` of the port on ``device``, its samples in
+    their own float dtype."""
+    from .audio import AudioClip
+    clip = AudioClip._from_device(
+        sample_rate, channels,
+        torch.tensor(np.asarray(pcm), device=as_device(device)))
+    if cached_rate is not None:
+        clip._cached_rate = int(cached_rate)
+    return clip

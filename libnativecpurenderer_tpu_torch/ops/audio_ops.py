@@ -1,0 +1,236 @@
+"""Device ops for the audio engine.
+
+Counterpart of ``libnativecpurenderer_tpu/ops/audio_ops.py``: the
+reference AudioClip math (``libNativeCPURenderer.cpp:998-1283``) as torch
+ops that run on the device of their tensors.  No Pallas kernel lies on
+this path (the JAX module is XLA gathers, scatters and FFTs), so these are
+torch ops, arranged so that the card and the CPU give the same bits:
+
+* **Fixed order of the overlay sums.**  Float ``index_add_`` on CUDA sums
+  with atomics in no fixed order.  XLA:CPU's scatter adds the flattened
+  updates in order, so a target row gets its contributions in event order.
+  The scatter route here is one in-place slice add per event (or two, see
+  below), which gives that order on every device.
+* **JAX's ``mode="drop"``.**  ``x.at[idx].add(v, mode="drop")`` first
+  wraps a negative row in ``[-N, 0)`` to the end of the target, then drops
+  rows outside ``[0, N)``.  ``_drop_segments`` cuts an event into the
+  (at most two) contiguous runs of rows that survive that.
+* **No division on the device.**  CUDA divides by a Python scalar as a
+  multiply by its reciprocal; XLA:CPU folds the JAX op's divisions by
+  constants into such multiplies too.  ``resample`` takes the reciprocals
+  on the host, in the buffer's dtype, as XLA folds them, and only
+  multiplies on the device.
+
+Donation has no counterpart: the ops that the JAX ``AudioClip`` rebinds
+its buffer to (``overlay*``, ``gain``) update the target in place and
+return it.  None of them takes part in autograd.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+# The padding start the JAX package gives the events of a power-of-two
+# bucket that it does not use (its ``audio.py:391-393``): past any
+# target, so dropped.
+SENTINEL = 1 << 30
+# overlay_many's route threshold on events x source rows (``:45``)
+FFT_ABOVE = 1 << 20
+
+
+def _scalar(v, like: torch.Tensor) -> torch.Tensor:
+    """``v`` as a 0-d tensor of ``like``'s dtype on its device."""
+    return torch.full((), v, dtype=like.dtype, device=like.device)
+
+
+def _as_starts(starts) -> np.ndarray:
+    """Host start frames as int64 values after the JAX package's int32
+    conversion (``jnp.asarray(starts, jnp.int32)``, which wraps)."""
+    return np.asarray(starts).astype(np.int64).astype(np.int32).astype(
+        np.int64).reshape(-1)
+
+
+def _drop_segments(start: int, n: int, rows: int) -> List[Tuple[int, int,
+                                                                int]]:
+    """(src_lo, src_hi, dst_lo) runs of an event of ``n`` source rows at
+    ``start`` that survive JAX's ``mode="drop"`` on a target of ``rows``
+    rows, in source-row order: rows in ``[-rows, 0)`` wrap to the end of
+    the target, rows outside ``[-rows, rows)`` are dropped."""
+    out = []
+    lo, hi = max(start, -rows), min(start + n, 0)
+    if lo < hi:
+        out.append((lo - start, hi - start, lo + rows))
+    lo, hi = max(start, 0), min(start + n, rows)
+    if lo < hi:
+        out.append((lo - start, hi - start, lo))
+    return out
+
+
+def _scatter(target: torch.Tensor, source: torch.Tensor,
+             starts: Iterable[int]) -> torch.Tensor:
+    """The scatter route: ``source`` added into ``target`` at each start,
+    in place, events in order (XLA:CPU's order of the flattened updates)."""
+    rows, n = target.shape[0], source.shape[0]
+    for s in starts:
+        for a, b, d in _drop_segments(int(s), n, rows):
+            target[d:d + b - a] += source[a:b]
+    return target
+
+
+def overlay(target: torch.Tensor, source: torch.Tensor,
+            start: int) -> torch.Tensor:
+    """Additive overlay of ``source`` (n, C) into ``target`` (N, C) at frame
+    ``start``, in place; rows outside the target follow ``mode="drop"``
+    (cpp:1129-1154)."""
+    return _scatter(target, source, _as_starts([start]))
+
+
+def overlay_many(target: torch.Tensor, source: torch.Tensor,
+                 starts) -> torch.Tensor:
+    """Overlay of one source at many start frames, in place.
+
+    The route follows the JAX op's (``:43-69``): the scatter route when
+    ``len(starts) * n <= 2**20``, else an FFT convolution of the impulse
+    train with the clip.  On the FFT route a start at or past the target's
+    end moves to ``m`` (dropped), a start in ``[-m, 0)`` wraps within the
+    length-``m`` impulse train, and duplicate starts sum; ``torch.fft``
+    (cuFFT on the card, pocketfft on the CPU) gives other bits than JAX's
+    FFT and than each other, within 1e-9 in float64 at bench scale."""
+    st = _as_starts(starts)
+    n = source.shape[0]
+    if st.size * n <= FFT_ABOVE:
+        return _scatter(target, source, st)
+    rows, c = target.shape
+    m = 1
+    while m < rows + n:
+        m *= 2
+    st = np.where(st >= rows, m, st)
+    st = np.where(st < 0, st + m, st)
+    st = st[(st >= 0) & (st < m)]
+    dev, dtype = target.device, target.dtype
+    imp = torch.zeros((m,), dtype=dtype, device=dev)
+    # sums of ones: exact in any order, so index_add_ is deterministic here
+    idx = torch.from_numpy(st).to(dev)
+    imp.index_add_(0, idx, torch.ones(idx.shape, dtype=dtype, device=dev))
+    src_pad = torch.zeros((m, c), dtype=dtype, device=dev)
+    src_pad[:n] = source
+    spec = torch.fft.rfft(src_pad, dim=0)
+    ispec = torch.fft.rfft(imp)
+    mixed = torch.fft.irfft(ispec[:, None] * spec, n=m, dim=0)[:rows]
+    return target.add_(mixed.to(dtype))
+
+
+def overlay_many_bucketed(target: torch.Tensor, source: torch.Tensor,
+                          src_len: int, starts) -> torch.Tensor:
+    """The scatter route of :func:`overlay_many` over the first ``src_len``
+    rows of ``source`` (the JAX op masks the rows of a power-of-two padded
+    source; here nothing is compiled per length, so nothing is padded)."""
+    return _scatter(target, source[:int(src_len)], _as_starts(starts))
+
+
+def overlay_groups(target: torch.Tensor, sources: Sequence[torch.Tensor],
+                   src_lens: Sequence[int], starts) -> torch.Tensor:
+    """Groups ``k`` in order, each the first ``src_lens[k]`` rows of the
+    (L_k, C) tensor ``sources[k]`` overlaid at the host start frames
+    ``starts[k]`` on the scatter route, in place: the JAX op's loop
+    (``:93-116``)."""
+    for k in range(len(src_lens)):
+        _scatter(target, sources[k][:int(src_lens[k])],
+                 _as_starts(starts[k]))
+    return target
+
+
+def gain(buf: torch.Tensor, g: float) -> torch.Tensor:
+    """ApplyVolumeGain (cpp:1254-1259), in place; ``g`` rounded to the
+    buffer's dtype as ``jnp.asarray(g, dtype)`` does."""
+    return buf.mul_(float(g))
+
+
+def resample(buf: torch.Tensor, new_num: int, new_channels: int,
+             new_rate: int, old_rate) -> torch.Tensor:
+    """ApplyResampleAudioClip (cpp:1063-1120), including its quirks:
+
+    * the clamp bound mixes frames and channels: indices clamp to
+      ``[0, numFrames - channels - 1]`` (cpp:1082-1084);
+    * the lerp fraction is taken against the *clamped* floor index
+      (cpp:1086), so it can exceed 1 near the end;
+    * when channel counts differ, every output channel gets the channel
+      mean (cpp:1095-1110).
+
+    The arithmetic is the one XLA:CPU compiles the JAX op to, so that the
+    port gives JAX's bits: ``i / new_rate * old_rate`` becomes ``i *
+    (old_rate * (1 / new_rate))`` (the division by a constant folded into
+    a multiply by its rounded reciprocal, then reassociated); the channel
+    sums run from zero, channel by channel, and scale by ``1 / channels``;
+    and LLVM fuses the lerp's multiply and add (``fma(v_hi - v_lo, frac,
+    v_lo)``) and, across channel counts, the scaled difference
+    (``fma(sum_hi, 1 / channels, -s_lo)``).  ``torch.addcmul`` is that
+    fused multiply-add on the CPU and on the card.  The scalar factors
+    are rounded in the buffer's dtype on the host, so the card multiplies
+    by the same numbers as the CPU and divides by none."""
+    num_frames, channels = buf.shape
+    real = np.dtype(str(buf.dtype).replace("torch.", "")).type
+    step = real(old_rate) * (real(1) / real(new_rate))
+    old_idx = torch.arange(new_num, dtype=buf.dtype,
+                           device=buf.device) * _scalar(step, buf)
+    bound = num_frames - channels  # sic (cpp:1082)
+    lo = torch.clamp(torch.floor(old_idx), 0, bound - 1)
+    hi = torch.clamp(torch.ceil(old_idx), 0, bound - 1)
+    frac = old_idx - lo
+    lo, hi = lo.long(), hi.long()
+    if channels == new_channels:
+        v_lo = buf[lo]
+        return torch.addcmul(v_lo, buf[hi] - v_lo, frac[:, None])
+
+    def channel_sum(rows):
+        s = torch.zeros(rows.shape[0], dtype=buf.dtype, device=buf.device)
+        for c in range(channels):
+            s = s + rows[:, c]
+        return s
+
+    inv = torch.full((new_num,), real(1) / real(channels), dtype=buf.dtype,
+                     device=buf.device)
+    s_lo = channel_sum(buf[lo]) * inv
+    diff = torch.addcmul(-s_lo, channel_sum(buf[hi]), inv)
+    v = torch.addcmul(s_lo, diff, frac)
+    return v[:, None].expand(new_num, new_channels).contiguous()
+
+
+def cut(buf: torch.Tensor, start: int, length: int) -> torch.Tensor:
+    """ApplyCutAudioClip (cpp:1265-1279).  The reference leaves the tail
+    uninitialised when ``end`` exceeds the clip; this zero-fills.  The
+    window is ``lax.dynamic_slice``'s on the clip padded with ``length``
+    zero rows: a negative start counts from the end of the padded clip,
+    then the start clamps into ``[0, n]``."""
+    n, c = buf.shape
+    start = int(start)
+    if start < 0:
+        start += n + length
+    start = min(max(start, 0), n)
+    out = torch.zeros((length, c), dtype=buf.dtype, device=buf.device)
+    k = min(length, n - start)
+    out[:k] = buf[start:start + k]
+    return out
+
+
+def to_int16(buf_np) -> np.ndarray:
+    """SaveAudioClipAsWav's sample conversion (cpp:1216-1222) on host
+    arrays: clamp to [-1, 1], scale by 32767, truncate toward zero."""
+    v = np.clip(np.asarray(buf_np, np.float64), -1.0, 1.0) * 32767.0
+    return v.astype(np.int16)
+
+
+def to_int16_device(buf: torch.Tensor) -> torch.Tensor:
+    """The same conversion on the buffer's device, in its dtype (the
+    conversion truncates toward zero for values in range, on both
+    devices); halves the bytes a WAV export copies to the host."""
+    return (torch.clamp(buf, -1.0, 1.0) * 32767.0).to(torch.int16)
+
+
+def to_f32_device(buf: torch.Tensor) -> torch.Tensor:
+    """float32 on the buffer's device before a host copy: the encoder
+    paths want float32 PCM."""
+    return buf.to(torch.float32)

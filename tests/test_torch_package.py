@@ -30,6 +30,12 @@ def test_import_pulls_in_no_jax():
             "import libnativecpurenderer_tpu_torch.context; "
             "import libnativecpurenderer_tpu_torch.helpers; "
             "import libnativecpurenderer_tpu_torch.core.state; "
+            "import libnativecpurenderer_tpu_torch.ops.audio_ops; "
+            "import libnativecpurenderer_tpu_torch.audio; "
+            "import libnativecpurenderer_tpu_torch.media; "
+            "import libnativecpurenderer_tpu_torch.models.midi; "
+            "import libnativecpurenderer_tpu_torch.apps.hjm_mixer; "
+            "import libnativecpurenderer_tpu_torch.apps.hjm_mixer_server; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'libnativecpurenderer_tpu.')) "
             "or m == 'libnativecpurenderer_tpu']; "
@@ -38,6 +44,9 @@ def test_import_pulls_in_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "1 []"
+    # of the JAX package's public names only VideoCap is left to port
+    import libnativecpurenderer_tpu as R
+    assert set(R.__all__) - set(port.__all__) == {"VideoCap"}
 
 
 def _tri():
@@ -64,6 +73,68 @@ def test_cuda_device_raises_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="is_available"):
         interop.canvas_to_torch(np.zeros((2, 2, 4)), np.zeros((2, 2, 4)),
                                 "cuda")
+
+
+def test_audio_defaults_to_the_card(monkeypatch, tmp_path):
+    # every AudioClip constructor and the mixer run on the card unless
+    # given device="cpu": with no card the default raises, the CPU runs
+    import types
+    import wave
+    from libnativecpurenderer_tpu_torch.apps import hjm_mixer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    wav = str(tmp_path / "a.wav")
+    with wave.open(wav, "wb") as w:
+        w.setnchannels(2)
+        w.setsampwidth(2)
+        w.setframerate(8000)
+        w.writeframes(np.arange(40, dtype="<i2").tobytes())
+
+    class Seg:
+        sample_width, frame_rate, channels = 2, 8000, 1
+
+        def get_array_of_samples(self, array_type_override=None):
+            return [1, 2, 3]
+
+    mid = tmp_path / "a.mid"
+    mid.write_bytes(b"MThd" + (6).to_bytes(4, "big") + bytes([0, 0, 0, 1,
+                                                             1, 224])
+                    + b"MTrk" + (8).to_bytes(4, "big")
+                    + bytes([0, 0x90, 60, 100, 0, 0xFF, 0x2F, 0]))
+    makers = {
+        "init": lambda **k: port.AudioClip(8000, 2, [0.1, 0.2], **k),
+        "_from_array": lambda **k: port.AudioClip._from_array(
+            8000, 1, np.zeros((4, 1)), **k),
+        "slient": lambda **k: port.AudioClip.slient(8000, 2, 4, **k),
+        "silent": lambda **k: port.AudioClip.silent(8000, 2, 4, **k),
+        "from_file": lambda **k: port.AudioClip.from_file(wav, **k),
+        "from_pydub_seg": lambda **k: port.AudioClip.from_pydub_seg(Seg(),
+                                                                    **k),
+        "int16": lambda **k: port.Int16CreatedAudioClip(8000, 1, [7, 8],
+                                                        **k),
+        "interop": lambda **k: interop.audio_clip_to_torch(
+            8000, 1, np.zeros((4, 1)), k.get("device", "cuda")),
+    }
+    for name, make in makers.items():
+        with pytest.raises(RuntimeError, match="is_available"):
+            make()
+        clip = make(device="cpu")
+        assert clip.device == torch.device("cpu"), name
+        assert clip.clone().device == torch.device("cpu"), name
+
+    def args(**k):
+        return types.SimpleNamespace(
+            res=str(tmp_path), input=str(mid), output=str(tmp_path / "o.wav"),
+            min_note=0, max_note=1, dnote=0, base=None, offset=0, **k)
+
+    with pytest.raises(RuntimeError, match="is_available"):
+        hjm_mixer.main(args())                    # the namespace's default
+    with pytest.raises(RuntimeError, match="is_available"):
+        hjm_mixer.main(args(device=hjm_mixer.build_parser().parse_args(
+            ["-r", "r", "-i", "i", "-o", "o"]).device))
+    hjm_mixer.main(args(device="cpu"))            # no note in range: silence
+    with wave.open(str(tmp_path / "o.wav")) as w:
+        assert w.getnframes() == 44100
 
 
 @pytest.mark.parametrize("knob,value", [
