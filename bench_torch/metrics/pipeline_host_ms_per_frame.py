@@ -1,0 +1,13 @@
+"""pipeline_host_ms_per_frame: host milliseconds a frame in the
+benchmark's calls to the pipeline's ``submit``, less the time the sink's
+own callbacks took inside them, over the window's frames.  Layer: frame
+pipeline."""
+
+UNIT = "ms"
+
+
+def read(run):
+    ns = run.spans.ns.get("pipeline")
+    if not ns:
+        return None
+    return ns / run.spans.calls["pipeline"] / 1e6

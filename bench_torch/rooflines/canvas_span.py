@@ -1,0 +1,34 @@
+"""The least work of the canvas kernel (K4) over a frame's arithmetic
+draw calls (fill, rect, line, gradient), counted from the draw list by
+the reference: each pixel that some call covers read and written once,
+each call's arguments read once, and for every pixel a call covers its
+coverage test, colour, colour transform and blend.
+
+Operation counts are the reference renderer's arithmetic, one operation
+each; nothing comes from the program's tiles or its kernel source.
+"""
+
+# the colour transform's 4 multiplies, 1 - a, then per colour channel
+# dst * (1 - a) + src * a
+BLEND_OPS = 14
+PER_PX_OPS = {
+    "fill_color": BLEND_OPS,
+    "draw_rect": 4 + BLEND_OPS,                   # four bound compares
+    # four bound compares, t = (y - y0) / h, four lerps (3 each)
+    "draw_vertical_grd": 4 + 2 + 12 + BLEND_OPS,
+    # even-odd test: per quad edge two compares, the crossing's x
+    # (sub, mul, div, add), the compare and the flip
+    "draw_line": 4 * 8 + BLEND_OPS,
+}
+ARGS = {"fill_color": 4, "draw_rect": 8, "draw_vertical_grd": 12,
+        "draw_line": 9}
+
+
+def work(c: dict) -> tuple:
+    """(bytes, operations) of the frames counted in ``c`` (the chart
+    system's ``work``)."""
+    word = c["px_bytes"] // 4
+    n_bytes = (2 * c["union_px"] * c["px_bytes"]
+               + sum(ARGS[k] * n * word for k, n in c["calls"].items()))
+    n_ops = sum(PER_PX_OPS[k] * n for k, n in c["covered_px"].items())
+    return n_bytes, n_ops
