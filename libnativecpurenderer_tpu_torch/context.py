@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from . import atlas as atlas_mod
-from . import config, interop
+from . import config, interop, tracing
 from .core import transform as xf
 from .core.state import RenderState
 from .ops import canvas_kernel
@@ -55,20 +55,27 @@ def execute(fb, kinds, params, atlas, host_params):
     on fb's device in fb.dtype; host_params: a numpy copy of ``params``,
     for the sampling windows (reading them from the card would sync).
     Each maximal run of ``KERNEL_KINDS`` is one K4 call; each sampling
-    command runs over its window."""
-    kind_list = kinds.tolist()
-    n, done = len(kind_list), 0
-    for lo, hi in canvas_kernel.arith_runs(kind_list) + [(n, n)]:
-        for i in range(done, lo):       # the sampling commands before it
-            window = executor.sample_window(host_params[i, 6:10],
-                                            fb.shape[1], fb.shape[0])
-            if window is not None:
-                executor.render_commands(fb, kind_list[i:i + 1],
-                                         params[i:i + 1], atlas, window)
-        if hi > lo:
-            canvas_kernel.render_span(fb, kinds[lo:hi], params[lo:hi],
-                                      host_params[lo:hi])
-        done = hi
+    command runs over its window.  Spans (``tracing``): ``lncr.execute``
+    around the whole, ``lncr.execute.sample`` around each sampling command
+    that has a window, ``lncr.execute.k4`` around each K4 call."""
+    with tracing.span("lncr.execute"):
+        kind_list = kinds.tolist()
+        n, done = len(kind_list), 0
+        for lo, hi in canvas_kernel.arith_runs(kind_list) + [(n, n)]:
+            for i in range(done, lo):   # the sampling commands before it
+                window = executor.sample_window(host_params[i, 6:10],
+                                                fb.shape[1], fb.shape[0])
+                if window is not None:
+                    with tracing.span("lncr.execute.sample"):
+                        executor.render_commands(fb, kind_list[i:i + 1],
+                                                 params[i:i + 1], atlas,
+                                                 window)
+            if hi > lo:
+                with tracing.span("lncr.execute.k4"):
+                    canvas_kernel.render_span(fb, kinds[lo:hi],
+                                              params[lo:hi],
+                                              host_params[lo:hi])
+            done = hi
     return fb
 
 

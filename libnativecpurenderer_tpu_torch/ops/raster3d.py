@@ -28,6 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
+
 # packed-key constants, as in raster3d.py:38-44
 IDX_BITS = 18          # up to 256k triangles per draw
 IDX_MASK = (1 << IDX_BITS) - 1
@@ -585,13 +587,16 @@ def _prep_geometry(verts, faces, mvp, width: int, height: int, *,
     ``raster3d.py:917-925,1225-1233``) folded into the overflow flag.
     Returns (tri, attrs, (A, B, C, zsc, inv_area, sign, valid),
     {sorted_pad, starts, counts, overflow})."""
-    tri, attrs, edges = _setup_edges(verts, faces, mvp, width, height,
-                                     v4f=v4f, attrs=attrs,
-                                     near_clip=near_clip, exact_c=exact_c)
+    with tracing.span("lncr.raster3d.edges"):
+        tri, attrs, edges = _setup_edges(verts, faces, mvp, width, height,
+                                         v4f=v4f, attrs=attrs,
+                                         near_clip=near_clip,
+                                         exact_c=exact_c)
     A, B, C, _, _, sign, valid = edges
-    sorted_pad, starts, counts, overflow = bin_triangles_flat(
-        tri["sxy"], valid, width, height, tile_w, tile_h, capacity,
-        span_x, span_y, edges=(A, B, C, sign))
+    with tracing.span("lncr.raster3d.bin"):
+        sorted_pad, starts, counts, overflow = bin_triangles_flat(
+            tri["sxy"], valid, width, height, tile_w, tile_h, capacity,
+            span_x, span_y, edges=(A, B, C, sign))
     if not z_clip:
         z = tri["z"]
         z_ok = torch.where(tri["valid"][:, None], (z >= 0.0) & (z <= 1.0),
@@ -619,22 +624,25 @@ def prepare_frame(verts, faces, vtx_colors, width: int, height: int,
     (see :func:`edge_coeffs`) is the u8 entries' table; the float
     entries pass ``exact_c=False``."""
     from . import tile_raster
-    dtype = verts.dtype
-    if mvp is None:
-        mvp = torch.eye(4, dtype=dtype, device=verts.device)
-    if bg is None:
-        bg = torch.zeros(4, dtype=dtype, device=verts.device)
-    if pre is not None:
-        v4f, attrs = pre
-    else:
-        v4f, attrs = None, vtx_colors[faces]
-    _, attrs, edges, prep = _prep_geometry(
-        verts, faces, mvp, width, height, tile_w=tile_w, tile_h=tile_h,
-        capacity=capacity, span_x=span_x, span_y=span_y, z_clip=z_clip,
-        v4f=v4f, attrs=attrs, near_clip=near_clip, exact_c=exact_c)
-    build = tile_raster.build_table_mxu if mxu else tile_raster.build_table
-    prep["table"] = build(*edges, attrs)
-    prep["packed_bg"] = tile_raster.pack_bg(bg)
+    with tracing.span("lncr.raster3d.prep"):
+        dtype = verts.dtype
+        if mvp is None:
+            mvp = torch.eye(4, dtype=dtype, device=verts.device)
+        if bg is None:
+            bg = torch.zeros(4, dtype=dtype, device=verts.device)
+        if pre is not None:
+            v4f, attrs = pre
+        else:
+            v4f, attrs = None, vtx_colors[faces]
+        _, attrs, edges, prep = _prep_geometry(
+            verts, faces, mvp, width, height, tile_w=tile_w, tile_h=tile_h,
+            capacity=capacity, span_x=span_x, span_y=span_y, z_clip=z_clip,
+            v4f=v4f, attrs=attrs, near_clip=near_clip, exact_c=exact_c)
+        with tracing.span("lncr.raster3d.table"):
+            build = (tile_raster.build_table_mxu if mxu
+                     else tile_raster.build_table)
+            prep["table"] = build(*edges, attrs)
+            prep["packed_bg"] = tile_raster.pack_bg(bg)
     return prep
 
 
@@ -665,17 +673,21 @@ def prepare_textured_frame(verts, faces, fuv, width: int, height: int,
     ``overflow`` flag (with ``z_clip=False`` also the vertex-z check, see
     :func:`_prep_geometry`)."""
     from . import tile_raster
-    tri, _, edges, prep = _prep_geometry(
-        verts, faces, mvp, width, height, tile_w=tile_w, tile_h=tile_h,
-        capacity=capacity, span_x=span_x, span_y=span_y, z_clip=z_clip,
-        v4f=v4f, exact_c=exact_c)
-    if perspective_correct:
-        iw = tri["inv_w"][..., None]
-        attrs = torch.cat([fuv * iw, iw, torch.ones_like(iw)], dim=-1)
-    else:
-        attrs = torch.cat([fuv, torch.ones_like(fuv)], dim=-1)
-    build = tile_raster.build_table_mxu if mxu else tile_raster.build_table
-    prep["table"] = build(*edges, attrs)
+    with tracing.span("lncr.raster3d.prep"):
+        tri, _, edges, prep = _prep_geometry(
+            verts, faces, mvp, width, height, tile_w=tile_w, tile_h=tile_h,
+            capacity=capacity, span_x=span_x, span_y=span_y, z_clip=z_clip,
+            v4f=v4f, exact_c=exact_c)
+        with tracing.span("lncr.raster3d.table"):
+            if perspective_correct:
+                iw = tri["inv_w"][..., None]
+                attrs = torch.cat([fuv * iw, iw, torch.ones_like(iw)],
+                                  dim=-1)
+            else:
+                attrs = torch.cat([fuv, torch.ones_like(fuv)], dim=-1)
+            build = (tile_raster.build_table_mxu if mxu
+                     else tile_raster.build_table)
+            prep["table"] = build(*edges, attrs)
     return prep
 
 

@@ -19,30 +19,33 @@ import inspect
 import numpy as np
 import torch
 
-from . import atlas, config, interop
+from . import atlas, config, interop, tracing
 from .context import _NP_DTYPES, _float_dtype, execute
 from .ops import executor, raster3d
 
 
 class _HostFrames:
-    """The u8 frames of one batch on their way to the sink: a pinned
+    """The u8 frames of batch ``batch`` on their way to the sink: a pinned
     device-to-host copy queued on the current stream and the event that
     marks its end (on the CPU, the frames themselves)."""
 
-    def __init__(self, frames) -> None:
+    def __init__(self, frames, batch: int) -> None:
+        self.batch = batch
         self.done = None
-        if frames.device.type == "cuda":
-            self.host = torch.empty(frames.shape, dtype=frames.dtype,
-                                    pin_memory=True)
-            self.host.copy_(frames, non_blocking=True)
-            self.done = torch.cuda.Event()
-            self.done.record(torch.cuda.current_stream(frames.device))
-        else:
-            self.host = frames
+        with tracing.span("lncr.pipeline.copy_out"):
+            if frames.device.type == "cuda":
+                self.host = torch.empty(frames.shape, dtype=frames.dtype,
+                                        pin_memory=True)
+                self.host.copy_(frames, non_blocking=True)
+                self.done = torch.cuda.Event()
+                self.done.record(torch.cuda.current_stream(frames.device))
+            else:
+                self.host = frames
 
     def numpy(self) -> np.ndarray:
-        if self.done is not None:
-            self.done.synchronize()
+        with tracing.span("lncr.pipeline.sink_wait", self.batch):
+            if self.done is not None:
+                self.done.synchronize()
         return self.host.numpy()
 
 
@@ -91,6 +94,7 @@ class BatchedVideoPipeline:
                                  f"{tuple(self._fb0.shape)}")
         self._pending: list = []
         self._inflight = None
+        self._flushes = 0               # the batch id of the next flush
         atlas.register_pipeline(self)   # shared-texture region fences
 
     def submit(self, kinds, params) -> None:
@@ -105,34 +109,42 @@ class BatchedVideoPipeline:
         if not self._pending:
             return
         pending, self._pending = self._pending, []
-        # the params in the frames' dtype, as RenderContext.flush casts
-        # them; one upload for the batch, queued from pinned memory
-        host = [p.astype(_NP_DTYPES[self._dtype]) for _, p in pending]
-        p_dev = torch.from_numpy(np.concatenate(host))
-        if self.device.type == "cuda":
-            p_dev = p_dev.pin_memory().to(self.device, non_blocking=True)
-        frames = torch.empty((len(pending), self.height, self.width, 4),
-                             dtype=torch.uint8, device=self.device)
-        store_atlas = self._store.atlas      # _grow replaces the tensor
-        lo = 0
-        for i, ((kinds, _), ph) in enumerate(zip(pending, host)):
-            fb = self._fb0.clone()
-            execute(fb, torch.from_numpy(kinds), p_dev[lo:lo + len(ph)],
-                    store_atlas, ph)
-            frames[i] = executor.quantize_u8(fb)
-            lo += len(ph)
-        out = _HostFrames(frames)
-        atlas.dispatch_fence(self)
-        self._drain()
-        self._inflight = out
+        b, self._flushes = self._flushes, self._flushes + 1
+        with tracing.span("lncr.pipeline.flush", b):
+            with tracing.span("lncr.pipeline.upload"):
+                # the params in the frames' dtype, as RenderContext.flush
+                # casts them; one upload for the batch, queued from pinned
+                # memory
+                host = [p.astype(_NP_DTYPES[self._dtype])
+                        for _, p in pending]
+                p_dev = torch.from_numpy(np.concatenate(host))
+                if self.device.type == "cuda":
+                    p_dev = p_dev.pin_memory().to(self.device,
+                                                  non_blocking=True)
+            frames = torch.empty((len(pending), self.height, self.width, 4),
+                                 dtype=torch.uint8, device=self.device)
+            store_atlas = self._store.atlas      # _grow replaces the tensor
+            lo = 0
+            for i, ((kinds, _), ph) in enumerate(zip(pending, host)):
+                fb = self._fb0.clone()
+                execute(fb, torch.from_numpy(kinds), p_dev[lo:lo + len(ph)],
+                        store_atlas, ph)
+                frames[i] = executor.quantize_u8(fb)
+                lo += len(ph)
+            out = _HostFrames(frames, b)
+            atlas.dispatch_fence(self)
+            self._drain()
+            self._inflight = out
 
     def _drain(self) -> None:
         if self._inflight is None:
             return
-        frames = self._inflight.numpy()
+        inflight = self._inflight
+        frames = inflight.numpy()
         self._inflight = None
-        for fr in frames:
-            self.cap.put_frame_u8(fr)
+        with tracing.span("lncr.pipeline.deliver", inflight.batch):
+            for fr in frames:
+                self.cap.put_frame_u8(fr)
 
     def finish(self) -> None:
         self.flush()
@@ -200,6 +212,7 @@ class MeshVideoPipeline:
         self._pending: list = []
         self._inflight = None     # _HostFrames of the last batch
         self._ovf: list = []      # per-batch overflow flags (device)
+        self._flushes = 0         # the batch id of the next flush
 
     def submit(self, mvp) -> None:
         self._pending.append(np.asarray(mvp, np.float32))
@@ -211,30 +224,36 @@ class MeshVideoPipeline:
         hand the previous batch to the sink."""
         if not self._pending:
             return
-        mvps = torch.from_numpy(np.stack(self._pending))
-        self._pending.clear()
-        cuda = self.device.type == "cuda"
-        if cuda:
-            # from pinned memory the upload is queued without a host sync
-            mvps = mvps.pin_memory().to(self.device, non_blocking=True)
-        frames, ovf = self._render(*self._mesh, self.width, self.height,
-                                   mvps, tiled=self._tiled, **self._kw)
-        self._ovf.append(ovf)
-        out = _HostFrames(frames)
-        self._drain()
-        self._inflight = out
+        b, self._flushes = self._flushes, self._flushes + 1
+        with tracing.span("lncr.pipeline.flush", b):
+            with tracing.span("lncr.pipeline.upload"):
+                mvps = torch.from_numpy(np.stack(self._pending))
+                self._pending.clear()
+                if self.device.type == "cuda":
+                    # from pinned memory the upload is queued without a
+                    # host sync
+                    mvps = mvps.pin_memory().to(self.device,
+                                                non_blocking=True)
+            frames, ovf = self._render(*self._mesh, self.width, self.height,
+                                       mvps, tiled=self._tiled, **self._kw)
+            self._ovf.append(ovf)
+            out = _HostFrames(frames, b)
+            self._drain()
+            self._inflight = out
 
     def _drain(self) -> None:
         if self._inflight is None:
             return
-        frames = self._inflight.numpy()
+        inflight = self._inflight
+        frames = inflight.numpy()
         self._inflight = None
-        for fr in frames:
-            if self._tiled:
-                self.cap.put_frame_tiled_u8(fr, self.width, self.height,
-                                            self._tile_w, self._tile_h)
-            else:
-                self.cap.put_frame_u8(fr)
+        with tracing.span("lncr.pipeline.deliver", inflight.batch):
+            for fr in frames:
+                if self._tiled:
+                    self.cap.put_frame_tiled_u8(fr, self.width, self.height,
+                                                self._tile_w, self._tile_h)
+                else:
+                    self.cap.put_frame_u8(fr)
 
     def finish(self) -> None:
         self.flush()
