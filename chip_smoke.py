@@ -47,21 +47,28 @@ raising:
      registers
      and blocks an SM of the split walk on the CUDA and the tensor cores;
   6. k4 vs plain: at 1920x1080, in float32 and float64, K4 and its plain
-     version on (a) the two arithmetic runs of bench.py's 60-command
-     canvas frame over a nonzero framebuffer, (b) a seeded 64-command
-     frame of all 9 arithmetic kinds, mostly full-frame or large, under
-     rotations, scales and colour transforms, and (c) SET_PIXEL and
-     APPLY_PIXEL on both sides of tile borders; (b) and (c) again on a
+     version on (a) bench.py's 60-command canvas frame (one run, its 42
+     blits among its arithmetic draws) over a nonzero framebuffer, (b) a
+     seeded 64-command frame of all 9 arithmetic kinds, mostly
+     full-frame or large, under rotations, scales and colour transforms,
+     (c) a seeded run of texture blits of the three kinds among lines
+     and rects, rotated, scaled, partly off the frame, and 3 blits whose
+     index leaves the atlas (NaN texels at the same places, their
+     payload bits printed), (d) SET_PIXEL and APPLY_PIXEL on both sides
+     of tile borders, (e) every 4th frame of the benchmark's chart
+     traffic over its atlas (one run each); (b) and (d) again on a
      1000x700 frame (partial tiles); bit-equal, with the tiles each run
-     launches; then a run that touches no tile: no launch, no change;
+     launches, and render_span.sampled counting every blit; then a run
+     that touches no tile: no launch, no change;
   7. canvas main path: RenderContext(1920, 1080, True) on the card
      (float32) through 45 frames of bench.py's draw(t) with 4 seeded
-     128x128 textures, one flush a frame; K4 launched twice a frame, and
+     128x128 textures, one flush a frame; K4 launched once a frame, and
      the last frame's u8 buffer bit-equal to the same script run on the
      CPU through the port;
   8. canvas times: ms/frame on the host clock (3 runs of 45 frames, each
      ended by a sync), K4 and plain ms per launch on phase 6's 1080p runs
-     (a) and (b) (CUDA events) beside each run's bound, host launch and
+     (a), (b), (c) and two of (e) (CUDA events) beside each run's bound,
+     host launch and
      sync calls a
      frame and the device's busy share (profiler, 16 frames), peak
      device memory;
@@ -189,7 +196,7 @@ raising:
      of 4 seeded 128x128 textures, 8 rects) recorded at 1920x1080
      float32 on a MultiThreadedVideoRenderContextPreparer, 45 frames
      through BatchedVideoPipeline at batch 15 from a zero fb0, both on
-     their default device, the card; K4 launched twice a frame (added to
+     their default device, the card; K4 launched once a frame (added to
      its kernel-table entry), every frame the sink receives bit-equal to
      the same frame flushed by a RenderContext on the card from fb0, the
      last one to the CPU port's; then the mix beside a 256x256 shared
@@ -251,6 +258,7 @@ OTHER_SHAPES = [(16, 16, 1024, False, True), (32, 16, 1024, True, False),
                 (128, 16, 2048, False, True), (64, 64, 64, True, True)]
 CANVAS_FRAMES = 45
 SMALL_FRAME = (1000, 700)   # K4 at partial tiles (31.25 x 21.9 of them)
+CHART_EVERY = 4             # phase 6 checks every 4th recorded chart frame
 PROFILE_FRAMES = 16
 # Float32 hit effects may differ between the card and the CPU on this
 # share of the pixels their windows hold: torch.sin is not correctly
@@ -767,35 +775,39 @@ def check_k2a_build(log: str) -> str:
         for (n, z, b), r in sorted(found.items())))
 
 
-# K4's instantiations, canvas_span_kernel<float> and <double>, and the
-# spill ptxas may take in each (B stored, B loaded): the float kernel's
-# 40/40 B at 64 registers was measured faster than the scalar-pixel
-# kernel's 80 registers without spill (PERF.md); the double kernel
-# spills nothing
-K4_ENTRY = re.compile(r"canvas_span_kernelI([fd])E")
+# K4's instantiations, canvas_span_kernel<float> and <double> (runs
+# without blits) and canvas_span_blit_kernel<float> and <double>, and the
+# spill ptxas may take in each float and each double one (B stored, B
+# loaded): the float kernel's 40/40 B at 64 registers was measured faster
+# than the scalar-pixel kernel's 80 registers without spill (PERF.md);
+# the double kernels spill nothing
+K4_ENTRY = re.compile(r"canvas_span_(kernel|blit_kernel)I([fd])E")
 K4_SPILL_OK = {"f": (40, 40), "d": (0, 0)}
+# the same kernels by their names in a profile
+K4_ENTRY_NAME = re.compile(r"canvas_span_(blit_)?kernel<")
 
 
 def check_k4_build(log: str) -> str:
     """Raises when an instantiation of K4 spills more than K4_SPILL_OK;
     returns their registers and spills."""
-    out = []
+    out = {}
     for e in ptxas_summary(log).split("; "):
         k = K4_ENTRY.search(e)
         if not k:
             continue
         m = re.search(r": (\d+) registers, (\d+)/(\d+) B spill", e)
-        ok = K4_SPILL_OK[k.group(1)]
+        ok = K4_SPILL_OK[k.group(2)]
         if not m or int(m.group(2)) > ok[0] or int(m.group(3)) > ok[1]:
             raise AssertionError(f"K4 spills more than {ok[0]}/{ok[1]} B: "
                                  f"{e}")
-        out.append(f"{'float' if k.group(1) == 'f' else 'double'} "
-                   f"{m.group(1)} registers, {m.group(2)}/{m.group(3)} B "
-                   f"spill (accepted {ok[0]}/{ok[1]})")
-    if len(out) != len(K4_SPILL_OK):
-        raise AssertionError("K4's float and double kernels are not both "
-                             "in the build log")
-    return "K4 (registers, spills): " + "; ".join(out)
+        kind = "float" if k.group(2) == "f" else "double"
+        out[k.groups()] = (f"{k.group(1)} {kind} {m.group(1)} registers, "
+                           f"{m.group(2)}/{m.group(3)} B spill (accepted "
+                           f"{ok[0]}/{ok[1]})")
+    if len(out) != 2 * len(K4_SPILL_OK):
+        raise AssertionError("K4's float and double kernels, with and "
+                             "without blits, are not all in the build log")
+    return "K4 (registers, spills): " + "; ".join(out.values())
 
 
 def build_kernels(_kernels) -> float:
@@ -1528,6 +1540,15 @@ def same_bits(a, b) -> int:
     if a.is_floating_point():
         a, b = a.view(torch.int32), b.view(torch.int32)
     return int((a != b).sum())
+
+
+def same_bits_but_nan(a, b) -> int:
+    """How many elements of two float tensors differ in their bits where
+    they are not both NaN (a NaN against a number counts)."""
+    both = torch.isnan(a) & torch.isnan(b)
+    ia = a.view(torch.int64 if a.dtype == torch.float64 else torch.int32)
+    ib = b.view(ia.dtype)
+    return int(((ia != ib) & ~both).sum())
 
 
 def gouraud_phases(dev, card: str, k2a_row: dict) -> list:
@@ -2911,18 +2932,97 @@ def border_pixels(ctx, w: int, h: int):
     ctx.draw_rect(95.5, 62.25, 1.0, 3.5, 0.3, 0.3, 0.9, 0.8)
 
 
+def texture_mix(ctx, texs, seed: int):
+    """A seeded run of 48 texture blits among lines and rects at
+    1920x1080: fast blits at the identity (partly off the frame too),
+    plain and split blits under rotations, scales, translations and
+    colour transforms; then 3 blits whose texel index leaves the atlas
+    (a region origin below it: NaN texels; above it: a negative index,
+    counted from the end; 2^32 / AW rows down: int32 wraparound back into
+    the atlas).  Returns host (kinds int32, params float64) and the rows
+    of the 3 crafted blits."""
+    rng = np.random.default_rng(seed)
+    W, H = WIDTH, HEIGHT
+    for i in range(72):
+        op = i % 6
+        tex = texs[int(rng.integers(len(texs)))]
+        w, h = rng.uniform([20, 20], [400, 300])
+        x, y = rng.uniform([-w / 2, -h / 2], [W - w / 2, H - h / 2])
+        if op == 0:
+            ctx.draw_texture(tex, x, y, w, h)
+        elif op == 1:
+            ctx.draw_line(x, y, *rng.uniform([0, 0], [W, H]),
+                          rng.uniform(1, 12), *rng.uniform(0, 1, 4))
+        elif op == 2:
+            ctx.draw_rect(x, y, w, h, *rng.uniform(0, 1, 4))
+        else:
+            ctx.save_state()
+            ctx.translate(x, y)
+            ctx.rotate(rng.uniform(-math.pi, math.pi))
+            ctx.scale(*rng.uniform(0.4, 2.5, 2))
+            ctx.set_color_transform(*rng.uniform(0.5, 1.2, 4))
+            if op == 3:
+                ctx.draw_texture(tex, -w / 2, -h / 2, w, h)
+            else:
+                ctx.draw_splitted_texture(tex, -w / 2, -h / 2, w, h,
+                                          *np.sort(rng.uniform(0, 1, 2)),
+                                          *np.sort(rng.uniform(0, 1, 2)))
+            ctx.restore_state()
+    n0 = ctx._cmds.n
+    ah, aw = ctx._store.atlas.shape[:2]
+    ctx.draw_texture(texs[0], 300.0, 200.0, 160.0, 120.0)
+    ctx.rotate(0.3)
+    ctx.draw_texture(texs[1], 900.0, 300.0, 200.0, 140.0)
+    ctx.draw_splitted_texture(texs[2], 500.0, 600.0, 240.0, 90.0,
+                              0.2, 0.8, 0.0, 1.0)
+    ctx.set_transform(1, 0, 0, 1, 0, 0)
+    q = ctx._cmds.params
+    q[n0, 21] = ah + 3
+    q[n0 + 1, 21] = -ah
+    if 2 ** 32 % aw:
+        raise AssertionError(f"atlas width {aw} does not divide 2^32")
+    q[n0 + 2, 21] = 2 ** 32 // aw
+    kinds, params = (np.array(a) for a in ctx._cmds.snapshot())
+    ctx._cmds.clear()
+    return kinds, params, (n0, n0 + 1, n0 + 2)
+
+
+def chart_frames(ctx, every: int):
+    """Every ``every``-th recorded frame of the benchmark's chart traffic
+    (``bench_torch/traffic/milthm_chart.jsonl``), recorded on ``ctx``
+    over the mix's textures (texels seeded); {frame: (kinds, params)}."""
+    from bench_torch.harness import traffic
+    from libnativecpurenderer_tpu_torch import Texture
+    mix = traffic.load("milthm_chart")
+    rng = np.random.default_rng(17)
+    texs = {}
+    for name, t in sorted(mix["textures"].items()):
+        arr = rng.random((t["height"], t["width"], 4))
+        texs[name] = Texture._from_array(arr, t["alpha"])
+    out = {}
+    for i in range(0, len(mix["lines"]), every):
+        for name, *args in mix["lines"][i]:
+            getattr(ctx, name)(*[texs[a] if isinstance(a, str) else a
+                                 for a in args])
+        out[i] = tuple(np.array(a) for a in ctx._cmds.snapshot())
+        ctx._cmds.clear()
+    return out
+
+
 def k4_bound(kinds, p, dtype):
     """(bound ms, 'bytes'|'operations', bytes ms, operations ms) of one K4
     run at 1920x1080 from its host params p (in the frame's type): the
     tiles some command may touch (the kernel's test) read and written
-    once plus the commands; K4_OPS_PER_PIXEL operations per pixel of each
-    command's box clamped to the frame (FILL: every pixel)."""
+    once plus the commands, and for each texture blit the texels of its
+    region or of its box's pixels, whichever is fewer, read once;
+    K4_OPS_PER_PIXEL operations per pixel of each command's box clamped
+    to the frame (FILL: every pixel)."""
     from libnativecpurenderer_tpu_torch.ops import canvas_kernel
     from libnativecpurenderer_tpu_torch.ops import commands as C
     from libnativecpurenderer_tpu_torch.ops.executor import sample_window
     W, H, T = WIDTH, HEIGHT, canvas_kernel.TILE
     touched = np.zeros((-(-H // T), -(-W // T)), bool)
-    pixels = 0
+    pixels = texels = 0
     for k, q in zip(kinds.tolist(), p):
         hit = canvas_kernel.tiles_touched(k, q, W, H)
         touched |= hit
@@ -2933,12 +3033,16 @@ def k4_bound(kinds, p, dtype):
         elif k != C.KIND_NOOP:
             win = sample_window(q[6:10], W, H)
             if win is not None:
-                pixels += (win[1] - win[0]) * (win[3] - win[2])
+                box = (win[1] - win[0]) * (win[3] - win[2])
+                pixels += box
+                if k in canvas_kernel.TEXTURE_KINDS:
+                    texels += min(box, int(q[22]) * int(q[23]))
     tw = np.minimum(W - np.arange(0, W, T), T)[None, :]
     th = np.minimum(H - np.arange(0, H, T), T)[:, None]
     px_touched = int((touched * (tw * th)).sum())
     item = p.dtype.itemsize
-    nbytes = 2 * px_touched * 4 * item + len(kinds) * (32 * item + 4)
+    nbytes = ((2 * px_touched + texels) * 4 * item
+              + len(kinds) * (32 * item + 4))
     bytes_ms = 1e3 * nbytes / MEM_BYTES_S
     ops_ms = 1e3 * pixels * K4_OPS_PER_PIXEL / PEAK_OPS_S[dtype]
     if bytes_ms >= ops_ms:
@@ -2956,43 +3060,68 @@ def canvas_phases(dev, card: str) -> dict:
     texs = [Texture._from_array(rng.random((128, 128, 4)), True)
             for _ in range(4)]
 
-    # 6. K4 against its plain version on the card
-    rec = RenderContext(WIDTH, HEIGHT, True, device=dev)
-    bench_draw(rec, texs, 0.0)
-    bk, bp = (np.array(a) for a in rec._cmds.snapshot())
-    rec._cmds.clear()
-    runs = {f"bench run {i + 1} ({hi - lo} cmds)": (bk[lo:hi], bp[lo:hi])
-            for i, (lo, hi) in enumerate(
-                canvas_kernel.arith_runs(bk.tolist()))}
-    if len(runs) != 2:
-        raise AssertionError(f"bench frame has {len(runs)} arithmetic runs")
-    k64, p64 = frame64(rec, 7)
-    if len(k64) != 64 or set(k64.tolist()) != canvas_kernel.KERNEL_KINDS:
-        raise AssertionError("the 64-command frame misses a kind")
-    runs["64-cmd frame"] = (k64, p64)
-    timed = set(runs)   # phase 8 times these; the rest check bits only
-    border_pixels(rec, WIDTH, HEIGHT)
-    runs["tile-border pixels"] = tuple(np.array(a)
-                                       for a in rec._cmds.snapshot())
-    rec._cmds.clear()
-    small = RenderContext(*SMALL_FRAME, True, device=dev)
-    small_runs = {f"64-cmd frame {SMALL_FRAME[0]}x{SMALL_FRAME[1]}":
-                  frame64(small, 9)}
-    border_pixels(small, *SMALL_FRAME)
-    small_runs[f"tile-border pixels {SMALL_FRAME[0]}x{SMALL_FRAME[1]}"] = \
-        tuple(np.array(a) for a in small._cmds.snapshot())
-    small._cmds.clear()
+    # 6. K4 against its plain version on the card, each dtype's runs
+    # recorded on a context of that dtype (the blits' regions are in its
+    # atlas)
+    def record_runs(dtype):
+        rec = RenderContext(WIDTH, HEIGHT, True, dtype, device=dev)
+        bench_draw(rec, texs, 0.0)
+        bk, bp = (np.array(a) for a in rec._cmds.snapshot())
+        rec._cmds.clear()
+        if canvas_kernel.kernel_runs(bk.tolist()) != [(0, len(bk))]:
+            raise AssertionError("bench frame is not one K4 run")
+        runs = {f"bench frame ({len(bk)} cmds)": (bk, bp)}
+        k64, p64 = frame64(rec, 7)
+        if len(k64) != 64 or set(k64.tolist()) != canvas_kernel.ARITH_KINDS:
+            raise AssertionError("the 64-command frame misses a kind")
+        runs["64-cmd frame"] = (k64, p64)
+        tk, tp, off = texture_mix(rec, texs, 13)
+        if (canvas_kernel.kernel_runs(tk.tolist()) != [(0, len(tk))]
+                or not canvas_kernel.TEXTURE_KINDS <= set(tk.tolist())):
+            raise AssertionError("the texture mix is not one K4 run of "
+                                 "every texture kind")
+        runs[f"texture mix ({off[0]} cmds)"] = (tk[:off[0]], tp[:off[0]])
+        runs["texture mix off the atlas"] = (tk[off[0]:], tp[off[0]:])
+        border_pixels(rec, WIDTH, HEIGHT)
+        runs["tile-border pixels"] = tuple(np.array(a)
+                                           for a in rec._cmds.snapshot())
+        rec._cmds.clear()
+        for i, (ck, cp) in chart_frames(rec, CHART_EVERY).items():
+            if (canvas_kernel.kernel_runs(ck.tolist()) != [(0, len(ck))]
+                    or not set(ck.tolist()) & canvas_kernel.TEXTURE_KINDS):
+                raise AssertionError(f"chart frame {i} is not one K4 run "
+                                     f"of blits")
+            runs[f"chart frame {i} ({len(ck)} cmds)"] = (ck, cp)
+        small = RenderContext(*SMALL_FRAME, True, dtype, device=dev)
+        small_runs = {f"64-cmd frame {SMALL_FRAME[0]}x{SMALL_FRAME[1]}":
+                      frame64(small, 9)}
+        border_pixels(small, *SMALL_FRAME)
+        small_runs[f"tile-border pixels {SMALL_FRAME[0]}x"
+                   f"{SMALL_FRAME[1]}"] = tuple(
+            np.array(a) for a in small._cmds.snapshot())
+        small._cmds.clear()
+        return rec, runs, small_runs
 
     gen = torch.Generator().manual_seed(1)
     fb_seed = torch.rand((HEIGHT, WIDTH, 4), generator=gen,
                          dtype=torch.float64)
-    cases = []      # (label, dtype, fb0, kinds, params, host params)
+    cases = []      # (label, dtype, fb0, kinds, params, host params, atlas)
     max_err = 0.0
-    saved = canvas_kernel.render_span.launches
+    saved = canvas_kernel.render_span.launches, \
+        canvas_kernel.render_span.sampled
     for dtype in (torch.float32, torch.float64):
+        rec, runs, small_runs = record_runs(dtype)
+        atlas_t = rec._store.atlas
+        # phase 8 times the bench frame, the 64-command frame, the mix and
+        # two chart frames; the rest check bits only
+        chart = [label for label in runs if label.startswith("chart")]
+        timed = {label for label in runs
+                 if label.startswith(("bench", "64-cmd", "texture mix ("))}
+        timed |= {chart[0], chart[len(chart) // 2]}
         fb0 = fb_seed.to(dtype).to(dev)
         small0 = fb_seed[:SMALL_FRAME[1], :SMALL_FRAME[0]].contiguous().to(
             dtype).to(dev)
+        n_tex = 0
         for label, (k, p) in list(runs.items()) + list(small_runs.items()):
             f0 = fb0 if label in runs else small0
             ph = p.astype(np.float32 if dtype == torch.float32
@@ -3001,33 +3130,52 @@ def canvas_phases(dev, card: str) -> dict:
             pt = torch.from_numpy(ph).to(dev)
             tiles = canvas_kernel.touched_tiles(k, ph, f0.shape[1],
                                                 f0.shape[0])
-            got = canvas_kernel.render_span(f0.clone(), kt, pt, ph)
-            want = canvas_kernel.render_span_reference(f0.clone(), kt, pt)
+            s0 = canvas_kernel.render_span.sampled
+            got = canvas_kernel.render_span(f0.clone(), kt, pt, ph, atlas_t)
+            n_tex += canvas_kernel.render_span.sampled - s0
+            want = canvas_kernel.render_span_reference(f0.clone(), kt, pt,
+                                                       atlas_t)
             torch.cuda.synchronize()
             bad = same_bits(got, want)
-            err = float((got - want).abs().max())
+            nans = int(torch.isnan(got).sum())
+            # NaN texels: the same places; their payload bits are the
+            # card's, printed
+            bad_nan = same_bits_but_nan(got, want) if nans else bad
+            err = float((got - want).abs().nan_to_num(0.0).max())
             changed = int((got != f0).any(-1).sum())
             print(f"[k4 vs plain] {label} {str(dtype)[6:]} "
                   f"{f0.shape[1]}x{f0.shape[0]}: {bad} of {got.numel()} "
                   f"values differ in their bits (max |delta| {err}); "
-                  f"{changed} pixels changed; "
+                  f"{nans} NaN values, {bad_nan} differing where not both "
+                  f"NaN; {changed} pixels changed; "
                   f"{'all' if tiles is None else tiles.size} tiles "
                   f"launched", flush=True)
-            if bad or not changed:
+            if bad_nan or not changed or (nans and "off the atlas"
+                                          not in label):
                 raise AssertionError("K4 and its plain version disagree")
+            if "off the atlas" in label and not nans:
+                raise AssertionError("no texel read NaN off the atlas")
             max_err = max(max_err, err)
             if label in timed:
-                cases.append((label, dtype, fb0, kt, pt, ph))
+                cases.append((label, dtype, fb0, kt, pt, ph, atlas_t))
+        want_tex = sum(int(np.isin(k, sorted(canvas_kernel.TEXTURE_KINDS))
+                           .sum()) for k, _ in runs.values())
+        print(f"[k4 vs plain] {str(dtype)[6:]}: render_span.sampled counted "
+              f"{n_tex} texture commands of the {want_tex} in the runs",
+              flush=True)
+        if n_tex != want_tex:
+            raise AssertionError("render_span.sampled miscounts")
         # a run that touches no tile launches nothing and changes nothing
         rec.draw_rect(-90.0, -60.0, 40.0, 20.0, 1, 1, 1, 1)
         rec.set_pixel(WIDTH + 40, 7, 1, 1, 1, 1)
+        rec.draw_texture(texs[0], -300.0, 10.0, 100.0, 100.0)
         k, p = (np.array(a) for a in rec._cmds.snapshot())
         rec._cmds.clear()
         ph = p.astype(np.float32 if dtype == torch.float32 else np.float64)
         n0 = canvas_kernel.render_span.launches
         got = canvas_kernel.render_span(
             fb0.clone(), torch.from_numpy(k.astype(np.int32)),
-            torch.from_numpy(ph).to(dev), ph)
+            torch.from_numpy(ph).to(dev), ph, atlas_t)
         torch.cuda.synchronize()
         n_new = canvas_kernel.render_span.launches - n0
         print(f"[k4 vs plain] a run that touches no tile "
@@ -3035,7 +3183,8 @@ def canvas_phases(dev, card: str) -> dict:
               f"{same_bits(got, fb0)} values changed", flush=True)
         if n_new or same_bits(got, fb0):
             raise AssertionError("an empty K4 run launched or wrote")
-    canvas_kernel.render_span.launches = saved
+    canvas_kernel.render_span.launches, \
+        canvas_kernel.render_span.sampled = saved
 
     # 7. the canvas main path, K4 launches counted from zero
     def run_frames(ctx, n, t0=0):
@@ -3052,7 +3201,7 @@ def canvas_phases(dev, card: str) -> dict:
     launches = canvas_kernel.render_span.launches
     card_u8 = ctx.uint8_buffer()
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
-    if launches != 2 * CANVAS_FRAMES:
+    if launches != CANVAS_FRAMES:
         raise AssertionError(f"K4 launched {launches} times for "
                              f"{CANVAS_FRAMES} frames")
     t = time.perf_counter()
@@ -3066,7 +3215,7 @@ def canvas_phases(dev, card: str) -> dict:
     lit = float((card_u8[..., :3] > 0).any(-1).mean())
     print(f"[canvas main path] RenderContext 1920x1080 float32 on the card, "
           f"{CANVAS_FRAMES} frames of bench.py's draw(t), one flush each: "
-          f"K4 launches {launches} = 2 x frames; last frame's u8 vs the "
+          f"K4 launches {launches} = frames; last frame's u8 vs the "
           f"same script on the CPU through the port ({cpu_s:.1f} s): "
           f"{diff} bytes differ; {lit:.3f} of the pixels lit", flush=True)
     if diff:
@@ -3085,12 +3234,11 @@ def canvas_phases(dev, card: str) -> dict:
     per_frame, busy, prof = profile_frames(
         lambda: run_frames(ctx, PROFILE_FRAMES), PROFILE_FRAMES)
 
-    # device time of the main path's K4 launches, by run (the profiled
-    # frames launch run 1, run 2, run 1, ...)
+    # device time of the main path's K4 launches (one a frame)
     k4_prof = [e.time_range.end - e.time_range.start for e in sorted(
         (e for e in prof.events()
          if e.device_type == torch.autograd.DeviceType.CUDA
-         and "canvas_span_kernel" in e.name),
+         and K4_ENTRY_NAME.search(e.name)),
         key=lambda e: e.time_range.start)]
     by_name = {}
     for e in prof.events():
@@ -3104,7 +3252,7 @@ def canvas_phases(dev, card: str) -> dict:
     # leave the card idle
     k4_ms = {}
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for label, dtype, fb0, kt, pt, ph in cases:
+    for label, dtype, fb0, kt, pt, ph, atlas_t in cases:
         fb = fb0.clone()
         kd = kt.to(dev)
         tiles = canvas_kernel.touched_tiles(kt.numpy(), ph, WIDTH, HEIGHT)
@@ -3114,12 +3262,13 @@ def canvas_phases(dev, card: str) -> dict:
             _kernels.launch_canvas_span(
                 fb.data_ptr(), WIDTH, HEIGHT, kd.data_ptr(), pt.data_ptr(),
                 kd.numel(), 0 if td is None else td.data_ptr(),
-                0 if td is None else td.numel(), dtype == torch.float64,
+                0 if td is None else td.numel(), atlas_t.data_ptr(),
+                atlas_t.shape[0], atlas_t.shape[1], dtype == torch.float64,
                 stream)
 
         k_ms = cuda_ms(raw, 50)
-        p_ms = cuda_ms(
-            lambda: canvas_kernel.render_span_reference(fb, kt, pt), 3)
+        p_ms = cuda_ms(lambda: canvas_kernel.render_span_reference(
+            fb, kt, pt, atlas_t), 3)
         b_ms, b_by, bb, bo = k4_bound(kt.numpy(), ph, dtype)
         k4_ms[(label, dtype)] = (k_ms, p_ms, b_ms, b_by)
         print(f"[canvas times] {card}: K4 {label} {str(dtype)[6:]} "
@@ -3128,9 +3277,8 @@ def canvas_phases(dev, card: str) -> dict:
               f"{bo} ms), K4 at {b_ms / k_ms:.4f} of it", flush=True)
     if k4_prof:
         print(f"[canvas times] {card}: K4 in the profiled main path, "
-              f"device ms per launch: run 1 "
-              f"{1e-3 * float(np.mean(k4_prof[0::2]))}, run 2 "
-              f"{1e-3 * float(np.mean(k4_prof[1::2]))}", flush=True)
+              f"device ms per launch (one a frame): "
+              f"{1e-3 * float(np.mean(k4_prof))}", flush=True)
     print(f"[canvas times] device ms per frame by kernel (profiler): "
           + "; ".join(f"{name[:60]} {1e-3 * us / PROFILE_FRAMES:.4f}"
                       for name, us in top), flush=True)
@@ -3254,7 +3402,7 @@ def pipeline_phase(dev, card: str, k4_row: dict) -> None:
     record(PIPE_FRAMES, sink)
     launches = canvas_kernel.render_span.launches
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
-    if launches != 2 * PIPE_FRAMES:
+    if launches != PIPE_FRAMES:
         raise AssertionError(f"K4 launched {launches} times for "
                              f"{PIPE_FRAMES} pipeline frames")
     if len(sink.frames) != PIPE_FRAMES:
@@ -3275,7 +3423,7 @@ def pipeline_phase(dev, card: str, k4_row: dict) -> None:
           f"-> BatchedVideoPipeline at {WIDTH}x{HEIGHT} "
           f"{str(dtype)[6:]} on the card, {PIPE_FRAMES} frames of "
           f"bench.py's e2e mix at batch {PIPE_BATCH} from a zero fb0: K4 "
-          f"launches {launches} = 2 x frames; frames differing from their "
+          f"launches {launches} = frames; frames differing from their "
           f"RenderContext flush on the card: {bad}; frame {k} vs the CPU "
           f"port: {cpu_diff} bytes differ; {lit:.4f} of its pixels lit",
           flush=True)

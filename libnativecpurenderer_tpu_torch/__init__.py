@@ -15,8 +15,9 @@ reference it is tested against.  Slices so far:
     with ``mxu=1|2`` it is one launch of K3's matrix-unit walk over the
     B frames);
   * the 2D canvas: ``RenderContext`` records draw calls on the host and
-    its flush runs arithmetic command runs through a hand-written CUDA
-    kernel (``csrc/canvas_span.cu``) and texture blits as torch ops;
+    its flush runs arithmetic commands and texture blits through a
+    hand-written CUDA kernel (``csrc/canvas_span.cu``) and hit effects
+    as torch ops;
   * the 2D frame pipeline: ``MultiThreadedVideoRenderContextPreparer``
     records frames without executing them, ``BatchedVideoPipeline``
     renders them in batches through the canvas flush from a shared

@@ -6,13 +6,13 @@ API parity with the reference binding's ``RenderContext``
 display-list command on the host (float64 math identical to the C++
 doubles); :meth:`RenderContext.flush` executes the list on the context's
 device:
-  * every maximal run of arithmetic commands (``canvas_kernel.
-    KERNEL_KINDS``) goes to one call of the K4 wrapper
-    (``canvas_kernel.render_span``: the CUDA kernel on the card, its
-    plain version on the CPU);
-  * every sampling command (texture blits, hit effects) runs the
-    executor's branch as torch ops over the integer window of its AABB
-    (``executor.sample_window``), which equals a full-frame evaluation.
+  * every maximal run of commands K4 takes (``canvas_kernel.
+    KERNEL_KINDS``: the arithmetic kinds and the texture blits) goes to
+    one call of the K4 wrapper (``canvas_kernel.render_span``: the CUDA
+    kernel on the card, its plain version on the CPU);
+  * every hit effect runs the executor's branch as torch ops over the
+    integer window of its AABB (``executor.sample_window``), which
+    equals a full-frame evaluation.
 The framebuffer is updated in place.  A flush makes no host sync; reads
 (``numpy_buffer``, ``uint8_buffer``, ``get_color``, ``as_pilimg``) flush
 first and then sync.
@@ -53,16 +53,17 @@ def execute(fb, kinds, params, atlas, host_params):
     fb: (H, W, 4) float32/float64; kinds: (N,) host int32 tensor; params:
     (N, PARAM_W) in fb.dtype on fb's device; atlas: the (AH, AW, 4) atlas
     on fb's device in fb.dtype; host_params: a numpy copy of ``params``,
-    for the sampling windows (reading them from the card would sync).
-    Each maximal run of ``KERNEL_KINDS`` is one K4 call; each sampling
-    command runs over its window.  Spans (``tracing``): ``lncr.execute``
-    around the whole, ``lncr.execute.sample`` around each sampling command
-    that has a window, ``lncr.execute.k4`` around each K4 call."""
+    for K4's tiles and the hit effects' windows (reading them from the
+    card would sync).  Each maximal run of ``KERNEL_KINDS`` is one K4
+    call; each hit effect runs over its window.  Spans (``tracing``):
+    ``lncr.execute`` around the whole, ``lncr.execute.sample`` around each
+    hit effect that has a window, ``lncr.execute.k4`` around each K4
+    call."""
     with tracing.span("lncr.execute"):
         kind_list = kinds.tolist()
         n, done = len(kind_list), 0
-        for lo, hi in canvas_kernel.arith_runs(kind_list) + [(n, n)]:
-            for i in range(done, lo):   # the sampling commands before it
+        for lo, hi in canvas_kernel.kernel_runs(kind_list) + [(n, n)]:
+            for i in range(done, lo):   # the hit effects before it
                 window = executor.sample_window(host_params[i, 6:10],
                                                 fb.shape[1], fb.shape[0])
                 if window is not None:
@@ -74,7 +75,7 @@ def execute(fb, kinds, params, atlas, host_params):
                 with tracing.span("lncr.execute.k4"):
                     canvas_kernel.render_span(fb, kinds[lo:hi],
                                               params[lo:hi],
-                                              host_params[lo:hi])
+                                              host_params[lo:hi], atlas)
             done = hi
     return fb
 

@@ -115,8 +115,9 @@ def canvas_span() -> ctypes.CDLL:
     if lib is None:
         lib = ctypes.CDLL(str(build("canvas_span")))
         p, i = ctypes.c_void_p, ctypes.c_int
-        # fb, W, H, kinds, params, n, tiles, n_tiles, is_double, stream
-        lib.canvas_span.argtypes = [p, i, i, p, p, i, p, i, i, p]
+        # fb, W, H, kinds, params, n, tiles, n_tiles, atlas, AH, AW,
+        # is_double, stream
+        lib.canvas_span.argtypes = [p, i, i, p, p, i, p, i, p, i, i, i, p]
         lib.canvas_span.restype = ctypes.c_int
         lib.canvas_span_error_string.argtypes = [ctypes.c_int]
         lib.canvas_span_error_string.restype = ctypes.c_char_p
@@ -125,12 +126,15 @@ def canvas_span() -> ctypes.CDLL:
 
 
 def launch_canvas_span(fb, width, height, kinds, params, n, tiles, n_tiles,
-                       is_double, stream) -> None:
+                       atlas, atlas_h, atlas_w, is_double, stream) -> None:
     """Launch K4 over the n_tiles tiles listed at ``tiles`` (0: every
-    tile) (pointers and stream as ints); raises on a refused launch."""
+    tile), its texture blits reading the atlas_h x atlas_w atlas at
+    ``atlas`` (0, 0, 0: none) (pointers and stream as ints); raises on a
+    refused launch."""
     lib = canvas_span()
     err = lib.canvas_span(fb, width, height, kinds, params, n, tiles,
-                          n_tiles, int(is_double), stream)
+                          n_tiles, atlas, atlas_h, atlas_w, int(is_double),
+                          stream)
     if err:
         raise RuntimeError(
             f"canvas_span launch failed: cudaError {err} "

@@ -4,8 +4,9 @@ Counterpart of ``libnativecpurenderer_tpu/ops/executor.py``: the branch
 math of the 13 command kinds, the blend and the u8 quantisation, one
 torch op per JAX op in the same order.  It is the spec the port is held
 to: the canvas kernel K4 (``canvas_kernel.render_span``) computes the
-arithmetic kinds bit for bit as :func:`render_commands` does, and
-``RenderContext.flush`` runs the sampling kinds through it.  The JAX
+arithmetic kinds and the texture blits bit for bit as
+:func:`render_commands` does, and ``RenderContext.flush`` runs the hit
+effects through it.  The JAX
 package's ``lax.scan``/``lax.switch`` structure, patch buckets and mesh
 taints are XLA machinery and have no counterpart here.
 

@@ -65,9 +65,9 @@ class BatchedVideoPipeline:
     command list, ``ops/commands.py``).  Each frame starts from a copy of
     ``fb0`` ((H, W, 4), zeros by default; e.g. a pre-composited static
     background) and runs through ``context.execute``, the flush of a
-    ``RenderContext``: K4 for each run of arithmetic commands, torch ops
-    for each sampling command, reading the atlas store of (``dtype``,
-    ``device``) as it stands at the flush.  Every upload and every frame
+    ``RenderContext``: K4 for each run of arithmetic commands and texture
+    blits, torch ops for each hit effect, reading the atlas store of
+    (``dtype``, ``device``) as it stands at the flush.  Every upload and every frame
     goes on the device's current stream, so a frame reads each atlas
     region as the uploads queued before its batch left it.  The JAX
     package's XLA routes (scan buckets, fused and vmapped programs) have

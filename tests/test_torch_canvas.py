@@ -13,6 +13,7 @@ Tolerances:
     for the reason stated there.
 """
 
+import functools
 import math
 
 import numpy as np
@@ -500,15 +501,18 @@ def test_jax_flush_replayed_in_port(dt):
 # -- routing and reads ------------------------------------------------------
 
 def test_flush_routes_arith_runs_to_k4(monkeypatch):
-    """The bench frame makes exactly 2 K4-wrapper calls a flush: fill,
-    gradient and 8 lines (10 commands), then 8 rects; its 42 sampling
-    commands run over their windows."""
+    """The bench frame makes exactly 1 K4-wrapper call a flush: fill,
+    gradient, 8 lines, 30 split blits, 12 fast blits and 8 rects, with
+    the atlas; its 42 blits are counted in ``render_span.sampled``.  A
+    hit effect splits a run and runs over its window."""
     calls, evals = [], []
     real_span, real_cmds = tck.render_span, pex.render_commands
 
-    def span(fb, kinds, params, host_params=None):
+    @functools.wraps(real_span)   # its counters: the wrapper's own
+    def span(fb, kinds, params, host_params=None, atlas=None):
         calls.append(kinds.tolist())
-        return real_span(fb, kinds, params, host_params)
+        assert atlas is ctx._store.atlas
+        return real_span(fb, kinds, params, host_params, atlas)
 
     def cmds(fb, kinds, params, atlas=None, window=None):
         evals.append((list(kinds), window))
@@ -518,16 +522,31 @@ def test_flush_routes_arith_runs_to_k4(monkeypatch):
     monkeypatch.setattr(pex, "render_commands", cmds)
     ctx = P.RenderContext(SW, SH, True, device="cpu")
     texs = [P.Texture._from_array(a, True) for a in _tex_arrays()]
+    before = tck.render_span.sampled
     for k in range(2):
         bench_frame(ctx, texs, k * 0.016)
         ctx.flush()
-    arith = [C.KIND_FILL, C.KIND_VGRD] + [C.KIND_LINE] * 8
-    assert calls == [arith, [C.KIND_RECT] * 8] * 2
+    frame = ([C.KIND_FILL, C.KIND_VGRD] + [C.KIND_LINE] * 8
+             + [C.KIND_SPLIT_TEX] * 30 + [C.KIND_TEX_FAST] * 12
+             + [C.KIND_RECT] * 8)
+    assert calls == [frame] * 2
+    assert tck.render_span.sampled - before == 2 * 42
     # the K4 plain version evaluates its run over the full frame
-    assert [k for k, w in evals if w is None] == calls
+    assert [k for k, w in evals] == calls
+    assert all(w is None for _, w in evals)
+
+    calls.clear()
+    evals.clear()
+    het = P.HitEffectTexture(texs[0], 0.3, 0.4, 0.9, 0.2, 0.5)
+    ctx.draw_texture(texs[1], 5.0, 6.0, 30.0, 20.0)
+    ctx.draw_texture(het, 40.0, 30.0, 50.0, 50.0)
+    ctx.rotate(0.3)
+    ctx.draw_rect(60.0, 10.0, 20.0, 12.0, 0.2, 0.8, 0.4, 0.7)
+    ctx.flush()
+    assert calls == [[C.KIND_TEX_FAST], [C.KIND_RECT]]
     samp = [(k, w) for k, w in evals if w is not None]
-    assert len(samp) == 2 * 42
-    assert all(len(k) == 1 and k[0] in pex.SAMPLING_KINDS for k, _ in samp)
+    assert [k for k, _ in samp] == [[C.KIND_HITEFFECT]]
+    assert tck.render_span.sampled - before == 2 * 42 + 1
 
 
 def test_sampling_window_equals_full_frame():

@@ -11,6 +11,7 @@ Preparer``'s) rendered by ``BatchedVideoPipeline``.
   * the device rule and the keywords the port takes.
 """
 
+import functools
 import math
 
 import numpy as np
@@ -137,15 +138,17 @@ def test_e2e_mix_matches_jax(dtype, nonzero_fb0):
 
 
 def test_e2e_mix_runs_k4_twice_a_frame(monkeypatch):
-    """Each frame of the e2e mix makes two K4-wrapper calls (the fill,
-    then the 8 rects) and runs its 24 split blits as sampling commands;
-    the sink receives every frame once, in order."""
+    """Each frame of the e2e mix makes one K4-wrapper call (the fill, its
+    24 split blits and the 8 rects; it ran the blits as sampling commands
+    between two calls before K4 took them); the sink receives every frame
+    once, in order."""
     calls = []
     real = tck.render_span
 
-    def span(fb, kinds, params, host_params=None):
+    @functools.wraps(real)   # its counters: the wrapper's own
+    def span(fb, kinds, params, host_params=None, atlas=None):
         calls.append(kinds.tolist())
-        return real(fb, kinds, params, host_params)
+        return real(fb, kinds, params, host_params, atlas)
 
     monkeypatch.setattr(tck, "render_span", span)
     rec = P.MultiThreadedVideoRenderContextPreparer(
@@ -162,7 +165,8 @@ def test_e2e_mix_runs_k4_twice_a_frame(monkeypatch):
         pipe.submit(k, p)
         rec._cmds.clear()
     pipe.finish()
-    assert calls == [[C.KIND_FILL], [C.KIND_RECT] * 8] * 5
+    assert calls == [[C.KIND_FILL] + [C.KIND_SPLIT_TEX] * 24
+                     + [C.KIND_RECT] * 8] * 5
     assert [sum(k == C.KIND_SPLIT_TEX) for k in want] == [24] * 5
     assert len(sink.frames) == 5
 

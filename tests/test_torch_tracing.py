@@ -42,16 +42,21 @@ class Sink:
 
 
 def textures():
+    """Two textures and a hit effect of the first."""
     rng = np.random.default_rng(0)
-    return [P.Texture._from_array(rng.random((16, 16, 4)), True)
+    texs = [P.Texture._from_array(rng.random((16, 16, 4)), True)
             for _ in range(2)]
+    return texs + [P.HitEffectTexture(texs[0], 0.3, 0.4, 0.9, 0.2, 0.5)]
 
 
 def draw(ctx, texs, i):
-    """A fill, two on-screen blits (sampling commands with a window), one
-    blit wholly off the frame (no window) and two rects."""
+    """A fill, two on-screen blits, a hit effect (a sampling command with
+    a window) between them, one hit effect wholly off the frame (no
+    window), one blit off the frame and two rects: two K4 runs."""
     ctx.fill_color(0.1, 0.1, 0.2, 1.0)
     ctx.draw_texture(texs[0], 2.0 + i, 3.0, 12.0, 10.0)
+    ctx.draw_texture(texs[2], 20.0 - i, 12.0, 16.0, 16.0)
+    ctx.draw_texture(texs[2], -40.0, 12.0, 16.0, 16.0)
     ctx.save_state()
     ctx.translate(20.0, 8.0)
     ctx.rotate(0.2 * i)
@@ -62,7 +67,7 @@ def draw(ctx, texs, i):
     ctx.draw_rect(4.0 + i, 22.0, 8.0, 5.0, 0.2, 0.8, 0.4, 0.7)
 
 
-SAMPLED_A_FRAME = 2
+SAMPLED_A_FRAME = 1
 
 
 def run_batched(frames=7, batch=3):
@@ -187,7 +192,8 @@ def test_batched_pipeline_spans_and_batch_ids():
     finish); upload, execute and copy_out carry their flush's id, the
     sink wait and delivery the drained batch's (one less, or the last
     batch's in finish's own drain); one sample span per sampling command
-    with a window, one K4 span per arithmetic run."""
+    with a window (the hit effects), one K4 span per run of the kinds K4
+    takes."""
     tracing.enable(True)
     _, lists = run_batched()
     recs = tracing.records()
@@ -211,7 +217,7 @@ def test_batched_pipeline_spans_and_batch_ids():
                 windows += executor.sample_window(
                     params[i, 6:10].astype(np.float32), W, H) is not None
     assert windows == len(by["lncr.execute.sample"]) == 7 * SAMPLED_A_FRAME
-    runs = sum(len(tck.arith_runs(k.tolist())) for k, _ in lists)
+    runs = sum(len(tck.kernel_runs(k.tolist())) for k, _ in lists)
     assert len(by["lncr.execute.k4"]) == runs == 7 * 2
     for name in ("lncr.execute.sample", "lncr.execute.k4"):
         assert all(r.parent.name == "lncr.execute" for r in by[name])
@@ -370,9 +376,10 @@ def test_trace_cell_tool_on_a_small_cell(name, monkeypatch):
     """Each cell of BENCHMARK.json cut to 160x96 on the CPU: an off and an
     on window, the profiled batch and the check; the on window reads its
     cell's metrics, the flush spans cover the pipeline's host time, and
-    the sampled frames pass the cell's limit.  The windows' clock steps
-    0.1 s a reading, so each holds 8 frames (4 batches) however fast the
-    CPU is."""
+    the sampled frames pass the cell's limit.  The chart's frame is one
+    K4 run and fires no sample span (it draws no hit effect).  The
+    windows' clock steps 0.1 s a reading, so each holds 8 frames (4
+    batches) however fast the CPU is."""
     import itertools
     from bench_torch.tests import small
     tool = trace_cell_tool()
@@ -384,14 +391,19 @@ def test_trace_cell_tool_on_a_small_cell(name, monkeypatch):
     assert "spans" not in off and tracing.totals() == {}
     assert on["frames"] == off["frames"] == 8
     chart = name == "milthm_chart"
-    want = {"sink_wait_ms_per_frame", "batch_io_ms_per_frame",
-            "sampling_ms_per_frame" if chart else "mesh_prep_ms_per_frame"}
+    want = {"sink_wait_ms_per_frame", "batch_io_ms_per_frame"}
+    if not chart:
+        want.add("mesh_prep_ms_per_frame")
     assert want == set(tool.READINGS) & set(on)
     assert on["flush_coverage"] >= 0.9
     if chart:
         assert on["spans"]["lncr.execute"]["calls"] == 1.0
+        assert on["spans"]["lncr.execute.k4"]["calls"] == 1.0
+        assert "lncr.execute.sample" not in on["spans"]
+        assert on["k4_blits_per_frame"] > 0
     else:
         assert on["spans"]["lncr.raster3d.prep"]["calls"] == 1.0
+        assert on["k4_blits_per_frame"] == 0
     assert all(n.startswith("lncr.") for n in out["profiled"]["idle_gaps"])
     c = out["correct"]
     assert c["frames_missing"] == 0

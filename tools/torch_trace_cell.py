@@ -16,8 +16,10 @@ the cell's reference.  Prints one JSON object:
 
 * ``span_ns``: a ``with span(...)`` block on this host, tracing off, on,
   and on with ranges (no profiler running), less the bare loop;
-* ``windows``: each window's frames, loop seconds and frames a second;
-  for the on windows the readings the benchmark's program-span metrics
+* ``windows``: each window's frames, loop seconds and frames a second,
+  and the texture blits K4 took a frame (``render_span.sampled``; the
+  hit effects, left to the executor, fire ``lncr.execute.sample``); for
+  the on windows the readings the benchmark's program-span metrics
   take: ``sink_wait_ms_per_frame`` (``lncr.pipeline.sink_wait``),
   ``batch_io_ms_per_frame`` (``upload`` + ``copy_out``),
   ``mesh_prep_ms_per_frame`` (``lncr.raster3d.prep``) and
@@ -55,6 +57,7 @@ from bench_torch.harness import traffic as traffic_mod  # noqa: E402
 from bench_torch.harness.timeline import Sink, Spans, clock  # noqa: E402
 from bench_torch.harness.trace import WINDOW, Trace  # noqa: E402
 from libnativecpurenderer_tpu_torch import tracing  # noqa: E402
+from libnativecpurenderer_tpu_torch.ops import canvas_kernel  # noqa: E402
 
 READINGS = {
     "sink_wait_ms_per_frame": ("lncr.pipeline.sink_wait",),
@@ -137,6 +140,7 @@ def window(system, gen, sink, seconds: float, on: bool):
     loop = bench._Loop(system, gen, sink)
     spans = Spans()
     cb0 = sink.callback_ns
+    blits0 = canvas_kernel.render_span.sampled
     if on:
         tracing.reset()
         tracing.enable(True)
@@ -147,7 +151,9 @@ def window(system, gen, sink, seconds: float, on: bool):
     loop_s = (clock() - t0) / 1e9
     frames = len(loop.starts)
     out = {"tracing": on, "frames": frames, "loop_s": loop_s,
-           "frames_per_s": frames / loop_s}
+           "frames_per_s": frames / loop_s,
+           "k4_blits_per_frame":
+               (canvas_kernel.render_span.sampled - blits0) / frames}
     if on:
         totals = tracing.totals()
         pipe_ns = spans.ns["pipeline"]

@@ -53,6 +53,7 @@ from __future__ import annotations
 import argparse
 import importlib
 import importlib.util
+import itertools
 import re
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -273,7 +274,7 @@ def k6_turns(card, ours, base_tr, mvps, verts, faces, colors, pre):
 def k4_runs(dev):
     """chip_smoke's K4 runs at 1920x1080: {label: (kinds, params)}."""
     from libnativecpurenderer_tpu_torch import RenderContext, Texture
-    from libnativecpurenderer_tpu_torch.ops import canvas_kernel
+    from libnativecpurenderer_tpu_torch.ops import executor
     rng = np.random.default_rng(0)
     texs = [Texture._from_array(rng.random((128, 128, 4)), True)
             for _ in range(4)]
@@ -281,9 +282,15 @@ def k4_runs(dev):
     cs.bench_draw(rec, texs, 0.0)
     bk, bp = (np.array(a) for a in rec._cmds.snapshot())
     rec._cmds.clear()
-    runs = {f"bench run {i + 1} ({hi - lo} cmds)": (bk[lo:hi], bp[lo:hi])
-            for i, (lo, hi) in enumerate(
-                canvas_kernel.arith_runs(bk.tolist()))}
+    # the arithmetic runs, which K4 takes in every checkout
+    runs, lo = {}, 0
+    for arith, group in itertools.groupby(
+            bk.tolist(), lambda k: k not in executor.SAMPLING_KINDS):
+        n = len(list(group))
+        if arith:
+            runs[f"bench run {len(runs) + 1} ({n} cmds)"] = (
+                bk[lo:lo + n], bp[lo:lo + n])
+        lo += n
     runs["64-cmd frame"] = cs.frame64(rec, 7)
     return runs
 
@@ -361,7 +368,7 @@ def k4_turns(card, dev, ours, base_ck, approx: bool):
                     fb.data_ptr(), cs.WIDTH, cs.HEIGHT, kd.data_ptr(),
                     pt.data_ptr(), kd.numel(),
                     0 if td is None else td.data_ptr(),
-                    0 if td is None else td.numel(),
+                    0 if td is None else td.numel(), 0, 0, 0,
                     int(dtype == torch.float64), stream)
                 if err:
                     raise RuntimeError(f"canvas_span failed: {err}")
