@@ -9,7 +9,8 @@ behind.  ``--trace 1`` runs the same window, then profiles
 ``PROFILED_BATCHES`` more batches with ``torch.profiler`` (a steady
 sub-window: the whole window would make hundreds of thousands of
 events), and reports the per-layer metrics instead of the end-to-end
-ones.
+ones.  A process that holds a module of the JAX stack or of the JAX
+package once the run is over prints no result (``report``).
 """
 
 from __future__ import annotations
@@ -31,6 +32,9 @@ from .trace import WINDOW, Trace
 WARM_BATCHES = 2
 PROFILED_BATCHES = 1
 SAMPLE_FRAMES = 16          # at least, and as many of each place in a batch
+# top-level modules a run of the port may not hold: the JAX stack and the
+# JAX package the port was made from (its name is the port's, less _torch)
+FOREIGN = ("jax", "jaxlib", "flax", "libnativecpurenderer" + "_tpu")
 
 
 def log(msg: str) -> None:
@@ -98,17 +102,20 @@ def profiled_keys(gen, batch: int) -> list:
 
 
 def off_share(got, want) -> float:
-    """Share of the pixels of two (H, W, 4) u8 frames where some channel
-    differs by more than one level."""
+    """Share of the places of two integer frames where some channel
+    differs by more than one level: a frame's last axis is its channels,
+    so the places are the pixels of (H, W, 4) u8 video frames, or the
+    sample frames of an (N, 2) int16 mixed clip, checked to 1 LSB."""
     g = torch.as_tensor(got).to(want.device).int()
     return float(((g - want.int()).abs().amax(-1) > 1).double().mean())
 
 
 def check(system, gen, keys, sample: dict, device, control: bool) -> float:
     """The worst off share of the sampled frames against the reference,
-    which renders each sampled frame i again from its input; with
+    which makes each sampled frame i again from its input; with
     ``control`` the control's frames of the same inputs take the
-    program's place."""
+    program's place.  A frame is the unit the system delivers to the
+    sink: a u8 video frame, or one mixed clip for a mixer."""
     worst = 0.0
     for i in sorted(sample):
         want = system.reference(gen.frame(keys[i]), device)
@@ -180,7 +187,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     error = None
     try:
         system.finish()
-    except ValueError as exc:            # the mesh pipeline's overflow
+    except ValueError as exc:            # e.g. a raster's overflow
         error = str(exc)
         log(f"the program failed: {error}")
     sync()
@@ -281,6 +288,19 @@ def main(argv, t_process: int) -> int:
         f"{torch.version.cuda}")
     out = run_cell(cell, args.seed, args.seconds, bool(args.trace), device,
                    t_process)
+    return report(out)
+
+
+def foreign_modules() -> list:
+    """The names of ``FOREIGN`` that ``sys.modules`` holds, compared by
+    whole top-level names."""
+    return sorted({m.split(".")[0] for m in sys.modules} & set(FOREIGN))
+
+
+def report(out: dict) -> int:
+    """Log a run's host figures and checks, then print its result line;
+    where the process holds a module of ``FOREIGN`` once the run is over,
+    name it and print no result."""
     host = out.pop("host")
     log(f"frames submitted {out['attempted']}, in the window "
         f"{out.pop('frames_in_window')}; the loop's host clock "
@@ -288,6 +308,10 @@ def main(argv, t_process: int) -> int:
         f"thread CPU {host['thread_cpu_s']!r} s")
     for name, c in out["checks"].items():
         log(f"check {name} {c['value']!r} limit {c['limit']!r}")
+    found = foreign_modules()
+    if found:
+        log(f"the run loaded {', '.join(found)}: no result")
+        return 3
     print(json.dumps(out), flush=True)
     return 0
 

@@ -2,11 +2,22 @@
 configuration (``configs/<config>.json``), its traffic mix
 (``traffic/<traffic>.json`` or ``.jsonl``, whose ``"generator"`` is
 ``generators/<generator>.py``), its limits (``limits/<cell>.json``), its
-system (the configuration's ``"system"``: ``systems/<system>.py``, which
-finds a mesh configuration's ``"scene"`` in ``scenes/<scene>.py``) and the
-metric readers (``metrics/<metric>.py``) of the metrics that list the
-cell or list no cells.  Adding a cell, a mix, a generator, a scene, a
-system or a metric adds files and entries; nothing here changes."""
+system and the metric readers (``metrics/<metric>.py``) of the metrics
+that list the cell or list no cells.
+
+A system is the configuration's ``"system"``: ``systems/<system>.py``,
+which brings the ``System`` a run drives (its ``batch``; ``submit`` each
+frame's input, ``finish``, ``close``, ``reference`` and ``work``;
+``record`` or None), its ``LIBRARY`` (the program's library whose
+kernels a roofline reads, or None), the faults its check must catch
+(``fault(kind)``, for ``faults.py``) and its cut for the CPU tests
+(``small(cell, **variant)``, for ``tests/small.py``).  A frame is the
+unit a system delivers to the sink: a u8 video frame, or one mixed clip
+for a mixer.  A system may find more files by name, such as a
+configuration's ``"scene"`` in ``scenes/<scene>.py``.
+
+Adding a cell, a mix, a generator, a scene, a system or a metric adds
+files and entries; nothing here changes."""
 
 from __future__ import annotations
 
@@ -30,6 +41,18 @@ def metric_reader(name: str):
 
 def system_module(name: str):
     return importlib.import_module(f"bench_torch.systems.{name}")
+
+
+def system_part(name: str, part: str):
+    """The function ``part`` of the system ``name``'s module; an error
+    naming both where the module has none."""
+    module = system_module(name)
+    fn = getattr(module, part, None)
+    if fn is None:
+        raise NotImplementedError(
+            f"{module.__name__} has no {part}(): a system file brings "
+            f"System, LIBRARY, fault(kind) and small(cell, **variant)")
+    return fn
 
 
 class Cell:

@@ -12,8 +12,10 @@ clock = time.perf_counter_ns
 
 
 class Sink:
-    """A frame sink with ``put_frame_u8``: stamps each frame's arrival on
-    the host clock and keeps a copy of ``per_slot`` frames of each of the
+    """A frame sink with ``put_frame_u8``.  A frame is the unit a system
+    delivers here, whatever its dtype: a u8 video frame, or one mixed
+    clip for a mixer.  The sink stamps each frame's arrival on the host
+    clock and keeps a copy of ``per_slot`` frames of each of the
     ``slots`` places in a batch (frame i's is ``i % slots``), drawn from
     ``rng`` by reservoir sampling, so that every place in a batch is
     checked and the sample does not depend on how many frames the window

@@ -1,6 +1,6 @@
-"""canvas_span_roofline: K4's least time for the profiled frames'
-arithmetic draw calls (``rooflines/canvas_span``) over the device time of
-the kernels of the cell's library (its system's ``LIBRARY``) in the
+"""canvas_span_roofline: K4's least time for the profiled frames' draw
+calls and texture blits (``rooflines/canvas_span``) over the device time
+of the kernels of the cell's library (its system's ``LIBRARY``) in the
 profiled sub-window.  Layer: canvas kernel."""
 
 from ..harness import peaks

@@ -1,7 +1,8 @@
 """launches_per_frame: kernel launch calls (``cudaLaunchKernel``,
 ``cudaLaunchKernelExC``, ``cuLaunchKernel[Ex]``) and
-``cudaMemcpyAsync`` calls in the profiled sub-window, over its frames.
-A count: it repeats exactly.  Layer: host dispatch."""
+``cudaMemcpyAsync`` calls in the profiled sub-window, over its frames:
+every call there, under the system's ``submit`` and ``record`` and the
+sink alike.  A count: it repeats exactly.  Layer: host dispatch."""
 
 UNIT = "launches"
 

@@ -27,9 +27,11 @@ on an RGBA context.  Semantics:
 
 ``dtype`` is the arithmetic's precision: float64 for the reference,
 bfloat16 for the control.  Each draw argument is cast to it once.  A
-``cover`` canvas draws nothing: it keeps the state and lists each
-arithmetic draw's pixel box and the pixels it covers there (``covered``:
-call, box, mask), for the roofline's count, and skips the textures.
+``cover`` canvas draws nothing: it keeps the state and lists each draw's
+pixel box, the pixels it covers there and, for a blit, the texture and
+the flat indices of the texels those pixels read (``covered``: call,
+box, mask, texels or None), for the roofline's count.  Its calls are
+the draw's name, and ``draw_texture_fast`` for the fast path.
 """
 
 from __future__ import annotations
@@ -132,7 +134,7 @@ class Canvas:
 
     def _blend(self, box, mask, r, g, b, a, call=None):
         if self.covered is not None:
-            self.covered.append((call, box, mask))
+            self.covered.append((call, box, mask, None))
             return
         x0, x1, y0, y1 = box
         view = self.buf[y0:y1, x0:x1]
@@ -145,7 +147,8 @@ class Canvas:
         new = torch.cat([rgb, a], -1)
         view.copy_(torch.where(mask[..., None], new, view))
 
-    def _sample(self, tex, u, v, shape):
+    def _blit(self, tex, box, u, v, mask, call):
+        """Each pixel of ``mask`` takes its nearest texel at (u, v)."""
         # the clamp and the truncation in doubles: a bfloat16 control
         # cannot hold tw - 2 of a wide texture
         th, tw = tex.shape[0], tex.shape[1]
@@ -154,10 +157,14 @@ class Canvas:
         u = torch.where(u >= tw - 1, torch.full_like(u, tw - 2), u)
         v = torch.where(v < 0, torch.zeros_like(v), v)
         v = torch.where(v >= th - 1, torch.full_like(v, th - 2), v)
-        ui = torch.broadcast_to(u, shape).long()
-        vi = torch.broadcast_to(v, shape).long()
+        ui = torch.broadcast_to(u, mask.shape).long()
+        vi = torch.broadcast_to(v, mask.shape).long()
+        if self.covered is not None:
+            self.covered.append((call, box, mask,
+                                 (tex, (vi * tw + ui)[mask])))
+            return
         t = tex.to(self.dtype)[vi, ui]
-        return t[..., 0], t[..., 1], t[..., 2], t[..., 3]
+        self._blend(box, mask, t[..., 0], t[..., 1], t[..., 2], t[..., 3])
 
     # -- draws ------------------------------------------------------------
     def set_color(self, r, g, b, a):
@@ -229,7 +236,7 @@ class Canvas:
 
     def draw_texture(self, tex, x, y, w, h):
         """``tex``: (th, tw, 4) texels."""
-        if w == 0 or h == 0 or self.covered is not None:
+        if w == 0 or h == 0:
             return
         th, tw = tex.shape[0], tex.shape[1]
         sx, sy = self._s(tw / w), self._s(th / h)
@@ -246,6 +253,7 @@ class Canvas:
             v = (self._axis(box[2], box[3])[:, None] - self._s(y)) * sy
             shape = (box[3] - box[2], box[1] - box[0])
             m = torch.ones(shape, dtype=torch.bool, device=self.device)
+            call = "draw_texture_fast"
         else:
             got = self._rect(x, y, w, h)
             if got is None:
@@ -253,10 +261,11 @@ class Canvas:
             box, u, v, m = got
             u = (u - self._s(x)) * sx
             v = (v - self._s(y)) * sy
-        self._blend(box, m, *self._sample(tex, u, v, m.shape))
+            call = "draw_texture"
+        self._blit(tex, box, u, v, m, call)
 
     def draw_splitted_texture(self, tex, x, y, w, h, u0, u1, v0, v1):
-        if w == 0 or h == 0 or self.covered is not None:
+        if w == 0 or h == 0:
             return
         got = self._rect(x, y, w, h)
         if got is None:
@@ -268,7 +277,7 @@ class Canvas:
         v = (v - self._s(y)) * self._s(th / h)
         u = (self._s(u0) + (self._s(u1) - self._s(u0)) * u / tws) * tws
         v = (self._s(v0) + (self._s(v1) - self._s(v0)) * v / ths) * ths
-        self._blend(box, m, *self._sample(tex, u, v, m.shape))
+        self._blit(tex, box, u, v, m, "draw_splitted_texture")
 
     def run(self, calls, textures: dict):
         """Replay ``calls`` ([name, *args]; a texture argument a name in

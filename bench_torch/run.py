@@ -10,7 +10,9 @@ last line of standard output is one JSON object: ``correct``,
 ``attempted``, ``failed``, ``metrics``, ``device`` (and with ``--trace 1``
 ``breakdown``), and last ``checks``, each number compared beside its
 limit; standard error ends with the same checks.  Without a CUDA device
-it prints no result and exits with 2.
+it prints no result and exits with 2; where the process holds JAX,
+jaxlib, flax or the JAX package once the run is over, it names them on
+standard error, prints no result and exits with 3.
 """
 
 import time

@@ -4,14 +4,17 @@ frames' initial framebuffer; then each frame's calls recorded on the
 port's ``MultiThreadedVideoRenderContextPreparer`` (the record layer) and
 ``BatchedVideoPipeline.submit(*rec._cmds.snapshot())``: the params' cast
 and upload a batch, ``fb0.clone()``, ``context.execute`` (K4 for each
-run of arithmetic commands, the sampling ops for each texture command),
-``quantize_u8`` and the pinned copy, one batch behind.
+run of arithmetic draws and texture blits, the executor's sampling ops
+for a hit effect only), ``quantize_u8`` and the pinned copy, one batch
+behind.
 
 The reference (``references/canvas``) replays the static and the frame's
 calls on the same texels in float64.
 """
 
 from __future__ import annotations
+
+from unittest import mock
 
 import torch
 
@@ -95,24 +98,93 @@ class System:
 
     def work(self, inputs, device) -> dict:
         """What K4 must do for these frames, counted from their calls by
-        the reference: the pixels each arithmetic draw covers, by call,
-        and the pixels of their union (each read and written once), keyed
-        by the roofline's layer."""
+        the reference: the pixels each draw and blit covers, by call, the
+        pixels of their union (each read and written once) and the bytes
+        of the texels the blits read (each once a frame), keyed by the
+        roofline's layer."""
         covered_px: dict = {}
         calls: dict = {}
-        union = 0
+        union = texel_bytes = 0
         for frame in inputs:
             cv = canvas_ref.Canvas(self.width, self.height, device,
                                    cover=True)
-            cv.run(frame, dict.fromkeys(self.texels))
+            cv.run(frame, self.texels)
             mark = torch.zeros((self.height, self.width), dtype=torch.bool,
                                device=device)
-            for call, (x0, x1, y0, y1), m in cv.covered:
+            read: dict = {}
+            for call, (x0, x1, y0, y1), m, texels in cv.covered:
                 calls[call] = calls.get(call, 0) + 1
                 covered_px[call] = covered_px.get(call, 0) + int(m.sum())
                 mark[y0:y1, x0:x1] |= m
+                if texels is not None:
+                    tex, idx = texels
+                    if id(tex) not in read:
+                        read[id(tex)] = (tex, torch.zeros(
+                            tex.shape[0] * tex.shape[1], dtype=torch.bool,
+                            device=device))
+                    read[id(tex)][1][idx] = True
             union += int(mark.sum())
+            texel_bytes += sum(int(seen.sum()) * tex[0, 0].nbytes
+                               for tex, seen in read.values())
         return {"canvas_span": {"frames": len(inputs),
                                 "covered_px": covered_px,
                                 "union_px": union, "calls": calls,
-                                "px_bytes": self.px_bytes}}
+                                "px_bytes": self.px_bytes,
+                                "texel_bytes": texel_bytes}}
+
+
+def fault(kind: str):
+    """``faults.KINDS``' ``kind`` planted in the frame pipeline: a frame
+    never executed, so it is its initial framebuffer (``unchanged``);
+    every other frame not executed (``half``); or a 32x32 block of every
+    frame's u8 bytes flipped (``altered``)."""
+    from libnativecpurenderer_tpu_torch import pipeline
+    from libnativecpurenderer_tpu_torch.ops import executor
+    if kind == "unchanged":
+        return mock.patch.object(pipeline, "execute", lambda *a, **kw: None)
+    if kind == "half":
+        real, n = pipeline.execute, [0]
+
+        def every_other(*a, **kw):
+            n[0] += 1
+            if n[0] % 2:
+                real(*a, **kw)
+        return mock.patch.object(pipeline, "execute", every_other)
+    real_q = executor.quantize_u8
+
+    def altered(fb, *a, **kw):
+        u8 = real_q(fb, *a, **kw).clone()
+        u8[8:40, 8:40] ^= 0x55
+        return u8
+    return mock.patch.object(executor, "quantize_u8", altered)
+
+
+SMALL_W, SMALL_H = 160, 96
+SMALL_SCALE = 1 / 12                # the chart's calls are drawn at 1080p
+SMALL_FRAMES = 12
+
+
+def _wrap(calls):
+    return [["save_state"], ["scale", SMALL_SCALE, SMALL_SCALE], *calls,
+            ["restore_state"]]
+
+
+def small(cell, **variant):
+    """The cell cut for the CPU tests: 160x96 at batch 2, the static and
+    every frame's calls drawn under a scale of 1/12 (wrapped in
+    ``save_state``, ``scale``, ``restore_state``), 12 frames from the
+    middle of the chart, where notes are on screen, and the textures
+    clipped to the frame.  The chart has no variant.  Returns the
+    configuration, mix and limits, and the seconds of a CPU window."""
+    if variant:
+        raise ValueError(f"the chart cell has no variant {sorted(variant)}")
+    config = dict(cell.config, width=SMALL_W, height=SMALL_H, batch=2)
+    lines = cell.mix["lines"]
+    mid = len(lines) // 2
+    mix = dict(cell.mix, static_calls=_wrap(cell.mix["static_calls"]),
+               lines=[_wrap(f) for f in lines[mid:mid + SMALL_FRAMES]])
+    mix["textures"] = {
+        n: dict(t, height=min(t["height"], SMALL_H),
+                width=min(t["width"], SMALL_W))
+        for n, t in cell.mix["textures"].items()}
+    return config, mix, cell.limits, 1.0

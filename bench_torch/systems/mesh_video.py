@@ -12,7 +12,9 @@ the same matrix in float64.
 
 from __future__ import annotations
 
+import contextlib
 import importlib
+from unittest import mock
 
 import numpy as np
 import torch
@@ -105,3 +107,45 @@ class System:
             "input_bytes": len(inputs) * (v * 3 * 4 + f * 3 * 4 + 16 * 4
                                           + surface_bytes),
             "textured": self.textured}}
+
+
+def fault(kind: str):
+    """``faults.KINDS``' ``kind`` planted in the raster's loop entries: a
+    batch's later frames repeat its first (``unchanged``), its second
+    half zero (``half``), or a 32x32 block of every frame flipped
+    (``altered``)."""
+    from libnativecpurenderer_tpu_torch.ops import raster3d
+    stack = contextlib.ExitStack()
+    for name in ("render_gouraud_u8_loop", "render_textured_u8_loop"):
+        real = getattr(raster3d, name)
+
+        def fake(*a, _real=real, **kw):
+            frames, ovf = _real(*a, **kw)
+            frames = frames.clone()
+            if kind == "unchanged":
+                frames[1:] = frames[:1]
+            elif kind == "half":
+                frames[frames.shape[0] // 2:] = 0
+            else:
+                frames[:, 8:40, 8:40] ^= 0x55
+            return frames, ovf
+        stack.enter_context(mock.patch.object(raster3d, name, fake))
+    return stack
+
+
+def small(cell, textured: bool = False):
+    """The cell cut for the CPU tests: 160x96 at batch 2, the raster's
+    runs long enough for the whole mesh at that size (capacity 4096, span
+    8x8); with ``textured`` the textured surface, with the limit its cell
+    read on the card (no cell of BENCHMARK.json runs it now).  Returns
+    the configuration, mix and limits, and the seconds of a CPU window
+    that holds two batches of the plain raster (a frame takes 0.2-0.4 s
+    there)."""
+    config = dict(cell.config, width=160, height=96, batch=2, capacity=4096,
+                  span_x=8, span_y=8)
+    mix, limits = cell.mix, cell.limits
+    if textured:
+        mix = dict(mix, surface="textured", texture=[16, 16],
+                   render={"perspective_correct": True, "z_clip": True})
+        limits = {"worst_frame_off_share": 4e-4}
+    return config, mix, limits, 2.0

@@ -18,6 +18,7 @@ def test_cell_found_by_name(name):
     c = spec.Cell(BENCH, name)
     assert c.config["name"] == c.entry["config"]
     assert hasattr(c.system, "System") and hasattr(c.system, "LIBRARY")
+    assert callable(c.system.fault) and callable(c.system.small)
     assert c.chips == c.entry["chips"] in (1, 4)
     assert c.limits, f"no limits/{name}.json"
     assert c.end_to_end and c.per_layer

@@ -1,7 +1,8 @@
 """The roofline counts against brute-force counts at a small size: the
 mesh raster's covered fragments and pixels (and the reference's frame)
 against a per-pixel loop over every triangle, K4's covered and union
-pixels against pixels marked one by one under a plain rotation."""
+pixels and the texels its blits read against pixels marked one by one
+under a plain rotation."""
 
 import math
 
@@ -102,22 +103,34 @@ FRAME = [
 
 
 C30, S30 = math.cos(math.pi / 6), math.sin(math.pi / 6)
+TW, TH = 9, 7                # texture "t"'s texels
 
 
 def rot(x, y):
     return (20.5 + C30 * x - S30 * y, 6.25 + S30 * x + C30 * y)
 
 
+def local(x, y, rotated):
+    """Pixel (x, y)'s centre mapped back by the inverse of the rotation
+    (or not at all) and snapped to 2^-20."""
+    u, v = x, y
+    if rotated:
+        dx, dy = x - 20.5, y - 6.25
+        u, v = C30 * dx + S30 * dy, -S30 * dx + C30 * dy
+    return round(u * 2 ** 20) / 2 ** 20, round(v * 2 ** 20) / 2 ** 20
+
+
 def covered(inside, rotated, rect=None):
-    """Pixels whose centre, mapped back by the inverse of the rotation
-    (or not at all) and snapped to 2^-20, ``inside`` holds: marked one by
-    one, over the whole frame (a line) or over the pixel box of the
-    rect's mapped corners, truncated (x, y, w, h: a rect's draw)."""
-    c30, s30 = C30, S30
+    """Pixels whose centre ``local`` maps to a point ``inside`` holds:
+    marked one by one, over the whole frame (a line) or over the pixel
+    box of the rect's corners, mapped by the rotation where ``rotated``
+    and truncated (x, y, w, h: a rect's draw)."""
     lo_x, lo_y, hi_x, hi_y = 0, 0, W, H
     if rect is not None:
         x, y, w, h = rect
-        pts = [rot(x, y), rot(x + w, y), rot(x, y + h), rot(x + w, y + h)]
+        pts = [(x, y), (x + w, y), (x, y + h), (x + w, y + h)]
+        if rotated:
+            pts = [rot(*p) for p in pts]
         lo_x = max(0, int(min(p[0] for p in pts)))
         hi_x = min(W, int(max(p[0] for p in pts)))
         lo_y = max(0, int(min(p[1] for p in pts)))
@@ -125,14 +138,21 @@ def covered(inside, rotated, rect=None):
     mark = np.zeros((H, W), bool)
     for y in range(lo_y, hi_y):
         for x in range(lo_x, hi_x):
-            u, v = x, y
-            if rotated:
-                dx, dy = x - 20.5, y - 6.25
-                u, v = c30 * dx + s30 * dy, -s30 * dx + c30 * dy
-            u = round(u * 2 ** 20) / 2 ** 20
-            v = round(v * 2 ** 20) / 2 ** 20
-            mark[y, x] = inside(u, v)
+            mark[y, x] = inside(*local(x, y, rotated))
     return mark
+
+
+def texels(mask, point, to_uv):
+    """The flat indices of the texels that ``mask``'s pixels read: (u,
+    v) of a pixel's ``point`` by ``to_uv``, u clamped to [0, TW - 2], v
+    to [0, TH - 2], each truncated."""
+    out = set()
+    for y, x in zip(*np.nonzero(mask)):
+        u, v = to_uv(*point(int(x), int(y)))
+        u = 0.0 if u < 0 else (TW - 2.0 if u >= TW - 1 else u)
+        v = 0.0 if v < 0 else (TH - 2.0 if v >= TH - 1 else v)
+        out.add(int(v) * TW + int(u))
+    return out
 
 
 def in_rect(x, y, w, h):
@@ -152,6 +172,13 @@ def in_quad(pts):
     return inside
 
 
+def chart_system():
+    sysm = chart_video.System.__new__(chart_video.System)
+    sysm.width, sysm.height, sysm.px_bytes = W, H, 16
+    sysm.texels = {"t": torch.zeros((TH, TW, 4), dtype=torch.float32)}
+    return sysm
+
+
 def test_canvas_counts_against_marked_pixels():
     masks = {
         "fill_color": [np.ones((H, W), bool)],
@@ -159,15 +186,27 @@ def test_canvas_counts_against_marked_pixels():
                               (0, 0, 9.5, 4))],
         "draw_vertical_grd": [covered(in_rect(-3, -2, 6, 7), True,
                                       (-3, -2, 6, 7))],
+        "draw_texture": [covered(in_rect(0, 0, 5, 5), True, (0, 0, 5, 5))],
         "draw_line": [
             covered(in_quad(canvas_ref.line_quad(1, 1, 12, 3, 2)), True),
             covered(in_quad(canvas_ref.line_quad(2, 20, 30, 22, 3)), False)],
+        "draw_splitted_texture": [covered(in_rect(1, 1, 10, 10), False,
+                                          (1, 1, 10, 10))],
     }
-    sysm = chart_video.System.__new__(chart_video.System)
-    sysm.width, sysm.height, sysm.px_bytes = W, H, 16
-    sysm.texels = {"t": None}
+    # the rotated blit's (u, v), then the split blit's, whose part is
+    # the whole texture: (0 + (1 - 0) * u / tw) * tw
+    read = texels(masks["draw_texture"][0],
+                  lambda x, y: local(x, y, True),
+                  lambda u, v: (u * (TW / 5), v * (TH / 5)))
+    read |= texels(masks["draw_splitted_texture"][0],
+                   lambda x, y: local(x, y, False),
+                   lambda u, v: ((0.0 + 1.0 * ((u - 1) * (TW / 10)) / TW)
+                                 * TW,
+                                 (0.0 + 1.0 * ((v - 1) * (TH / 10)) / TH)
+                                 * TH))
     # the frame, a fill alone, and the frame without its fill
-    c = sysm.work([FRAME, FRAME[:1], FRAME[1:]], "cpu")["canvas_span"]
+    c = chart_system().work([FRAME, FRAME[:1], FRAME[1:]],
+                            "cpu")["canvas_span"]
     by_call = {k: sum(int(m.sum()) for m in ms) for k, ms in masks.items()}
     for k in by_call:
         by_call[k] *= 1 if k == "fill_color" else 2
@@ -177,10 +216,31 @@ def test_canvas_counts_against_marked_pixels():
         [m for k, ms in masks.items() if k != "fill_color" for m in ms])
     assert c["union_px"] == 2 * W * H + int(union.sum())
     assert c["calls"] == {"fill_color": 2, "draw_rect": 2,
-                          "draw_vertical_grd": 2, "draw_line": 4}
+                          "draw_vertical_grd": 2, "draw_texture": 2,
+                          "draw_line": 4, "draw_splitted_texture": 2}
     assert all(0 < n < W * H for k, n in by_call.items() if k != "fill_color")
+    assert 1 < len(read) < TW * TH
+    assert c["texel_bytes"] == 2 * len(read) * 16
     n_bytes, n_ops = canvas_span.work(c)
-    assert n_bytes == 2 * c["union_px"] * 16 + 4 * (
-        2 * 4 + 2 * 8 + 2 * 12 + 4 * 9)
+    assert n_bytes == 2 * c["union_px"] * 16 + c["texel_bytes"] + 4 * (
+        2 * 4 + 2 * 8 + 2 * 12 + 2 * 4 + 4 * 9 + 2 * 8)
     assert n_ops == sum(canvas_span.PER_PX_OPS[k] * n
                         for k, n in by_call.items())
+
+
+def test_canvas_counts_a_fast_blit():
+    """A blit under no transform takes the fast path: every pixel from
+    trunc(x) while i < x + w, no bound test."""
+    frame = [["draw_texture", "t", 2.5, 3, 6, 4]]
+    c = chart_system().work([frame], "cpu")["canvas_span"]
+    mask = np.zeros((H, W), bool)
+    mask[3:7, 2:9] = True
+    read = texels(mask, lambda x, y: (x, y),
+                  lambda u, v: ((u - 2.5) * (TW / 6), (v - 3) * (TH / 4)))
+    assert c["calls"] == {"draw_texture_fast": 1}
+    assert c["covered_px"] == {"draw_texture_fast": 28}
+    assert c["union_px"] == 28 and 1 < len(read) < TW * TH
+    assert c["texel_bytes"] == len(read) * 16
+    assert canvas_span.work(c) == (
+        2 * 28 * 16 + len(read) * 16 + 4 * 4,
+        28 * canvas_span.PER_PX_OPS["draw_texture_fast"])
