@@ -10,6 +10,15 @@ Every constructor takes ``device=`` (the card by default, as
 
 Decoding goes through the shared native media runtime when it is built,
 with a stdlib WAV fallback (``media.py``).
+
+Spans (``tracing``): ``lncr.audio.overlay_many`` around
+:meth:`AudioClip.overlay_many` (the FFT route inside it is
+``lncr.audio.fft``, ``ops/audio_ops``); ``lncr.audio.save_as_wav`` around
+:meth:`AudioClip.save_as_wav`, and inside it ``lncr.audio.copy_out`` (the
+int16 quantise and, from the card, the pinned buffer and its copy
+enqueued) and ``lncr.audio.assemble`` (the wait on the copy and the
+RIFF bytes).  Counter, reset to 0 here: ``AudioClip.save_as_wav.bytes``,
+the PCM bytes written.
 """
 
 from __future__ import annotations
@@ -20,7 +29,7 @@ import typing
 import numpy as np
 import torch
 
-from . import config
+from . import config, tracing
 from .interop import as_device
 from .ops import audio_ops
 
@@ -213,18 +222,19 @@ class AudioClip:
         power-of-two bucket with dropped starts, then the scatter route
         when bucket x source rows <= 2**20, else the FFT route
         (the JAX package's ``audio.py:377-418``)."""
-        starts = self._starts(start_seconds)
-        bucket = _bucket(len(starts))
-        starts = np.concatenate(
-            [starts, np.full(bucket - len(starts), audio_ops.SENTINEL,
-                             np.int64)])
-        source = self._matched(source)
-        n_src = int(source._buf.shape[0])
-        if bucket * n_src <= audio_ops.FFT_ABOVE:
-            audio_ops.overlay_many_bucketed(self._buf, source._buf, n_src,
-                                            starts)
-        else:
-            audio_ops.overlay_many(self._buf, source._buf, starts)
+        with tracing.span("lncr.audio.overlay_many"):
+            starts = self._starts(start_seconds)
+            bucket = _bucket(len(starts))
+            starts = np.concatenate(
+                [starts, np.full(bucket - len(starts), audio_ops.SENTINEL,
+                                 np.int64)])
+            source = self._matched(source)
+            n_src = int(source._buf.shape[0])
+            if bucket * n_src <= audio_ops.FFT_ABOVE:
+                audio_ops.overlay_many_bucketed(self._buf, source._buf,
+                                                n_src, starts)
+            else:
+                audio_ops.overlay_many(self._buf, source._buf, starts)
 
     def overlay_groups(self, pairs) -> None:
         """Overlay many (source clip, start_seconds list) groups on the
@@ -278,40 +288,38 @@ class AudioClip:
     def save_as_wav(self) -> bytes:
         """The clip as 16-bit PCM RIFF/WAVE bytes.  The samples are
         quantised on the clip's device; from the card they come back in
-        ~2 MB row chunks, copied back to back into pinned memory without
-        waiting, and each chunk goes into the output once its copy has
-        ended, so the assembly overlaps the rest of the transfer."""
-        pcm_dev = audio_ops.to_int16_device(self._buf)
-        rows, ch = int(pcm_dev.shape[0]), int(pcm_dev.shape[1])
-        n = rows * ch * 2
-        header = b"RIFF" + struct.pack("<i", 36 + n) + b"WAVE"
-        header += b"fmt " + struct.pack(
-            "<ihhiihh", 0x10, 1, self._channels, self._sample_rate,
-            self._sample_rate * self._channels * 2, self._channels * 2, 16)
-        header += b"data" + struct.pack("<i", n)
-        out = bytearray(len(header) + n)
-        out[:len(header)] = header
-        if not pcm_dev.is_cuda:
-            out[len(header):] = memoryview(
-                np.ascontiguousarray(pcm_dev.numpy())).cast("B")
-            return bytes(out)
-        rows_per_chunk = max(1, (2 << 20) // (2 * ch))
-        host = torch.empty((rows, ch), dtype=torch.int16, pin_memory=True)
-        done = []
-        for i in range(0, rows, rows_per_chunk):
-            host[i:i + rows_per_chunk].copy_(pcm_dev[i:i + rows_per_chunk],
-                                             non_blocking=True)
-            ev = torch.cuda.Event()
-            ev.record()
-            done.append((i, ev))
-        raw = memoryview(host.numpy()).cast("B")
-        row_bytes = 2 * ch
-        for i, ev in done:
-            ev.synchronize()
-            a = i * row_bytes
-            b = min(rows, i + rows_per_chunk) * row_bytes
-            out[len(header) + a:len(header) + b] = raw[a:b]
-        return bytes(out)
+        one copy into pinned memory, and the header and the samples are
+        joined into the output once the copy has ended: one allocation
+        and one host copy of the samples a call, since each further
+        buffer of the clip's size costs the host its page faults."""
+        with tracing.span("lncr.audio.save_as_wav"):
+            with tracing.span("lncr.audio.copy_out"):
+                pcm = audio_ops.to_int16_device(self._buf)
+                done = None
+                if pcm.is_cuda:
+                    host = torch.empty(pcm.shape, dtype=torch.int16,
+                                       pin_memory=True)
+                    host.copy_(pcm, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record()
+                else:
+                    host = pcm.contiguous()
+            with tracing.span("lncr.audio.assemble"):
+                n = pcm.numel() * 2
+                AudioClip.save_as_wav.bytes += n
+                header = b"RIFF" + struct.pack("<i", 36 + n) + b"WAVE"
+                header += b"fmt " + struct.pack(
+                    "<ihhiihh", 0x10, 1, self._channels, self._sample_rate,
+                    self._sample_rate * self._channels * 2,
+                    self._channels * 2, 16)
+                header += b"data" + struct.pack("<i", n)
+                if done is not None:
+                    done.synchronize()
+                return b"".join((header,
+                                 memoryview(host.numpy()).cast("B")))
+
+
+AudioClip.save_as_wav.bytes = 0
 
 
 class Int16CreatedAudioClip(AudioClip):

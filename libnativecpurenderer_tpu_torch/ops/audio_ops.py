@@ -24,6 +24,13 @@ torch ops, arranged so that the card and the CPU give the same bits:
 Donation has no counterpart: the ops that the JAX ``AudioClip`` rebinds
 its buffer to (``overlay*``, ``gain``) update the target in place and
 return it.  None of them takes part in autograd.
+
+The FFT route of :func:`overlay_many` is the span ``lncr.audio.fft``
+(``tracing``).  Counters, reset to 0 here: ``overlay_many.fft``, the
+calls that take the FFT route; ``overlay_many.events``, the events that
+survive the drop on either route of :func:`overlay_many` (its scatter
+route included, and :func:`overlay_many_bucketed`, ``AudioClip``'s way
+onto that route).
 """
 
 from __future__ import annotations
@@ -32,6 +39,8 @@ from typing import Iterable, List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from .. import tracing
 
 # The padding start the JAX package gives the events of a power-of-two
 # bucket that it does not use (its ``audio.py:391-393``): past any
@@ -70,14 +79,18 @@ def _drop_segments(start: int, n: int, rows: int) -> List[Tuple[int, int,
 
 
 def _scatter(target: torch.Tensor, source: torch.Tensor,
-             starts: Iterable[int]) -> torch.Tensor:
+             starts: Iterable[int]) -> int:
     """The scatter route: ``source`` added into ``target`` at each start,
-    in place, events in order (XLA:CPU's order of the flattened updates)."""
+    in place, events in order (XLA:CPU's order of the flattened updates).
+    Returns the number of events that survive the drop."""
     rows, n = target.shape[0], source.shape[0]
+    kept = 0
     for s in starts:
-        for a, b, d in _drop_segments(int(s), n, rows):
+        segments = _drop_segments(int(s), n, rows)
+        kept += bool(segments)
+        for a, b, d in segments:
             target[d:d + b - a] += source[a:b]
-    return target
+    return kept
 
 
 def overlay(target: torch.Tensor, source: torch.Tensor,
@@ -85,7 +98,8 @@ def overlay(target: torch.Tensor, source: torch.Tensor,
     """Additive overlay of ``source`` (n, C) into ``target`` (N, C) at frame
     ``start``, in place; rows outside the target follow ``mode="drop"``
     (cpp:1129-1154)."""
-    return _scatter(target, source, _as_starts([start]))
+    _scatter(target, source, _as_starts([start]))
+    return target
 
 
 def overlay_many(target: torch.Tensor, source: torch.Tensor,
@@ -102,25 +116,33 @@ def overlay_many(target: torch.Tensor, source: torch.Tensor,
     st = _as_starts(starts)
     n = source.shape[0]
     if st.size * n <= FFT_ABOVE:
-        return _scatter(target, source, st)
-    rows, c = target.shape
-    m = 1
-    while m < rows + n:
-        m *= 2
-    st = np.where(st >= rows, m, st)
-    st = np.where(st < 0, st + m, st)
-    st = st[(st >= 0) & (st < m)]
-    dev, dtype = target.device, target.dtype
-    imp = torch.zeros((m,), dtype=dtype, device=dev)
-    # sums of ones: exact in any order, so index_add_ is deterministic here
-    idx = torch.from_numpy(st).to(dev)
-    imp.index_add_(0, idx, torch.ones(idx.shape, dtype=dtype, device=dev))
-    src_pad = torch.zeros((m, c), dtype=dtype, device=dev)
-    src_pad[:n] = source
-    spec = torch.fft.rfft(src_pad, dim=0)
-    ispec = torch.fft.rfft(imp)
-    mixed = torch.fft.irfft(ispec[:, None] * spec, n=m, dim=0)[:rows]
-    return target.add_(mixed.to(dtype))
+        overlay_many.events += _scatter(target, source, st)
+        return target
+    with tracing.span("lncr.audio.fft"):
+        overlay_many.fft += 1
+        rows, c = target.shape
+        m = 1
+        while m < rows + n:
+            m *= 2
+        st = np.where(st >= rows, m, st)
+        st = np.where(st < 0, st + m, st)
+        st = st[(st >= 0) & (st < m)]
+        overlay_many.events += st.size
+        dev, dtype = target.device, target.dtype
+        imp = torch.zeros((m,), dtype=dtype, device=dev)
+        # sums of ones: exact in any order, so index_add_ is deterministic
+        idx = torch.from_numpy(st).to(dev)
+        imp.index_add_(0, idx, torch.ones(idx.shape, dtype=dtype, device=dev))
+        src_pad = torch.zeros((m, c), dtype=dtype, device=dev)
+        src_pad[:n] = source
+        spec = torch.fft.rfft(src_pad, dim=0)
+        ispec = torch.fft.rfft(imp)
+        mixed = torch.fft.irfft(ispec[:, None] * spec, n=m, dim=0)[:rows]
+        return target.add_(mixed.to(dtype))
+
+
+overlay_many.fft = 0
+overlay_many.events = 0
 
 
 def overlay_many_bucketed(target: torch.Tensor, source: torch.Tensor,
@@ -128,7 +150,9 @@ def overlay_many_bucketed(target: torch.Tensor, source: torch.Tensor,
     """The scatter route of :func:`overlay_many` over the first ``src_len``
     rows of ``source`` (the JAX op masks the rows of a power-of-two padded
     source; here nothing is compiled per length, so nothing is padded)."""
-    return _scatter(target, source[:int(src_len)], _as_starts(starts))
+    overlay_many.events += _scatter(target, source[:int(src_len)],
+                                    _as_starts(starts))
+    return target
 
 
 def overlay_groups(target: torch.Tensor, sources: Sequence[torch.Tensor],

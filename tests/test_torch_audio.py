@@ -289,8 +289,8 @@ def test_save_as_wav_layout():
 
 
 def test_save_as_wav_multichunk_identical():
-    # a clip larger than the card path's 2 MB copy chunks: the same
-    # quantised values and header as one serialisation
+    # a clip of several MB of samples: the same quantised values and
+    # header as one serialisation
     rng = np.random.default_rng(9)
     s = np.clip(rng.standard_normal((700_000, 2)) * 0.4, -1, 1)
     clip = pclip(44100, 2, s)
