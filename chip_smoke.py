@@ -36,7 +36,7 @@ raising:
      S, items);
   4. mesh main path: MeshVideoPipeline over 48 frames, batch 16, into a
      tiled sink and into a plain sink, after 3 timed runs of each whose
-     sink drops the frames; no overflow, K1 launched once per frame,
+     sink drops the frames; no overflow, K1 launched once per batch,
      every frame more than 10 % mesh, tiled == plain after the detile,
      and one frame equal to the same frame rendered on the CPU by the
      plain versions;
@@ -98,7 +98,7 @@ raising:
  11. textured main paths: MeshVideoPipeline(uvs=, tex_u8=) on its
      default device over 48 frames, batch 16, into a tiled and a plain
      sink, after 3 timed runs into a sink that drops the frames: no
-     overflow, K3 launched once a frame, tiled == plain, one frame equal
+     overflow, K3 launched once a batch, tiled == plain, one frame equal
      to the CPU plain path's; render_textured (K2a) on one frame, rgba
      and depth equal card vs CPU, then K2a against its plain version,
      keys and attribute bits, at render_textured's own shapes (128x8
@@ -230,7 +230,18 @@ raising:
      the 112 s target, the FFT route, then to_int16_device) in float64
      and float32: best of 3 on the host clock after a warm run, CUDA-event
      device time, xRT, save_as_wav time and bytes, launches and busy
-     share (profiler), peak device memory.
+     share (profiler), peak device memory;
+ 22. mesh batch: the mesh cell's shapes (mesh_10k, 1920x1080, tiles
+     32x32, span (5, 3), capacity 1024, batch 16, opaque, no z test):
+     the batch's prep (prepare_frame with 16 matrices) equal on the card
+     to the 16 per-frame preps (starts, counts, table, overflow, the
+     pairs of tiles < NT), and render_gouraud_u8_loop's frames, detiled
+     and tiled, bit-equal to the 16 frames of render_gouraud_u8, with
+     one K1 launch a call; then ms a batch of the loop and of the 16
+     per-frame renders in turns (host clock, each call ended by a sync;
+     and CUDA events with the calls queued, device time alone), host
+     launch and copy calls a batch and the device's busy share
+     (profiler).
 The line before the last is the kernel table as JSON (the audio path has
 no Pallas kernel, so no row of its own), the last line
 {"ok": true, "device": {...}}.
@@ -950,9 +961,9 @@ def mesh_phases(dev, card: str) -> dict:
     run_pipeline(plain_sink, FRAMES, None)
     launches = tile_raster.raster_tiles_flat_u8.launches
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
-    if launches != 2 * FRAMES:
+    if launches != 2 * -(-FRAMES // BATCH):
         raise AssertionError(f"K1 launched {launches} times for "
-                             f"{2 * FRAMES} frames")
+                             f"{2 * FRAMES} frames at batch {BATCH}")
     if not len(tiled_sink.tiles) == len(plain_sink.frames) == FRAMES:
         raise AssertionError("a sink did not get every frame")
     covered = []
@@ -974,7 +985,7 @@ def mesh_phases(dev, card: str) -> dict:
     cpu_diff = int((torch.from_numpy(plain_sink.frames[k]) != ref[0])
                    .any(-1).sum())
     print(f"[mesh main path] MeshVideoPipeline {FRAMES} frames x2 (tiled, "
-          f"plain): overflow False, K1 launches {launches} = frames "
+          f"plain): overflow False, K1 launches {launches} = batches "
           f"rendered, mesh covers {min(covered):.3f}..{max(covered):.3f} "
           f"of each frame, tiled == plain; frame {k} vs the CPU plain "
           f"path: {cpu_diff} pixels differ", flush=True)
@@ -1054,6 +1065,108 @@ def mesh_phases(dev, card: str) -> dict:
             "launches": launches, "max_abs_err": max_err,
             "ms": k1_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None}
+
+
+def mesh_batch_phase(dev, card: str) -> None:
+    """Phase 22: the batch's prep and render_gouraud_u8_loop at the mesh
+    cell's shapes against the per-frame prep and render_gouraud_u8, bit
+    for bit on the card, then their ms a batch and launches."""
+    from libnativecpurenderer_tpu_torch import interop
+    from libnativecpurenderer_tpu_torch.models import mesh
+    from libnativecpurenderer_tpu_torch.ops import raster3d, tile_raster
+
+    verts_np, faces_np, colors_np = mesh.mesh_10k()
+    mesh_t = interop.mesh_to_torch(verts_np, faces_np, colors_np, dev,
+                                   torch.float32)
+    verts, faces, colors = mesh_t
+    # the cell's orbit: 0.03 rad a frame from an angle of its own
+    mvps = torch.from_numpy(np.stack(
+        [camera(mesh, 40 + k, 0.03) for k in range(BATCH)])).to(dev)
+    kw = dict(PROD, opaque=True, z_clip=False)
+    prep_kw = dict(PROD, z_clip=False)
+    pre = (raster3d.pregather_mesh(verts, faces), colors[faces])
+    calls, frames = (raster3d.prepare_frame.calls,
+                     raster3d.prepare_frame.frames)
+    got = raster3d.prepare_frame(*mesh_t, WIDTH, HEIGHT, mvps, pre=pre,
+                                 **prep_kw)
+    took = (raster3d.prepare_frame.calls - calls,
+            raster3d.prepare_frame.frames - frames)
+    nt = got["counts"].shape[-1]
+    bad = []
+    for i in range(BATCH):
+        one = raster3d.prepare_frame(*mesh_t, WIDTH, HEIGHT, mvps[i],
+                                     pre=pre, **prep_kw)
+        for k in ("starts", "counts", "overflow"):
+            if not torch.equal(got[k][i], one[k]):
+                bad.append(f"{k} of frame {i}")
+        if not torch.equal(got["table"][i].view(torch.int32),
+                           one["table"].view(torch.int32)):
+            bad.append(f"table of frame {i}")
+        n = int(((one["sorted_pad"] >> raster3d.IDX_BITS) < nt).sum())
+        if not torch.equal(got["sorted_pad"][i, :n], one["sorted_pad"][:n]):
+            bad.append(f"pairs of frame {i}")
+    print(f"[mesh batch] the batch's prep, {BATCH} frames in one call "
+          f"(calls, frames counted: {took}): sorted_pad "
+          f"{tuple(got['sorted_pad'].shape)}, table "
+          f"{tuple(got['table'].shape)}; differs from the per-frame preps "
+          f"in {bad or 'nothing'}; overflow {got['overflow'].tolist()}",
+          flush=True)
+    if bad or took != (1, BATCH):
+        raise AssertionError("the batch's prep differs from the per-frame "
+                             "preps")
+
+    k1 = tile_raster.raster_tiles_flat_u8
+    saved = k1.launches
+
+    def loop(tiled=False):
+        return raster3d.render_gouraud_u8_loop(*mesh_t, WIDTH, HEIGHT, mvps,
+                                               tiled=tiled)
+
+    def per_frame(tiled=False):
+        out = [raster3d.render_gouraud_u8(*mesh_t, WIDTH, HEIGHT, m,
+                                          tiled=tiled, pre=pre, **kw)
+               for m in mvps]
+        return (torch.stack([f for f, _ in out]),
+                torch.stack([o for _, o in out]).any())
+
+    for tiled in (False, True):
+        k1.launches = 0
+        fb, ovf = loop(tiled)
+        n_loop = k1.launches
+        ff, ovf1 = per_frame(tiled)
+        torch.cuda.synchronize()
+        diff = int((fb != ff).any(-1).sum())
+        print(f"[mesh batch] render_gouraud_u8_loop, {BATCH} frames "
+              f"{'tiled' if tiled else 'detiled'} {tuple(fb.shape)}: K1 "
+              f"launches {n_loop}; {diff} pixels differ from "
+              f"render_gouraud_u8 frame by frame ({k1.launches - n_loop} "
+              f"launches); overflow {bool(ovf)} / {bool(ovf1)}", flush=True)
+        if diff or n_loop != 1 or bool(ovf) or bool(ovf1):
+            raise AssertionError("the batched loop differs from the "
+                                 "per-frame renders")
+
+    def wall_ms(fn, reps=10):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+            torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t) / reps
+
+    walls = {"loop": [], "per frame": []}
+    for name in ("loop", "per frame", "per frame", "loop"):
+        walls[name].append(wall_ms(loop if name == "loop" else per_frame))
+    dev_ms = in_turns({"loop": loop, "per frame": per_frame}, reps=3)
+    calls_loop, busy_loop, _ = profile_frames(loop, BATCH)
+    calls_one, busy_one, _ = profile_frames(per_frame, BATCH)
+    k1.launches = saved
+    print(f"[mesh batch] {card}: ms a batch of {BATCH} frames at "
+          f"{WIDTH}x{HEIGHT} ({kw}), in turns: host clock, each call ended "
+          f"by a sync: {walls}; device, CUDA events, calls queued: "
+          f"{dev_ms}; host calls a frame (profiler): loop {calls_loop}, "
+          f"per frame {calls_one}; busy: loop {busy_loop}; per frame "
+          f"{busy_one}", flush=True)
 
 
 def textured_scene():
@@ -1245,9 +1358,10 @@ def textured_phases(dev, card: str) -> list:
     run_pipeline(plain_sink, FRAMES, None)
     k3_launches = [k.launches for k in kernels]
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
-    if k3_launches != [2 * FRAMES, 0, 0]:
+    if k3_launches != [2 * -(-FRAMES // BATCH), 0, 0]:
         raise AssertionError(f"K3, K2b, K2a launched {k3_launches} times for "
-                             f"{2 * FRAMES} textured frames")
+                             f"{2 * FRAMES} textured frames at batch "
+                             f"{BATCH}")
     if not len(tiled_sink.tiles) == len(plain_sink.frames) == FRAMES:
         raise AssertionError("a sink did not get every frame")
     lit = []
@@ -4004,6 +4118,7 @@ def main() -> None:
     audio_ops_phase(dev, card)
     audio_main_phase(dev, card)
     audio_times_phase(dev, card)
+    mesh_batch_phase(dev, card)
     print(json.dumps({"kernels": [k1, k4, *tex_rows, *gouraud_rows,
                                   *wf_mxu_rows]}))
     print(card)

@@ -74,10 +74,11 @@ def _clip_rows(v4f, mvp):
     A matmul would leave the order and width of the sum to the library:
     TF32 on the card moves vertices by far more than the 1/256 px snap,
     and a fused multiply-add changes the last bit.  Row r of the result
-    is ((v0 m_r0 + v1 m_r1) + v2 m_r2) + v3 m_r3."""
-    m = mvp.to(dtype=v4f.dtype, device=v4f.device)
-    return (((v4f[..., 0:1] * m[:, 0] + v4f[..., 1:2] * m[:, 1])
-             + v4f[..., 2:3] * m[:, 2]) + v4f[..., 3:4] * m[:, 3])
+    is ((v0 m_r0 + v1 m_r1) + v2 m_r2) + v3 m_r3.  mvp (4, 4) gives
+    (F, 3, 4); (B, 4, 4) gives (B, F, 3, 4), the same bits a frame."""
+    m = mvp.to(dtype=v4f.dtype, device=v4f.device)[..., None, None, :, :]
+    return (((v4f[..., 0:1] * m[..., 0] + v4f[..., 1:2] * m[..., 1])
+             + v4f[..., 2:3] * m[..., 2]) + v4f[..., 3:4] * m[..., 3])
 
 
 def setup_triangles(verts, faces, mvp, width: int, height: int, v4f=None):
@@ -87,7 +88,8 @@ def setup_triangles(verts, faces, mvp, width: int, height: int, v4f=None):
     optional (F, 3, 4) rows from :func:`pregather_mesh`.  Returns a dict
     of per-face tensors: sxy (F, 3, 2) snapped screen positions, z (F, 3)
     depth in [0, 1] for in-frustum vertices, valid (F,) bool (every
-    vertex in front of w = 1e-6), inv_w (F, 3)."""
+    vertex in front of w = 1e-6), inv_w (F, 3).  With mvp (B, 4, 4)
+    every entry has a leading B."""
     if faces.shape[0] >= NO_TRI:
         raise ValueError(f"draw has {faces.shape[0]} faces; packed keys "
                          f"support < {NO_TRI}")
@@ -101,7 +103,7 @@ def setup_triangles(verts, faces, mvp, width: int, height: int, v4f=None):
     fsx = _snap((ndc[..., 0] * 0.5 + 0.5) * width)
     fsy = _snap((0.5 - ndc[..., 1] * 0.5) * height)   # y down
     fz = ndc[..., 2] * 0.5 + 0.5
-    valid = w_ok.all(dim=1)
+    valid = w_ok.all(dim=-1)
     sxy = torch.stack([fsx, fsy], dim=-1)
     inv_w = (1.0 / wsafe)[..., 0]
     return {"sxy": sxy, "z": fz, "valid": valid, "inv_w": inv_w}
@@ -202,7 +204,8 @@ def edge_coeffs(sxy, z, valid, exact_c: bool = False):
     Edge i is opposite vertex i: e_i(x, y) = A_i x + B_i y + C_i equals
     the barycentric weight of vertex i times the signed doubled area.
     Returns (A, B, C) each (F, 3), inv_area (F,), sign (F,) and valid
-    (F,) with degenerate triangles cleared.
+    (F,) with degenerate triangles cleared; a leading B on the inputs
+    gives one on each.
 
     With ``exact_c`` the constants ``x1 y2 - x2 y1`` are formed in
     float64, where the product of two float32 coordinates is exact, and
@@ -213,15 +216,15 @@ def edge_coeffs(sxy, z, valid, exact_c: bool = False):
     it; the float entries keep JAX's float32 expression, which their
     float contracts with JAX pin.  A float64 frame is the same either
     way."""
-    x0, y0 = sxy[:, 0, 0], sxy[:, 0, 1]
-    x1, y1 = sxy[:, 1, 0], sxy[:, 1, 1]
-    x2, y2 = sxy[:, 2, 0], sxy[:, 2, 1]
+    x0, y0 = sxy[..., 0, 0], sxy[..., 0, 1]
+    x1, y1 = sxy[..., 1, 0], sxy[..., 1, 1]
+    x2, y2 = sxy[..., 2, 0], sxy[..., 2, 1]
     A = torch.stack([y1 - y2, y2 - y0, y0 - y1], -1)
     B = torch.stack([x2 - x1, x0 - x2, x1 - x0], -1)
     c = sxy.to(torch.float64) if exact_c else sxy
-    cx0, cy0 = c[:, 0, 0], c[:, 0, 1]
-    cx1, cy1 = c[:, 1, 0], c[:, 1, 1]
-    cx2, cy2 = c[:, 2, 0], c[:, 2, 1]
+    cx0, cy0 = c[..., 0, 0], c[..., 0, 1]
+    cx1, cy1 = c[..., 1, 0], c[..., 1, 1]
+    cx2, cy2 = c[..., 2, 0], c[..., 2, 1]
     C = torch.stack([cx1 * cy2 - cx2 * cy1,
                      cx2 * cy0 - cx0 * cy2,
                      cx0 * cy1 - cx1 * cy0], -1).to(sxy.dtype)
@@ -341,7 +344,8 @@ def _tile_box(sxy, valid, width: int, height: int, tile_w: int,
               tile_h: int, span_x: int, span_y: int):
     """Each triangle's tile AABB clamped to the grid, and the span
     overflow flag (what both binnings share, ``raster3d.py:360-377``):
-    (x0c, y0c, x1c, y1c, nonempty, span_overflow)."""
+    (x0c, y0c, x1c, y1c, nonempty, span_overflow); with a leading B on
+    ``sxy`` and ``valid``, one on each and a flag a frame."""
     ntx = (width + tile_w - 1) // tile_w
     nty = (height + tile_h - 1) // tile_h
     dev = sxy.device
@@ -352,13 +356,13 @@ def _tile_box(sxy, valid, width: int, height: int, tile_w: int,
     # of 2 (torch.full fills on the device: no copy, no host sync)
     tw = torch.full((), float(tile_w), dtype=sxy.dtype, device=dev)
     th = torch.full((), float(tile_h), dtype=sxy.dtype, device=dev)
-    x0c = _to_i32(torch.floor(xs.amin(dim=1) / tw)).clamp(min=0)
-    x1c = _to_i32(torch.floor(xs.amax(dim=1) / tw)).clamp(max=ntx - 1)
-    y0c = _to_i32(torch.floor(ys.amin(dim=1) / th)).clamp(min=0)
-    y1c = _to_i32(torch.floor(ys.amax(dim=1) / th)).clamp(max=nty - 1)
+    x0c = _to_i32(torch.floor(xs.amin(dim=-1) / tw)).clamp(min=0)
+    x1c = _to_i32(torch.floor(xs.amax(dim=-1) / tw)).clamp(max=ntx - 1)
+    y0c = _to_i32(torch.floor(ys.amin(dim=-1) / th)).clamp(min=0)
+    y1c = _to_i32(torch.floor(ys.amax(dim=-1) / th)).clamp(max=nty - 1)
     nonempty = valid & (x0c <= x1c) & (y0c <= y1c)
     span_overflow = (nonempty & ((x1c - x0c >= span_x)
-                                 | (y1c - y0c >= span_y))).any()
+                                 | (y1c - y0c >= span_y))).any(dim=-1)
     return x0c, y0c, x1c, y1c, nonempty, span_overflow
 
 
@@ -430,6 +434,11 @@ def bin_triangles_flat(sxy, valid, width: int, height: int, tile_w: int,
     ``wide_split`` option (off by default there) is not ported: every
     piece emits the full ``span_x`` columns.
 
+    B frames at once (a leading B on ``sxy``, ``valid`` and ``edges``)
+    give (B, Spad), (B, NT), (B, NT) and (B,): each row sorted on its own,
+    so a frame keeps its int32 keys, and equal to that frame binned alone
+    in ``starts``, ``counts``, ``overflow`` and the pairs of tiles < NT.
+
     ``lax.top_k`` becomes ``torch.topk``; the two break ties in another
     order, which changes which sentinel slots the tail holds but no valid
     pair: an unchosen triangle with span <= SY_A emits no extra valid
@@ -438,7 +447,8 @@ def bin_triangles_flat(sxy, valid, width: int, height: int, tile_w: int,
     nty = (height + tile_h - 1) // tile_h
     nt = ntx * nty
     _check_tiles(nt)
-    F = sxy.shape[0]
+    lead = tuple(sxy.shape[:-3])
+    F = sxy.shape[-3]
     dev = sxy.device
     i32 = torch.int32
     x0c, y0c, x1c, y1c, nonempty, span_overflow = _tile_box(
@@ -447,42 +457,43 @@ def bin_triangles_flat(sxy, valid, width: int, height: int, tile_w: int,
     def emit(y0c_, x0c_, x1c_, y1c_, ne_, tri_ids, dy0: int, sy_n: int,
              edges_):
         """Packed pairs for tile rows y0c_+dy0 .. +sy_n-1 x columns
-        x0c_ .. +span_x-1 of the given triangles, built (sy, sx, n)."""
+        x0c_ .. +span_x-1 of the given triangles, built (..., sy, sx, n)
+        and flattened after the leading B."""
         dx = torch.arange(span_x, dtype=i32, device=dev)
         dyv = dy0 + torch.arange(sy_n, dtype=i32, device=dev)
-        txs = x0c_[None, :] + dx[:, None]            # (sx, n)
-        tys = y0c_[None, :] + dyv[:, None]           # (sy, n)
-        ok = (ne_[None, None, :]
-              & (txs[None, :, :] <= x1c_[None, None, :])
-              & (tys[:, None, :] <= y1c_[None, None, :]))
+        txs = x0c_[..., None, :] + dx[:, None]       # (..., sx, n)
+        tys = y0c_[..., None, :] + dyv[:, None]      # (..., sy, n)
+        ok = (ne_[..., None, None, :]
+              & (txs[..., None, :, :] <= x1c_[..., None, None, :])
+              & (tys[..., :, None, :] <= y1c_[..., None, None, :]))
         if edges_ is not None:
             # edge-vs-tile cull (raster3d.py:498-533): an edge's maximum
             # over the tile's pixel rectangle sits at the corner its
             # coefficient signs pick; the slack covers f32 rounding
             A, B, C, sign = edges_
             dtype = A.dtype
-            fxl = (txs * tile_w).to(dtype)          # (sx, n)
-            fyl = (tys * tile_h).to(dtype)          # (sy, n)
+            fxl = (txs * tile_w).to(dtype)          # (..., sx, n)
+            fyl = (tys * tile_h).to(dtype)          # (..., sy, n)
             fxh = fxl + (tile_w - 1)
             fyh = fyl + (tile_h - 1)
             cover = None
             for e in range(3):
-                Ae = (A[:, e] * sign)[None, :]
-                Be = (B[:, e] * sign)[None, :]
-                Ce = (C[:, e] * sign)[None, :]
-                ex = torch.maximum(Ae * fxh, Ae * fxl)      # (sx, n)
-                ey = torch.maximum(Be * fyh, Be * fyl)      # (sy, n)
-                emax = (ey[:, None, :] + ex[None, :, :]
-                        + Ce[None, None, :])
-                slack = ((Ae.abs() * fxh)[None, :, :]
-                         + (Be.abs() * fyh)[:, None, :]
-                         + Ce.abs()[None, None, :])
+                Ae = (A[..., e] * sign)[..., None, :]
+                Be = (B[..., e] * sign)[..., None, :]
+                Ce = (C[..., e] * sign)[..., None, None, :]
+                ex = torch.maximum(Ae * fxh, Ae * fxl)      # (..., sx, n)
+                ey = torch.maximum(Be * fyh, Be * fyl)      # (..., sy, n)
+                emax = (ey[..., :, None, :] + ex[..., None, :, :] + Ce)
+                slack = ((Ae.abs() * fxh)[..., None, :, :]
+                         + (Be.abs() * fyh)[..., :, None, :]
+                         + Ce.abs())
                 keep = emax >= -1e-5 * slack
                 cover = keep if cover is None else (cover & keep)
             ok = ok & cover
-        tid = tys[:, None, :] * ntx + txs[None, :, :]
+        tid = tys[..., :, None, :] * ntx + txs[..., None, :, :]
         tid = torch.where(ok, tid, nt)
-        return ((tid << IDX_BITS) | tri_ids[None, None, :]).reshape(-1)
+        return ((tid << IDX_BITS)
+                | tri_ids[..., None, None, :]).reshape(*lead, -1)
 
     # tall split (raster3d.py:539-615): a base box of SY_A rows for every
     # triangle, the remaining rows only for the top-TK tallest
@@ -494,26 +505,31 @@ def bin_triangles_flat(sxy, valid, width: int, height: int, tile_w: int,
                        edges)]
         spans = torch.where(nonempty, y1c - y0c + 1, 0)
         tall_span, idx = torch.topk(spans, TK)
-        span_overflow = span_overflow | (tall_span[-1] > SY_A)
-        ed = (tuple(e[idx] for e in edges) if edges is not None else None)
-        pieces.append(emit(y0c[idx], x0c[idx], x1c[idx], y1c[idx],
-                           nonempty[idx], idx.to(i32), SY_A, span_y - SY_A,
+        span_overflow = span_overflow | (tall_span[..., -1] > SY_A)
+        # each frame's rows of its own chosen triangles
+        rows = ((torch.arange(lead[0], device=dev)[:, None], idx) if lead
+                else (idx,))
+        ed = (tuple(e[rows] for e in edges) if edges is not None else None)
+        pieces.append(emit(y0c[rows], x0c[rows], x1c[rows], y1c[rows],
+                           nonempty[rows], idx.to(i32), SY_A, span_y - SY_A,
                            ed))
     else:
         pieces = [emit(y0c, x0c, x1c, y1c, nonempty, all_tris, 0, span_y,
                        edges)]
-    S = sum(p.shape[0] for p in pieces)
+    S = sum(p.shape[-1] for p in pieces)
     spad = (S // block_k + 3) * block_k
     pad_val = (nt << IDX_BITS) | F
-    pieces.append(torch.full((spad - S,), pad_val, dtype=i32, device=dev))
-    sorted_pad = torch.sort(torch.cat(pieces)).values
+    pieces.append(torch.full(lead + (spad - S,), pad_val, dtype=i32,
+                             device=dev))
+    sorted_pad = torch.sort(torch.cat(pieces, dim=-1), dim=-1).values
     tid_sorted = sorted_pad >> IDX_BITS
+    tiles = torch.arange(nt + 1, dtype=i32, device=dev)
     starts = torch.searchsorted(
-        tid_sorted, torch.arange(nt + 1, dtype=i32, device=dev),
+        tid_sorted, tiles.expand(lead + (nt + 1,)).contiguous(),
         out_int32=True)
-    counts = starts[1:] - starts[:-1]
-    overflow = span_overflow | (counts > block_k).any()
-    return sorted_pad, starts[:-1].contiguous(), counts, overflow
+    counts = starts[..., 1:] - starts[..., :-1]
+    overflow = span_overflow | (counts > block_k).any(dim=-1)
+    return sorted_pad, starts[..., :-1].contiguous(), counts, overflow
 
 
 def clamp_mega(mega: int, tiles_per_frame: int) -> int:
@@ -572,7 +588,7 @@ def _setup_edges(verts, faces, mvp, width: int, height: int, *, v4f=None,
         tri = setup_triangles(verts, faces, mvp, width, height, v4f=v4f)
     A, B, C, inv_area, sign, valid = edge_coeffs(tri["sxy"], tri["z"],
                                                  tri["valid"], exact_c)
-    return tri, attrs, (A, B, C, tri["z"] * inv_area[:, None], inv_area,
+    return tri, attrs, (A, B, C, tri["z"] * inv_area[..., None], inv_area,
                         sign, valid)
 
 
@@ -586,7 +602,8 @@ def _prep_geometry(verts, faces, mvp, width: int, height: int, *,
     (the condition under which skipping the per-pixel z test is sound,
     ``raster3d.py:917-925,1225-1233``) folded into the overflow flag.
     Returns (tri, attrs, (A, B, C, zsc, inv_area, sign, valid),
-    {sorted_pad, starts, counts, overflow})."""
+    {sorted_pad, starts, counts, overflow}); with mvp (B, 4, 4) each
+    with a leading B, the check and the flag a frame."""
     with tracing.span("lncr.raster3d.edges"):
         tri, attrs, edges = _setup_edges(verts, faces, mvp, width, height,
                                          v4f=v4f, attrs=attrs,
@@ -599,12 +616,26 @@ def _prep_geometry(verts, faces, mvp, width: int, height: int, *,
             span_x, span_y, edges=(A, B, C, sign))
     if not z_clip:
         z = tri["z"]
-        z_ok = torch.where(tri["valid"][:, None], (z >= 0.0) & (z <= 1.0),
-                           True).all()
+        z_ok = torch.where(tri["valid"][..., None], (z >= 0.0) & (z <= 1.0),
+                           True).flatten(-2).all(dim=-1)
         overflow = overflow | ~z_ok
     return tri, attrs, edges, {
         "sorted_pad": sorted_pad, "starts": starts, "counts": counts,
         "overflow": overflow}
+
+
+def _frames_of(mvp, near_clip: bool, mxu: int) -> int:
+    """Frames one prep covers: 1 for mvp (4, 4), B for (B, 4, 4), the
+    batch's prep, which takes neither ``near_clip`` nor ``mxu``."""
+    if mvp.dim() == 2:
+        return 1
+    if mvp.dim() != 3:
+        raise ValueError(f"mvp must be (4, 4) or (B, 4, 4), got "
+                         f"{tuple(mvp.shape)}")
+    if near_clip or mxu:
+        raise ValueError("a batch of matrices (B, 4, 4) takes neither "
+                         "near_clip nor mxu")
+    return mvp.shape[0]
 
 
 def prepare_frame(verts, faces, vtx_colors, width: int, height: int,
@@ -622,12 +653,22 @@ def prepare_frame(verts, faces, vtx_colors, width: int, height: int,
     table rows a face).  With ``mxu`` the table is the matrix-unit
     walk's affine one (``tile_raster.build_table_mxu``).  ``exact_c``
     (see :func:`edge_coeffs`) is the u8 entries' table; the float
-    entries pass ``exact_c=False``."""
+    entries pass ``exact_c=False``.
+
+    With mvp (B, 4, 4) one pass preps B frames: ``sorted_pad`` (B, Spad),
+    ``starts`` and ``counts`` (B, NT), ``table`` (B, F + 1, ROW_W) and
+    ``overflow`` (B,), each frame equal to its own prep (``sorted_pad``
+    in its pairs of tiles < NT; see :func:`bin_triangles_flat`).  That
+    pass takes neither ``near_clip`` nor ``mxu`` (``ValueError``).
+    ``prepare_frame.calls`` and ``.frames`` count the calls and the
+    frames they covered."""
     from . import tile_raster
     with tracing.span("lncr.raster3d.prep"):
         dtype = verts.dtype
         if mvp is None:
             mvp = torch.eye(4, dtype=dtype, device=verts.device)
+        prepare_frame.calls += 1
+        prepare_frame.frames += _frames_of(mvp, near_clip, mxu)
         if bg is None:
             bg = torch.zeros(4, dtype=dtype, device=verts.device)
         if pre is not None:
@@ -644,6 +685,10 @@ def prepare_frame(verts, faces, vtx_colors, width: int, height: int,
             prep["table"] = build(*edges, attrs)
             prep["packed_bg"] = tile_raster.pack_bg(bg)
     return prep
+
+
+prepare_frame.calls = 0
+prepare_frame.frames = 0
 
 
 def pack_texture_u8(tex_u8):
@@ -671,9 +716,13 @@ def prepare_textured_frame(verts, faces, fuv, width: int, height: int,
     dict with
     ``sorted_pad``, ``starts``, ``counts``, ``table`` and the device
     ``overflow`` flag (with ``z_clip=False`` also the vertex-z check, see
-    :func:`_prep_geometry`)."""
+    :func:`_prep_geometry`).  With mvp (B, 4, 4), B frames in one pass
+    as in :func:`prepare_frame`, without ``mxu``; ``.calls`` and
+    ``.frames`` count as there."""
     from . import tile_raster
     with tracing.span("lncr.raster3d.prep"):
+        prepare_textured_frame.calls += 1
+        prepare_textured_frame.frames += _frames_of(mvp, False, mxu)
         tri, _, edges, prep = _prep_geometry(
             verts, faces, mvp, width, height, tile_w=tile_w, tile_h=tile_h,
             capacity=capacity, span_x=span_x, span_y=span_y, z_clip=z_clip,
@@ -689,6 +738,10 @@ def prepare_textured_frame(verts, faces, fuv, width: int, height: int,
                      else tile_raster.build_table)
             prep["table"] = build(*edges, attrs)
     return prep
+
+
+prepare_textured_frame.calls = 0
+prepare_textured_frame.frames = 0
 
 
 def render_gouraud_u8(verts, faces, vtx_colors, width: int, height: int,
@@ -759,30 +812,27 @@ def render_gouraud_u8_loop(verts, faces, vtx_colors, width: int,
                            span_x: int = 5, span_y: int = 3, kcc: int = 32,
                            opaque: bool = True, z_clip: bool = False,
                            tiled: bool = False):
-    """B frames of :func:`render_gouraud_u8` (mvps (B, 4, 4)), the
-    per-face gathers hoisted out of the loop — counterpart of
-    ``render_gouraud_pallas_loop`` (``raster3d.py:1083-1136``), with its
-    production defaults ((32, 32) tiles, span (5, 3), capacity 1024,
-    opaque, z_clip off).  Returns (frames (B, H, W, 4) uint8 — or
+    """B frames of :func:`render_gouraud_u8` (mvps (B, 4, 4)) —
+    counterpart of ``render_gouraud_pallas_loop``
+    (``raster3d.py:1083-1136``), with its production defaults ((32, 32)
+    tiles, span (5, 3), capacity 1024, opaque, z_clip off).  One prep
+    pass over the B frames (:func:`prepare_frame` with the matrices),
+    one K1 launch and one detile, each frame bit-equal to its own
+    :func:`render_gouraud_u8`.  Returns (frames (B, H, W, 4) uint8 — or
     (B, NT, P, 4) when ``tiled`` — , overflow device bool over the
     batch).  No host sync: frames and flag stay on the device."""
-    ntx = (width + tile_w - 1) // tile_w
-    nty = (height + tile_h - 1) // tile_h
-    dev = verts.device
-    pre = (pregather_mesh(verts, faces), vtx_colors[faces])
-    n = mvps.shape[0]
-    shape = ((n, ntx * nty, tile_h * tile_w, 4) if tiled
-             else (n, height, width, 4))
-    frames = torch.empty(shape, dtype=torch.uint8, device=dev)
-    overflow = torch.zeros((), dtype=torch.bool, device=dev)
-    for i in range(n):
-        frames[i], ovf = render_gouraud_u8(
-            verts, faces, vtx_colors, width, height, mvps[i],
-            tile_w=tile_w, tile_h=tile_h, capacity=capacity, bg=bg,
-            span_x=span_x, span_y=span_y, kcc=kcc, opaque=opaque,
-            z_clip=z_clip, pre=pre, tiled=tiled)
-        overflow = overflow | ovf
-    return frames, overflow
+    from . import tile_raster
+    prep = prepare_frame(verts, faces, vtx_colors, width, height, mvps,
+                         tile_w=tile_w, tile_h=tile_h, capacity=capacity,
+                         bg=bg, span_x=span_x, span_y=span_y, z_clip=z_clip)
+    packed = tile_raster.raster_tiles_flat_u8(
+        prep["sorted_pad"], prep["starts"], prep["counts"], prep["table"],
+        prep["packed_bg"], width, tile_w, tile_h, opaque=opaque,
+        z_clip=z_clip)
+    frames = (tile_raster.tiles_u8(packed) if tiled else
+              tile_raster.detile_packed(packed, width, height, tile_w,
+                                        tile_h))
+    return frames, prep["overflow"].any()
 
 
 def render_textured_u8(verts, faces, uvs, tex_u8, width: int, height: int,
@@ -839,31 +889,30 @@ def render_textured_u8_loop(verts, faces, uvs, tex_u8, width: int,
                             bg=None, span_x: int = 5, span_y: int = 3,
                             kcc: int = 32, perspective_correct: bool = True,
                             z_clip: bool = True, tiled: bool = False):
-    """B frames of :func:`render_textured_u8` (mvps (B, 4, 4)), the
-    per-face gathers and the packed texture made once, outside the frame
-    loop — counterpart of ``render_textured_pallas_loop``
+    """B frames of :func:`render_textured_u8` (mvps (B, 4, 4)) —
+    counterpart of ``render_textured_pallas_loop``
     (``raster3d.py:1432-1517``) with its production defaults ((32, 32)
     tiles, span (5, 3), capacity 1024, perspective-correct, z_clip on).
-    Returns (frames (B, H, W, 4) uint8 — or (B, NT, P, 4) when
-    ``tiled`` — , overflow device bool over the batch).  No host sync."""
-    ntx = (width + tile_w - 1) // tile_w
-    nty = (height + tile_h - 1) // tile_h
-    dev = verts.device
-    pre = (pregather_mesh(verts, faces), uvs[faces], pack_texture_u8(tex_u8))
-    n = mvps.shape[0]
-    shape = ((n, ntx * nty, tile_h * tile_w, 4) if tiled
-             else (n, height, width, 4))
-    frames = torch.empty(shape, dtype=torch.uint8, device=dev)
-    overflow = torch.zeros((), dtype=torch.bool, device=dev)
-    for i in range(n):
-        frames[i], ovf = render_textured_u8(
-            verts, faces, uvs, tex_u8, width, height, mvps[i],
-            tile_w=tile_w, tile_h=tile_h, capacity=capacity, bg=bg,
-            span_x=span_x, span_y=span_y, kcc=kcc,
-            perspective_correct=perspective_correct, z_clip=z_clip,
-            pre=pre, tiled=tiled)
-        overflow = overflow | ovf
-    return frames, overflow
+    One prep pass over the B frames (:func:`prepare_textured_frame` with
+    the matrices), one K3 launch and one detile, each frame bit-equal to
+    its own :func:`render_textured_u8`.  Returns (frames (B, H, W, 4)
+    uint8 — or (B, NT, P, 4) when ``tiled`` — , overflow device bool
+    over the batch).  No host sync."""
+    from . import tile_raster
+    if bg is None:
+        bg = torch.zeros(4, dtype=torch.float32, device=verts.device)
+    prep = prepare_textured_frame(
+        verts, faces, uvs[faces], width, height, mvps, tile_w=tile_w,
+        tile_h=tile_h, capacity=capacity, span_x=span_x, span_y=span_y,
+        perspective_correct=perspective_correct, z_clip=z_clip)
+    packed = tile_raster.raster_tiles_tex_u8(
+        prep["sorted_pad"], prep["starts"], prep["counts"], prep["table"],
+        pack_texture_u8(tex_u8), tuple(tex_u8.shape[:2]),
+        tile_raster.pack_bg(bg), width, tile_w, tile_h, z_clip=z_clip)
+    frames = (tile_raster.tiles_u8(packed) if tiled else
+              tile_raster.detile_packed(packed, width, height, tile_w,
+                                        tile_h))
+    return frames, prep["overflow"].any()
 
 
 def render_textured_u8_batch(verts, faces, uvs, tex_u8, width: int,

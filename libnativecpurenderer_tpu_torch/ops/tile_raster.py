@@ -78,23 +78,24 @@ _ALPHA_255 = -(1 << 24)   # 255 << 24 as an int32
 
 def build_table(A, B, C, zplane_scaled, inv_area, sign, valid, attrs):
     """Edge-major float32 row table, (F + 1, ROW_W), NaN rows for invalid
-    triangles and for the pad row F (``pallas_raster.py:1445-1471``)."""
-    F = A.shape[0]
-    sg = sign[:, None]
+    triangles and for the pad row F (``pallas_raster.py:1445-1471``); B
+    frames' edges (a leading B on each, ``attrs`` (F, 3, D) or
+    (B, F, 3, D)) give (B, F + 1, ROW_W)."""
+    sg = sign[..., None]
     As = A * sg
     Bs = B * sg
     Cs = C * sg
-    table = torch.stack([As[:, 0], Bs[:, 0], Cs[:, 0],
-                         As[:, 1], Bs[:, 1], Cs[:, 1],
-                         As[:, 2], Bs[:, 2], Cs[:, 2]], dim=1)
-    attrs_sc = attrs * (inv_area * sign)[:, None, None]
-    table = torch.cat([table, zplane_scaled * sg, sg, inv_area[:, None],
-                       attrs_sc.reshape(F, 3 * D)], dim=1)
-    table = torch.where(valid[:, None], table, float("nan")).to(
+    table = torch.stack([As[..., 0], Bs[..., 0], Cs[..., 0],
+                         As[..., 1], Bs[..., 1], Cs[..., 1],
+                         As[..., 2], Bs[..., 2], Cs[..., 2]], dim=-1)
+    attrs_sc = attrs * (inv_area * sign)[..., None, None]
+    table = torch.cat([table, zplane_scaled * sg, sg, inv_area[..., None],
+                       attrs_sc.flatten(-2)], dim=-1)
+    table = torch.where(valid[..., None], table, float("nan")).to(
         torch.float32)
-    table = torch.cat([table, table.new_full((1, table.shape[1]),
-                                             float("nan"))], dim=0)
-    return torch.nn.functional.pad(table, (0, ROW_W - table.shape[1]))
+    table = torch.cat([table, table.new_full(
+        table.shape[:-2] + (1, table.shape[-1]), float("nan"))], dim=-2)
+    return torch.nn.functional.pad(table, (0, ROW_W - table.shape[-1]))
 
 
 def build_table_mxu(A, B, C, zplane_scaled, inv_area, sign, valid, attrs):

@@ -14,6 +14,7 @@ import libnativecpurenderer_tpu_torch as P
 from libnativecpurenderer_tpu_torch import tracing
 from libnativecpurenderer_tpu_torch.ops import canvas_kernel as tck
 from libnativecpurenderer_tpu_torch.ops import executor
+from libnativecpurenderer_tpu_torch.ops import raster3d as R
 
 torch.set_num_threads(1)
 
@@ -229,15 +230,19 @@ def test_batched_pipeline_spans_and_batch_ids():
 
 @pytest.mark.parametrize("textured", [False, True])
 def test_mesh_pipeline_one_prep_a_frame(textured):
-    """5 frames at batch 2: one prep span a frame under its flush, with
-    one edges, bin and table span each inside it."""
+    """5 frames at batch 2: one prep span a batch (2, 2 and 1 frames, one
+    prep call each) under its flush, with one edges, bin and table span
+    each inside it."""
+    prep = (R.prepare_textured_frame if textured else R.prepare_frame)
+    calls, frames = prep.calls, prep.frames
     tracing.enable(True)
     run_mesh(textured)
+    assert (prep.calls - calls, prep.frames - frames) == (3, 5)
     recs = tracing.records()
     preps = [r for r in recs if r.name == "lncr.raster3d.prep"]
-    assert len(preps) == 5
-    assert [flush_of(r) for r in preps] == [0, 0, 1, 1, 2]
-    assert [r.batch for r in preps] == [0, 0, 1, 1, 2]
+    assert len(preps) == 3
+    assert [flush_of(r) for r in preps] == [0, 1, 2]
+    assert [r.batch for r in preps] == [0, 1, 2]
     for child in ("lncr.raster3d.edges", "lncr.raster3d.bin",
                   "lncr.raster3d.table"):
         got = [r for r in recs if r.name == child]
@@ -402,7 +407,9 @@ def test_trace_cell_tool_on_a_small_cell(name, monkeypatch):
         assert "lncr.execute.sample" not in on["spans"]
         assert on["k4_blits_per_frame"] > 0
     else:
-        assert on["spans"]["lncr.raster3d.prep"]["calls"] == 1.0
+        # one prep a batch
+        assert on["spans"]["lncr.raster3d.prep"]["calls"] == \
+            1.0 / small.cell(name).config["batch"]
         assert on["k4_blits_per_frame"] == 0
     assert all(n.startswith("lncr.") for n in out["profiled"]["idle_gaps"])
     c = out["correct"]
