@@ -36,8 +36,7 @@ import torch
 
 from . import commands as C
 from . import noise
-from .raster3d import _to_i32
-from .sampling import clamp_coord
+from .sampling import _to_i32, clamp_coord
 
 # Membership snap grid: 2^-20 px (executor.py:49).  Inverse-mapped
 # coordinates are snapped before every membership test and shading use,

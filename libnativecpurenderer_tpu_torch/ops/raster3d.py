@@ -20,7 +20,8 @@ order follows the JAX code op for op, and no step fuses a multiply into an
 add: eager torch rounds each elementwise op, on the CPU and on the card
 alike, so the CPU tests here and the card's run compute the same bits.
 Visibility is the same packed-key minimum as in the JAX package:
-``(quantised_z << IDX_BITS) | slot`` per covered pixel, lowest key wins.
+``(quantised_z << IDX_BITS) | slot`` per covered pixel, lowest key wins
+(the key format lives in ``tile_raster``, beside the row table).
 """
 
 from __future__ import annotations
@@ -29,13 +30,10 @@ import numpy as np
 import torch
 
 from .. import tracing
+from . import tile_raster
+from .sampling import _to_i32
+from .tile_raster import IDX_BITS, IDX_MASK, NO_TRI, SKY_KEY, Z_LEVELS
 
-# packed-key constants, as in raster3d.py:38-44
-IDX_BITS = 18          # up to 256k triangles per draw
-IDX_MASK = (1 << IDX_BITS) - 1
-Z_LEVELS = (1 << (31 - IDX_BITS)) - 1   # 13 bits of depth quantisation
-NO_TRI = IDX_MASK      # sentinel triangle id (background)
-SKY_KEY = (Z_LEVELS << IDX_BITS) | NO_TRI
 NEAR_EPS = 1e-6        # w <= NEAR_EPS is "behind the near plane"
 SUBPIXEL = 256.0       # screen coords snap to 1/256 px
 NAIVE_PAIRS = 1 << 22  # pixel-triangle pairs the naive path holds at once
@@ -46,18 +44,6 @@ def _snap(c):
     (``raster3d.py:47-59``).  ``torch.round`` rounds half to even, as
     ``jnp.round`` does."""
     return torch.round(c * SUBPIXEL) / SUBPIXEL
-
-
-def _to_i32(x):
-    """float -> int32 as XLA converts (``.astype(jnp.int32)``): truncate
-    toward zero, saturate out of range, NaN -> 0.  ``Tensor.to(int32)``
-    leaves those cases undefined (the CPU gives INT_MIN).  2**31 - 128 is
-    the largest float32 below 2**31, 2**31 - 1 the largest float64 that
-    truncates into range."""
-    hi = 2.0 ** 31 - (1 if x.dtype == torch.float64 else 128)
-    y = torch.nan_to_num(x, nan=0.0).clamp(-2.0 ** 31, hi)
-    return torch.where(x >= 2.0 ** 31, torch.iinfo(torch.int32).max,
-                       y.to(torch.int32))
 
 
 def pregather_mesh(verts, faces):
@@ -383,34 +369,42 @@ def bin_triangles(sxy, valid, width: int, height: int, tile_w: int,
     start (reads clamped to the array) becomes the tile's bins row.
     Returns (bins (NT, capacity) int32, NO_TRI past the run; counts (NT,)
     int32, not clipped; overflow () bool: a box wider than the span window
-    or a run longer than ``capacity``)."""
+    or a run longer than ``capacity``).
+
+    B frames at once (a leading B on ``sxy`` and ``valid``) give
+    (B, NT, capacity), (B, NT) and (B,), each frame's pairs sorted on
+    their own row: each equal to that frame binned alone."""
     ntx = (width + tile_w - 1) // tile_w
     nty = (height + tile_h - 1) // tile_h
     nt = ntx * nty
     _check_tiles(nt)
-    F = sxy.shape[0]
+    lead = tuple(sxy.shape[:-3])
+    F = sxy.shape[-3]
     dev = sxy.device
     i32 = torch.int32
     x0c, y0c, x1c, y1c, nonempty, span_overflow = _tile_box(
         sxy, valid, width, height, tile_w, tile_h, span_x, span_y)
-    txs = x0c[:, None] + torch.arange(span_x, dtype=i32, device=dev)
-    tys = y0c[:, None] + torch.arange(span_y, dtype=i32, device=dev)
-    ok = (nonempty[:, None, None]
-          & (txs[:, None, :] <= x1c[:, None, None])
-          & (tys[:, :, None] <= y1c[:, None, None]))  # (F, span_y, span_x)
-    tid = torch.where(ok, tys[:, :, None] * ntx + txs[:, None, :], nt)
+    txs = x0c[..., None] + torch.arange(span_x, dtype=i32, device=dev)
+    tys = y0c[..., None] + torch.arange(span_y, dtype=i32, device=dev)
+    ok = (nonempty[..., None, None]
+          & (txs[..., None, :] <= x1c[..., None, None])
+          & (tys[..., :, None] <= y1c[..., None, None]))  # (.., F, sy, sx)
+    tid = torch.where(ok, tys[..., :, None] * ntx + txs[..., None, :], nt)
     tri = torch.arange(F, dtype=i32, device=dev)[:, None, None]
-    packed = torch.sort(((tid << IDX_BITS) | tri).reshape(-1)).values
+    packed = torch.sort(((tid << IDX_BITS) | tri).reshape(*lead, -1),
+                        dim=-1).values
     tid_sorted = packed >> IDX_BITS
     tri_sorted = packed & IDX_MASK
+    tiles = torch.arange(nt + 1, dtype=i32, device=dev)
     starts = torch.searchsorted(
-        tid_sorted, torch.arange(nt + 1, dtype=i32, device=dev),
+        tid_sorted, tiles.expand(lead + (nt + 1,)).contiguous(),
         out_int32=True)
-    counts = starts[1:] - starts[:-1]
+    counts = starts[..., 1:] - starts[..., :-1]
     slot = torch.arange(capacity, dtype=i32, device=dev)
-    win = (starts[:-1, None] + slot).clamp(max=packed.shape[0] - 1)
-    bins = torch.where(slot < counts[:, None], tri_sorted[win.long()], NO_TRI)
-    return bins, counts, span_overflow | (counts > capacity).any()
+    win = (starts[..., :-1, None] + slot).clamp(max=packed.shape[-1] - 1)
+    ids = torch.gather(tri_sorted, -1, win.flatten(-2).long()).view_as(win)
+    bins = torch.where(slot < counts[..., None], ids, NO_TRI)
+    return bins, counts, span_overflow | (counts > capacity).any(dim=-1)
 
 
 def bin_triangles_flat(sxy, valid, width: int, height: int, tile_w: int,
@@ -624,17 +618,18 @@ def _prep_geometry(verts, faces, mvp, width: int, height: int, *,
         "overflow": overflow}
 
 
-def _frames_of(mvp, near_clip: bool, mxu: int) -> int:
+def _frames_of(mvp, near_clip: bool) -> int:
     """Frames one prep covers: 1 for mvp (4, 4), B for (B, 4, 4), the
-    batch's prep, which takes neither ``near_clip`` nor ``mxu``."""
+    batch's prep, which does not take ``near_clip`` (its clipping works
+    on one frame's faces)."""
     if mvp.dim() == 2:
         return 1
     if mvp.dim() != 3:
         raise ValueError(f"mvp must be (4, 4) or (B, 4, 4), got "
                          f"{tuple(mvp.shape)}")
-    if near_clip or mxu:
-        raise ValueError("a batch of matrices (B, 4, 4) takes neither "
-                         "near_clip nor mxu")
+    if near_clip:
+        raise ValueError("a batch of matrices (B, 4, 4) does not take "
+                         "near_clip")
     return mvp.shape[0]
 
 
@@ -659,16 +654,15 @@ def prepare_frame(verts, faces, vtx_colors, width: int, height: int,
     ``starts`` and ``counts`` (B, NT), ``table`` (B, F + 1, ROW_W) and
     ``overflow`` (B,), each frame equal to its own prep (``sorted_pad``
     in its pairs of tiles < NT; see :func:`bin_triangles_flat`).  That
-    pass takes neither ``near_clip`` nor ``mxu`` (``ValueError``).
+    pass takes ``mxu`` but not ``near_clip`` (``ValueError``).
     ``prepare_frame.calls`` and ``.frames`` count the calls and the
     frames they covered."""
-    from . import tile_raster
     with tracing.span("lncr.raster3d.prep"):
         dtype = verts.dtype
         if mvp is None:
             mvp = torch.eye(4, dtype=dtype, device=verts.device)
         prepare_frame.calls += 1
-        prepare_frame.frames += _frames_of(mvp, near_clip, mxu)
+        prepare_frame.frames += _frames_of(mvp, near_clip)
         if bg is None:
             bg = torch.zeros(4, dtype=dtype, device=verts.device)
         if pre is not None:
@@ -717,12 +711,11 @@ def prepare_textured_frame(verts, faces, fuv, width: int, height: int,
     ``sorted_pad``, ``starts``, ``counts``, ``table`` and the device
     ``overflow`` flag (with ``z_clip=False`` also the vertex-z check, see
     :func:`_prep_geometry`).  With mvp (B, 4, 4), B frames in one pass
-    as in :func:`prepare_frame`, without ``mxu``; ``.calls`` and
-    ``.frames`` count as there."""
-    from . import tile_raster
+    as in :func:`prepare_frame`; ``.calls`` and ``.frames`` count as
+    there."""
     with tracing.span("lncr.raster3d.prep"):
         prepare_textured_frame.calls += 1
-        prepare_textured_frame.frames += _frames_of(mvp, False, mxu)
+        prepare_textured_frame.frames += _frames_of(mvp, False)
         tri, _, edges, prep = _prep_geometry(
             verts, faces, mvp, width, height, tile_w=tile_w, tile_h=tile_h,
             capacity=capacity, span_x=span_x, span_y=span_y, z_clip=z_clip,
@@ -742,6 +735,37 @@ def prepare_textured_frame(verts, faces, fuv, width: int, height: int,
 
 prepare_textured_frame.calls = 0
 prepare_textured_frame.frames = 0
+
+
+def _gouraud_u8(verts, faces, vtx_colors, width: int, height: int, mvp, *,
+                tile_w: int, tile_h: int, capacity: int, bg, span_x: int,
+                span_y: int, opaque: bool, z_clip: bool, tiled: bool,
+                pre=None, near_clip: bool = False, wf: int = 0,
+                mxu: int = 0):
+    """The Gouraud u8 entries' body: :func:`prepare_frame`, one K1 launch
+    (K1-wf with ``wf``, K1-mxu with ``mxu``) and the tiles or the detiled
+    frame, for mvp (4, 4) or B frames' (B, 4, 4).  Returns (frames, the
+    prep's overflow flag, a frame's or (B,))."""
+    prep = prepare_frame(verts, faces, vtx_colors, width, height, mvp,
+                         tile_w=tile_w, tile_h=tile_h, capacity=capacity,
+                         bg=bg, span_x=span_x, span_y=span_y,
+                         z_clip=z_clip, pre=pre, near_clip=near_clip,
+                         mxu=mxu)
+    args = (prep["sorted_pad"], prep["starts"], prep["counts"],
+            prep["table"], prep["packed_bg"], width, tile_w, tile_h)
+    kw = dict(opaque=opaque, z_clip=z_clip)
+    wf = clamp_mega(wf, prep["counts"].shape[-1])
+    if wf:
+        packed = tile_raster.raster_tiles_flat_u8_wf(*args, wf=wf, mxu=mxu,
+                                                     **kw)
+    elif mxu:
+        packed = tile_raster.raster_tiles_flat_u8_mxu(*args, mxu=mxu, **kw)
+    else:
+        packed = tile_raster.raster_tiles_flat_u8(*args, **kw)
+    if tiled:
+        return tile_raster.tiles_u8(packed), prep["overflow"]
+    return (tile_raster.detile_packed(packed, width, height, tile_w,
+                                      tile_h), prep["overflow"])
 
 
 def render_gouraud_u8(verts, faces, vtx_colors, width: int, height: int,
@@ -783,27 +807,11 @@ def render_gouraud_u8(verts, faces, vtx_colors, width: int, height: int,
     triangle chunk and changes no value.  The other TPU layout knobs of
     the JAX entry (``interpret``, ``resident_out``, ``mega``, ``out8``,
     ``ktail``, ``wide_split``) are not parameters."""
-    from . import tile_raster
-    prep = prepare_frame(verts, faces, vtx_colors, width, height, mvp,
-                         tile_w=tile_w, tile_h=tile_h, capacity=capacity,
-                         bg=bg, span_x=span_x, span_y=span_y,
-                         z_clip=z_clip, pre=pre, near_clip=near_clip,
-                         mxu=mxu)
-    args = (prep["sorted_pad"], prep["starts"], prep["counts"],
-            prep["table"], prep["packed_bg"], width, tile_w, tile_h)
-    kw = dict(opaque=opaque, z_clip=z_clip)
-    wf = clamp_mega(wf, prep["counts"].shape[-1])
-    if wf:
-        packed = tile_raster.raster_tiles_flat_u8_wf(*args, wf=wf, mxu=mxu,
-                                                     **kw)
-    elif mxu:
-        packed = tile_raster.raster_tiles_flat_u8_mxu(*args, mxu=mxu, **kw)
-    else:
-        packed = tile_raster.raster_tiles_flat_u8(*args, **kw)
-    if tiled:
-        return tile_raster.tiles_u8(packed), prep["overflow"]
-    return (tile_raster.detile_packed(packed, width, height, tile_w,
-                                      tile_h), prep["overflow"])
+    return _gouraud_u8(verts, faces, vtx_colors, width, height, mvp,
+                       tile_w=tile_w, tile_h=tile_h, capacity=capacity,
+                       bg=bg, span_x=span_x, span_y=span_y, opaque=opaque,
+                       z_clip=z_clip, tiled=tiled, pre=pre,
+                       near_clip=near_clip, wf=wf, mxu=mxu)
 
 
 def render_gouraud_u8_loop(verts, faces, vtx_colors, width: int,
@@ -821,18 +829,46 @@ def render_gouraud_u8_loop(verts, faces, vtx_colors, width: int,
     :func:`render_gouraud_u8`.  Returns (frames (B, H, W, 4) uint8 — or
     (B, NT, P, 4) when ``tiled`` — , overflow device bool over the
     batch).  No host sync: frames and flag stay on the device."""
-    from . import tile_raster
-    prep = prepare_frame(verts, faces, vtx_colors, width, height, mvps,
-                         tile_w=tile_w, tile_h=tile_h, capacity=capacity,
-                         bg=bg, span_x=span_x, span_y=span_y, z_clip=z_clip)
-    packed = tile_raster.raster_tiles_flat_u8(
-        prep["sorted_pad"], prep["starts"], prep["counts"], prep["table"],
-        prep["packed_bg"], width, tile_w, tile_h, opaque=opaque,
-        z_clip=z_clip)
-    frames = (tile_raster.tiles_u8(packed) if tiled else
-              tile_raster.detile_packed(packed, width, height, tile_w,
-                                        tile_h))
-    return frames, prep["overflow"].any()
+    frames, overflow = _gouraud_u8(
+        verts, faces, vtx_colors, width, height, mvps, tile_w=tile_w,
+        tile_h=tile_h, capacity=capacity, bg=bg, span_x=span_x,
+        span_y=span_y, opaque=opaque, z_clip=z_clip, tiled=tiled)
+    return frames, overflow.any()
+
+
+def _textured_u8(verts, faces, uvs, tex_u8, width: int, height: int, mvp,
+                 *, tile_w: int, tile_h: int, capacity: int, bg,
+                 span_x: int, span_y: int, perspective_correct: bool,
+                 z_clip: bool, tiled: bool, pre=None, mxu: int = 0):
+    """The textured u8 entries' body: :func:`prepare_textured_frame`, one
+    K3 launch (K3's matrix-unit walk with ``mxu``) and the tiles or the
+    detiled frame, for mvp (4, 4) (None: the identity) or B frames'
+    (B, 4, 4).  Returns (frames, the prep's overflow flag, a frame's or
+    (B,))."""
+    dev = verts.device
+    if mvp is None:
+        mvp = torch.eye(4, dtype=verts.dtype, device=dev)
+    if bg is None:
+        bg = torch.zeros(4, dtype=torch.float32, device=dev)
+    v4f, fuv, tex_packed = (pre if pre is not None else
+                            (None, uvs[faces], pack_texture_u8(tex_u8)))
+    prep = prepare_textured_frame(
+        verts, faces, fuv, width, height, mvp, tile_w=tile_w, tile_h=tile_h,
+        capacity=capacity, span_x=span_x, span_y=span_y,
+        perspective_correct=perspective_correct, z_clip=z_clip, v4f=v4f,
+        mxu=mxu)
+    args = (prep["sorted_pad"], prep["starts"], prep["counts"],
+            prep["table"], tex_packed, tuple(tex_u8.shape[:2]),
+            tile_raster.pack_bg(bg), width, tile_w, tile_h)
+    if mxu:
+        packed = tile_raster.raster_tiles_tex_u8_mxu(*args, z_clip=z_clip,
+                                                     mxu=mxu)
+    else:
+        packed = tile_raster.raster_tiles_tex_u8(*args, z_clip=z_clip)
+    if tiled:
+        return tile_raster.tiles_u8(packed), prep["overflow"]
+    return (tile_raster.detile_packed(packed, width, height, tile_w,
+                                      tile_h), prep["overflow"])
 
 
 def render_textured_u8(verts, faces, uvs, tex_u8, width: int, height: int,
@@ -861,26 +897,11 @@ def render_textured_u8(verts, faces, uvs, tex_u8, width: int, height: int,
     (``interpret``, ``tex_nw``, ``fb_tile_cap``, ``mxu``, ``tex_split``,
     ``mega``, ``tex_dyn``, ``out8``, ``ktail``, ``tex_when``,
     ``tex_skip``, ``fb_subrow``) are not parameters."""
-    from . import tile_raster
-    dev = verts.device
-    if mvp is None:
-        mvp = torch.eye(4, dtype=verts.dtype, device=dev)
-    if bg is None:
-        bg = torch.zeros(4, dtype=torch.float32, device=dev)
-    v4f, fuv, tex_packed = (pre if pre is not None else
-                            (None, uvs[faces], pack_texture_u8(tex_u8)))
-    prep = prepare_textured_frame(
-        verts, faces, fuv, width, height, mvp, tile_w=tile_w, tile_h=tile_h,
-        capacity=capacity, span_x=span_x, span_y=span_y,
-        perspective_correct=perspective_correct, z_clip=z_clip, v4f=v4f)
-    packed = tile_raster.raster_tiles_tex_u8(
-        prep["sorted_pad"], prep["starts"], prep["counts"], prep["table"],
-        tex_packed, tuple(tex_u8.shape[:2]), tile_raster.pack_bg(bg), width,
-        tile_w, tile_h, z_clip=z_clip)
-    if tiled:
-        return tile_raster.tiles_u8(packed), prep["overflow"]
-    return (tile_raster.detile_packed(packed, width, height, tile_w,
-                                      tile_h), prep["overflow"])
+    return _textured_u8(verts, faces, uvs, tex_u8, width, height, mvp,
+                        tile_w=tile_w, tile_h=tile_h, capacity=capacity,
+                        bg=bg, span_x=span_x, span_y=span_y,
+                        perspective_correct=perspective_correct,
+                        z_clip=z_clip, tiled=tiled, pre=pre)
 
 
 def render_textured_u8_loop(verts, faces, uvs, tex_u8, width: int,
@@ -898,21 +919,12 @@ def render_textured_u8_loop(verts, faces, uvs, tex_u8, width: int,
     its own :func:`render_textured_u8`.  Returns (frames (B, H, W, 4)
     uint8 — or (B, NT, P, 4) when ``tiled`` — , overflow device bool
     over the batch).  No host sync."""
-    from . import tile_raster
-    if bg is None:
-        bg = torch.zeros(4, dtype=torch.float32, device=verts.device)
-    prep = prepare_textured_frame(
-        verts, faces, uvs[faces], width, height, mvps, tile_w=tile_w,
-        tile_h=tile_h, capacity=capacity, span_x=span_x, span_y=span_y,
-        perspective_correct=perspective_correct, z_clip=z_clip)
-    packed = tile_raster.raster_tiles_tex_u8(
-        prep["sorted_pad"], prep["starts"], prep["counts"], prep["table"],
-        pack_texture_u8(tex_u8), tuple(tex_u8.shape[:2]),
-        tile_raster.pack_bg(bg), width, tile_w, tile_h, z_clip=z_clip)
-    frames = (tile_raster.tiles_u8(packed) if tiled else
-              tile_raster.detile_packed(packed, width, height, tile_w,
-                                        tile_h))
-    return frames, prep["overflow"].any()
+    frames, overflow = _textured_u8(
+        verts, faces, uvs, tex_u8, width, height, mvps, tile_w=tile_w,
+        tile_h=tile_h, capacity=capacity, bg=bg, span_x=span_x,
+        span_y=span_y, perspective_correct=perspective_correct,
+        z_clip=z_clip, tiled=tiled)
+    return frames, overflow.any()
 
 
 def render_textured_u8_batch(verts, faces, uvs, tex_u8, width: int,
@@ -924,43 +936,21 @@ def render_textured_u8_batch(verts, faces, uvs, tex_u8, width: int,
                              mxu: int = 0):
     """B frames (mvps (B, 4, 4)) under the defaults of
     ``render_textured_pallas_batch`` (``raster3d.py:1344-1425``: capacity
-    512, kcc 16).  With ``mxu=0`` it is :func:`render_textured_u8_loop`
-    under these defaults, an alias kept for the JAX entry's name (the JAX
-    entry's vmapped prep was a TPU program layout).  With ``mxu=1|2``
-    each frame is prepped with the affine table of the matrix-unit walk
-    and the B frames go through one launch of K3's matrix-unit walk
-    (``tile_raster.raster_tiles_tex_u8_mxu``): texels may flip to a
-    neighbour at UV knife edges against the default walk.  Returns
-    (frames (B, H, W, 4) uint8 — or (B, NT, P, 4) when ``tiled`` — ,
-    overflow device bool over the batch)."""
-    from . import tile_raster
-    if not mxu:
-        return render_textured_u8_loop(
-            verts, faces, uvs, tex_u8, width, height, mvps, tile_w=tile_w,
-            tile_h=tile_h, capacity=capacity, bg=bg, span_x=span_x,
-            span_y=span_y, kcc=kcc, perspective_correct=perspective_correct,
-            z_clip=z_clip, tiled=tiled)
-    dev = verts.device
-    if bg is None:
-        bg = torch.zeros(4, dtype=torch.float32, device=dev)
-    v4f, fuv = pregather_mesh(verts, faces), uvs[faces]
-    preps = [prepare_textured_frame(
-        verts, faces, fuv, width, height, m, tile_w=tile_w, tile_h=tile_h,
-        capacity=capacity, span_x=span_x, span_y=span_y,
-        perspective_correct=perspective_correct, z_clip=z_clip, v4f=v4f,
-        mxu=mxu) for m in mvps]
-    sps, starts, counts, tables = (
-        torch.stack([p[k] for p in preps])
-        for k in ("sorted_pad", "starts", "counts", "table"))
-    packed = tile_raster.raster_tiles_tex_u8_mxu(
-        sps, starts, counts, tables, pack_texture_u8(tex_u8),
-        tuple(tex_u8.shape[:2]), tile_raster.pack_bg(bg), width, tile_w,
-        tile_h, z_clip=z_clip, mxu=mxu)
-    overflow = torch.stack([p["overflow"] for p in preps]).any()
-    if tiled:
-        return tile_raster.tiles_u8(packed), overflow
-    return (tile_raster.detile_packed(packed, width, height, tile_w, tile_h),
-            overflow)
+    512, kcc 16): one prep pass over the B frames and one launch.  With
+    ``mxu=0`` it is :func:`render_textured_u8_loop` under these defaults,
+    an alias kept for the JAX entry's name (the JAX entry's vmapped prep
+    was a TPU program layout).  With ``mxu=1|2`` the prep builds the
+    affine table of the matrix-unit walk and the launch is K3's
+    matrix-unit walk (``tile_raster.raster_tiles_tex_u8_mxu``): texels
+    may flip to a neighbour at UV knife edges against the default walk.
+    Returns (frames (B, H, W, 4) uint8 — or (B, NT, P, 4) when ``tiled``
+    — , overflow device bool over the batch)."""
+    frames, overflow = _textured_u8(
+        verts, faces, uvs, tex_u8, width, height, mvps, tile_w=tile_w,
+        tile_h=tile_h, capacity=capacity, bg=bg, span_x=span_x,
+        span_y=span_y, perspective_correct=perspective_correct,
+        z_clip=z_clip, tiled=tiled, mxu=mxu)
+    return frames, overflow.any()
 
 
 def render_textured(verts, faces, uvs, tex, width: int, height: int,
@@ -977,7 +967,6 @@ def render_textured(verts, faces, uvs, tex, width: int, height: int,
     fetched.  Returns (rgba (H, W, 4) in verts' dtype, bg where no
     triangle covers the pixel; zq (H, W) the quantised depth
     (key >> IDX_BITS) / Z_LEVELS; overflow device bool)."""
-    from . import tile_raster
     dtype = verts.dtype
     dev = verts.device
     if mvp is None:
@@ -1025,7 +1014,6 @@ def raster_binned_fused(bins, A, B, C, zplane_scaled, inv_area, sign, valid,
     at a time (all with 0), which bounds only the temporaries' size
     (batch_tiles x K x P each).  attrs (F, 3, D); returns (keys (H, W)
     int32, rgba (H, W, D), bg where sky)."""
-    from . import tile_raster
     ntx = (width + tile_w - 1) // tile_w
     nt, K = bins.shape
     dtype = A.dtype
@@ -1146,7 +1134,6 @@ def render_gouraud_pallas(verts, faces, vtx_colors, width: int, height: int,
     accepted and changes no value; the other TPU layout knobs
     (``interpret``, ``resident_out``, ``mega``, ``out8``, ``ktail``,
     ``wide_split``) are not parameters."""
-    from . import tile_raster
     if u8 and not flat:
         raise ValueError("u8 output requires flat=True")
     if tiled and not u8:
@@ -1204,13 +1191,13 @@ def render_gouraud_pallas_batch(verts, faces, vtx_colors, width: int,
     """B frames (mvps (B, 4, 4)) of :func:`render_gouraud_pallas`, the
     tiles of all frames in one kernel launch — counterpart of
     ``raster3d.render_gouraud_pallas_batch`` (``raster3d.py:973-1076``),
-    with its defaults.  The per-frame prep loops over the frames; then:
+    with its defaults.  One prep pass over the B frames, then:
       * default: K5 over the B frames' bins (``render_binned_pallas_batch``);
       * ``flat=True``: K2a (``render_binned_pallas_flat_batch``);
       * ``flat=True, u8=True``: K1
         (``render_binned_pallas_flat_batch_u8``), with ``opaque``,
-        ``z_clip``; with ``mxu=1|2`` each frame's table is the affine one
-        and the launch is K1-mxu's (not with ``dynrows``);
+        ``z_clip``; with ``mxu=1|2`` the tables are the affine ones and
+        the launch is K1-mxu's (not with ``dynrows``);
       * ``dynrows=g`` (flat, u8, opaque, z_clip off): each frame's table
         rows gathered in pair order, ``rows_cap`` rows a frame (default
         49152), and K6 (``render_binned_dynrows_batch_u8``), bit-equal to
@@ -1221,7 +1208,6 @@ def render_gouraud_pallas_batch(verts, faces, vtx_colors, width: int,
     zq (B, H, W) or None on the u8 routes, overflow device bool over the
     batch).  ``kcc`` is accepted and changes no value; ``interpret`` and
     ``wf`` (JAX's batch entry has none) are not parameters."""
-    from . import tile_raster
     if u8 and not flat:
         raise ValueError("u8 output requires flat=True")
     if mxu and not (flat and u8 and not dynrows):
@@ -1234,23 +1220,20 @@ def render_gouraud_pallas_batch(verts, faces, vtx_colors, width: int,
     dev = verts.device
     if bg is None:
         bg = torch.zeros(4, dtype=dtype, device=dev)
-    pre = (pregather_mesh(verts, faces), vtx_colors[faces])
     cfg = dict(tile_w=tile_w, tile_h=tile_h, capacity=capacity,
                span_x=span_x, span_y=span_y)
     if flat:
-        preps = [prepare_frame(verts, faces, vtx_colors, width, height, m,
-                               bg=bg, z_clip=z_clip, pre=pre, mxu=mxu,
-                               exact_c=u8, **cfg)
-                 for m in mvps]
-        sps, starts, counts, tables = (
-            torch.stack([p[k] for p in preps])
-            for k in ("sorted_pad", "starts", "counts", "table"))
-        overflow = torch.stack([p["overflow"] for p in preps]).any()
+        prep = prepare_frame(verts, faces, vtx_colors, width, height, mvps,
+                             bg=bg, z_clip=z_clip, mxu=mxu, exact_c=u8,
+                             **cfg)
+        sps, starts, counts, tables = (prep[k] for k in (
+            "sorted_pad", "starts", "counts", "table"))
+        overflow = prep["overflow"].any()
         if dynrows:
             cap = rows_cap or 49152
-            rows = torch.stack([p["table"][(p["sorted_pad"][:cap]
-                                            & IDX_MASK).long()]
-                                for p in preps])
+            ids = (sps[:, :cap] & IDX_MASK).long()
+            rows = torch.gather(tables, 1, ids[..., None].expand(
+                -1, -1, tables.shape[-1]))
             # the pairs end at the last tile's run end
             overflow = overflow | (starts[:, -1] + counts[:, -1]
                                    > cap - capacity).any()
@@ -1266,20 +1249,16 @@ def render_gouraud_pallas_batch(verts, faces, vtx_colors, width: int,
         keys, rgba = tile_raster.render_binned_pallas_flat_batch(
             sps, starts, counts, tables, bg, width, height, tile_w, tile_h)
     else:
-        bins, counts, tables, ovfs = [], [], [], []
-        for m in mvps:
-            tri, attrs, edges = _setup_edges(verts, faces, m, width, height,
-                                             v4f=pre[0], attrs=pre[1])
-            b, c, o = bin_triangles(tri["sxy"], edges[-1], width, height,
-                                    tile_w, tile_h, capacity, span_x, span_y)
-            bins.append(torch.where(b == NO_TRI, faces.shape[0], b))
-            counts.append(c)
-            tables.append(tile_raster.build_table(*edges, attrs))
-            ovfs.append(o)
+        tri, attrs, edges = _setup_edges(verts, faces, mvps, width, height,
+                                         attrs=vtx_colors[faces])
+        bins, counts, overflow = bin_triangles(
+            tri["sxy"], edges[-1], width, height, tile_w, tile_h, capacity,
+            span_x, span_y)
         keys, rgba = tile_raster.render_binned_pallas_batch(
-            torch.stack(bins), torch.stack(counts), torch.stack(tables), bg,
-            width, height, tile_w, tile_h)
-        overflow = torch.stack(ovfs).any()
+            torch.where(bins == NO_TRI, faces.shape[0], bins), counts,
+            tile_raster.build_table(*edges, attrs), bg, width, height,
+            tile_w, tile_h)
+        overflow = overflow.any()
     zq = (keys >> IDX_BITS).to(dtype) / _z_levels(dtype, dev)
     return rgba, zq, overflow
 

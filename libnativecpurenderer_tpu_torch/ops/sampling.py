@@ -11,7 +11,18 @@ from __future__ import annotations
 
 import torch
 
-from .raster3d import _to_i32
+
+def _to_i32(x):
+    """float -> int32 as XLA converts (``.astype(jnp.int32)``): truncate
+    toward zero, saturate out of range, NaN -> 0.  ``Tensor.to(int32)``
+    leaves those cases undefined (the CPU gives INT_MIN).  2**31 - 128 is
+    the largest float32 below 2**31, 2**31 - 1 the largest float64 that
+    truncates into range.  The texel lookups of the canvas and the mesh
+    walks share it."""
+    hi = 2.0 ** 31 - (1 if x.dtype == torch.float64 else 128)
+    y = torch.nan_to_num(x, nan=0.0).clamp(-2.0 ** 31, hi)
+    return torch.where(x >= 2.0 ** 31, torch.iinfo(torch.int32).max,
+                       y.to(torch.int32))
 
 
 def clamp_coord(x, size):

@@ -62,8 +62,15 @@ from __future__ import annotations
 
 import torch
 
-from .raster3d import IDX_BITS, IDX_MASK, NO_TRI, SKY_KEY, Z_LEVELS, _to_i32
+from .sampling import _to_i32
 
+# the packed keys of every walk and entry, (quantised_z << IDX_BITS) | slot
+# (the JAX package's raster3d.py:38-44)
+IDX_BITS = 18          # up to 256k triangles per draw
+IDX_MASK = (1 << IDX_BITS) - 1
+Z_LEVELS = (1 << (31 - IDX_BITS)) - 1   # 13 bits of depth quantisation
+NO_TRI = IDX_MASK      # sentinel triangle id (background)
+SKY_KEY = (Z_LEVELS << IDX_BITS) | NO_TRI
 ROW_W = 32      # padded row width
 D = 4           # attributes per vertex
 MAX_P = 4096    # pixels per tile the kernel takes (16 per thread)
@@ -101,32 +108,34 @@ def build_table(A, B, C, zplane_scaled, inv_area, sign, valid, attrs):
 def build_table_mxu(A, B, C, zplane_scaled, inv_area, sign, valid, attrs):
     """Affine-plane float32 row table of the matrix-unit walk, (F + 1,
     ROW_W), NaN rows for invalid triangles and for the pad row F
-    (``pallas_raster.build_table_mxu``, ``:1474-1505``).  Row lanes
+    (``pallas_raster.build_table_mxu``, ``:1474-1505``); B frames' edges
+    give (B, F + 1, ROW_W), as in :func:`build_table`.  Row lanes
     4q..4q+3 hold plane q as (a_x, a_y, c, 0): q = 0..2 the sign-folded
     edges, q = 3 the depth, q = 4 + d attribute d.  The depth and
     attribute planes precombine the per-edge weights w_i:
     a_x = (A0' w0 + A1' w1) + A2' w2, and the same for a_y and c — three
     terms in a fixed order where JAX's ``jnp.sum`` leaves the order to
     XLA."""
-    F = A.shape[0]
-    sg = sign[:, None]
+    sg = sign[..., None]
     As, Bs, Cs = A * sg, B * sg, C * sg
-    w_z = zplane_scaled * sg                                # (F, 3)
-    attrs_sc = attrs * (inv_area * sign)[:, None, None]     # (F, 3, D)
-    zero = torch.zeros_like(As[:, 0])
+    w_z = zplane_scaled * sg                                # (..., F, 3)
+    attrs_sc = attrs * (inv_area * sign)[..., None, None]   # (..., F, 3, D)
+    zero = torch.zeros_like(As[..., 0])
 
     def comb(e, w):
-        return e[:, 0] * w[:, 0] + e[:, 1] * w[:, 1] + e[:, 2] * w[:, 2]
+        return (e[..., 0] * w[..., 0] + e[..., 1] * w[..., 1]
+                + e[..., 2] * w[..., 2])
 
     cols = []
     for q in range(3):
-        cols += [As[:, q], Bs[:, q], Cs[:, q], zero]
-    for w in [w_z] + [attrs_sc[:, :, d] for d in range(D)]:
+        cols += [As[..., q], Bs[..., q], Cs[..., q], zero]
+    for w in [w_z] + [attrs_sc[..., d] for d in range(D)]:
         cols += [comb(As, w), comb(Bs, w), comb(Cs, w), zero]
-    table = torch.stack(cols, dim=1)
-    table = torch.where(valid[:, None], table, float("nan")).to(
+    table = torch.stack(cols, dim=-1)
+    table = torch.where(valid[..., None], table, float("nan")).to(
         torch.float32)
-    return torch.cat([table, table.new_full((1, ROW_W), float("nan"))])
+    return torch.cat([table, table.new_full(
+        table.shape[:-2] + (1, ROW_W), float("nan"))], dim=-2)
 
 
 def bf16_round(x):

@@ -6,6 +6,8 @@ import math
 import numpy as np
 import torch
 
+from .ops import raster3d, tile_raster
+
 
 def crafted_uv_table(table):
     """The row table with the uv attribute columns of every valid row
@@ -47,7 +49,6 @@ def crafted_runs(lengths, tile_w: int = 32, tile_h: int = 32, seed: int = 0,
     same triangles; with ``knife`` every third triangle of each run is a
     :func:`knife_edge_rows` row of its tile (on the warp boxes' borders at
     tiles 128 wide), as :func:`crafted_bins` makes them."""
-    from .ops import raster3d, tile_raster
     if knife and mxu:
         raise ValueError("knife-edge rows are edge-table rows: not with mxu")
     rng = np.random.default_rng(seed)
@@ -93,7 +94,6 @@ def knife_edge_rows(tile_w: int, tile_h: int, ox: int, n: int, seed: int):
     edge coefficients are then scaled by a seeded choice of 1, 2^-60,
     2^60, 3.7e-20, 1e25 and 0.7 (the depth and attribute columns by its
     inverse), and a few rows get a NaN coefficient.  Depths in [0, 1]."""
-    from .ops import raster3d, tile_raster
     rng = np.random.default_rng(seed)
     layout = tile_raster.warp_boxes(tile_w, tile_h)
     boxes = (layout[0] if layout is not None else
@@ -144,7 +144,6 @@ def crafted_bins(lengths, K: int, tile_w: int = 128, tile_h: int = 16,
     slot's triangle is replaced by a :func:`knife_edge_rows` row of its
     tile.  Returns (bins (NT, K) int32, counts (NT,) int32, table,
     width) on the CPU."""
-    from .ops import raster3d
     sp, st, ct, table, width = crafted_runs(lengths, tile_w, tile_h, seed)
     tri = sp & raster3d.IDX_MASK
     pad = table.shape[0] - 1
@@ -174,7 +173,6 @@ def mma_probe_plain(rows, ox: int, oy: int, tile_w: int, mxu: int):
     p // tile_w), in float64 rounded to float32 and read back as the walk
     reads it: (64, 16, 4), [p, t, plane] the plane (e0, e1, e2, z) of
     triangle t at pixel p (t >= n: NaN)."""
-    from .ops import tile_raster
     tile_raster._check_mxu(mxu)
     n = rows.shape[0]
     if rows.dim() != 2 or rows.shape[1] != tile_raster.ROW_W or \

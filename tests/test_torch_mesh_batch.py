@@ -1,7 +1,8 @@
 """The batch's prep: ``prepare_frame`` and ``prepare_textured_frame`` with
-B matrices (B, 4, 4) in one pass over (B, F), and the loop entries that
-rasterize the batch with one K1 or K3 launch, against the per-frame
-preps and renders, bit for bit.
+B matrices (B, 4, 4) in one pass over (B, F), with the default and the
+affine (``mxu``) tables, ``bin_triangles`` over B frames, and the loop
+entries that rasterize the batch with one K1 or K3 launch, against the
+per-frame preps and renders, bit for bit.
 
 Each batch of three holds a close frame whose runs fit ``capacity``, a
 far frame whose runs overflow it, and a frame whose camera sits inside
@@ -72,6 +73,25 @@ def _bits(t):
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
+def _assert_frames_equal(kind, mesh_t, w, h, mvps, got, kw):
+    """Each frame of the batch's prep ``got`` equals its own prep, bit for
+    bit (``sorted_pad`` in its pairs of tiles < NT); returns the frames'
+    overflow flags."""
+    nt = got["counts"].shape[-1]
+    flags = []
+    for i in range(mvps.shape[0]):
+        one = _prep(kind, mesh_t, w, h, mvps[i], kw)
+        for k in ("starts", "counts", "table", "overflow"):
+            assert torch.equal(_bits(got[k][i]), _bits(one[k])), k
+        sp, sp1 = got["sorted_pad"][i], one["sorted_pad"]
+        assert sp.shape == sp1.shape
+        valid = int(((sp1 >> tr.IDX_BITS) < nt).sum())
+        assert int(((sp >> tr.IDX_BITS) < nt).sum()) == valid
+        assert torch.equal(sp[:valid], sp1[:valid])
+        flags.append(bool(one["overflow"]))
+    return flags
+
+
 @pytest.mark.parametrize("layout", ["cell", "tall"])
 @pytest.mark.parametrize("n", [1, 3])
 @pytest.mark.parametrize("kind", ["gouraud", "textured"])
@@ -85,19 +105,9 @@ def test_batched_prep_equals_per_frame(kind, n, layout):
     calls, frames = fn.calls, fn.frames
     got = _prep(kind, mesh_t, w, h, mvps, kw)
     assert (fn.calls - calls, fn.frames - frames) == (1, n)
-    nt = got["counts"].shape[-1]
     assert got["sorted_pad"].shape[0] == n and got["overflow"].shape == (n,)
-    flags = []
+    flags = _assert_frames_equal(kind, mesh_t, w, h, mvps, got, kw)
     for i in range(n):
-        one = _prep(kind, mesh_t, w, h, mvps[i], kw)
-        for k in ("starts", "counts", "table", "overflow"):
-            assert torch.equal(_bits(got[k][i]), _bits(one[k])), k
-        sp, sp1 = got["sorted_pad"][i], one["sorted_pad"]
-        assert sp.shape == sp1.shape
-        valid = int(((sp1 >> tr.IDX_BITS) < nt).sum())
-        assert int(((sp >> tr.IDX_BITS) < nt).sum()) == valid
-        assert torch.equal(sp[:valid], sp1[:valid])
-        flags.append(bool(one["overflow"]))
         if dists[i] == INSIDE:
             # the camera inside the sphere: faces behind w = 1e-6
             v4f = tr.pregather_mesh(mesh_t[0], mesh_t[1])
@@ -108,6 +118,38 @@ def test_batched_prep_equals_per_frame(kind, n, layout):
         assert not flags[0]
         assert int(got["counts"][1].max()) > kw["capacity"]
         assert flags[1]
+
+
+@pytest.mark.parametrize("layout", ["cell", "tall"])
+@pytest.mark.parametrize("n", [1, 3])
+def test_bin_triangles_batch_equals_per_frame(n, layout):
+    """The materialised binning over B frames: bins, counts and overflow
+    each equal to that frame binned alone."""
+    mesh_t, w, h, kw = _scene(layout)
+    verts, faces, colors = mesh_t[:3]
+    dists = [INSIDE] if n == 1 else [CLOSE, FAR, INSIDE]
+    mvps = _mvps(w, h, dists)
+    cfg = (w, h, kw["tile_w"], kw["tile_h"], kw["capacity"], kw["span_x"],
+           kw["span_y"])
+
+    def binned(m):
+        tri, _, edges = tr._setup_edges(verts, faces, m, w, h)
+        return tr.bin_triangles(tri["sxy"], edges[-1], *cfg)
+
+    bins, counts, ovf = binned(mvps)
+    nt = counts.shape[-1]
+    assert bins.shape == (n, nt, kw["capacity"]) and ovf.shape == (n,)
+    flags = []
+    for i in range(n):
+        b1, c1, o1 = binned(mvps[i])
+        assert b1.shape == (nt, kw["capacity"]) and o1.shape == ()
+        assert torch.equal(bins[i], b1)
+        assert torch.equal(counts[i], c1)
+        assert torch.equal(ovf[i], o1)
+        flags.append(bool(o1))
+    if n == 3 and layout == "cell":
+        # the close frame fits; the far frame's runs overflow capacity
+        assert flags[:2] == [False, True]
 
 
 @pytest.fixture
@@ -165,14 +207,51 @@ def test_loop_equals_stacked_per_frame(kind, tiled, counted_launches):
     assert bool(ovf) == any(bool(o) for _, o in want)
 
 
+@pytest.mark.parametrize("entry,kw", [
+    ("gouraud", dict(flat=True)),
+    ("gouraud", dict(flat=True, u8=True)),
+    ("gouraud", dict(flat=True, u8=True, mxu=1)),
+    ("gouraud", dict(flat=True, u8=True, opaque=True, z_clip=False,
+                     dynrows=2)),
+    ("textured", dict(mxu=0)),
+    ("textured", dict(mxu=1))], ids=["k2a", "k1", "k1_mxu", "k6", "k3",
+                                     "k3_mxu"])
+def test_batch_entries_prep_once(entry, kw):
+    """``render_gouraud_pallas_batch``'s flat routes and
+    ``render_textured_u8_batch`` prep their B frames in one call."""
+    (verts, faces, colors, uvs, tex), w, h, _ = _scene("cell")
+    mvps = _mvps(w, h, [CLOSE, FAR, INSIDE])
+    fn = tr.prepare_frame if entry == "gouraud" else tr.prepare_textured_frame
+    calls, frames = fn.calls, fn.frames
+    if entry == "gouraud":
+        out = tr.render_gouraud_pallas_batch(verts, faces, colors, w, h,
+                                             mvps, bg=BG, **kw)[0]
+    else:
+        out = tr.render_textured_u8_batch(verts, faces, uvs, tex, w, h,
+                                          mvps, bg=BG, **kw)[0]
+    assert (fn.calls - calls, fn.frames - frames) == (1, 3)
+    assert out.shape[:3] == (3, h, w)
+
+
 @pytest.mark.parametrize("kind,opt", [("gouraud", "near_clip"),
                                       ("gouraud", "mxu"),
                                       ("textured", "mxu")])
 def test_batched_prep_refuses_near_clip_and_mxu(kind, opt):
+    """The batch's prep refuses ``near_clip``; with ``mxu`` it builds
+    each frame's affine table in the one pass, equal to the per-frame
+    preps."""
     mesh_t, w, h, kw = _scene("cell")
     mvps = _mvps(w, h, [CLOSE, FAR])
     kw = dict(kw, **{opt: 1})
-    with pytest.raises(ValueError, match="near_clip nor mxu"):
-        _prep(kind, mesh_t, w, h, mvps, kw)
-    # one matrix keeps every option
-    _prep(kind, mesh_t, w, h, mvps[0], kw)
+    if opt == "near_clip":
+        with pytest.raises(ValueError, match="does not take near_clip"):
+            _prep(kind, mesh_t, w, h, mvps, kw)
+        # one matrix keeps every option
+        _prep(kind, mesh_t, w, h, mvps[0], kw)
+        return
+    got = _prep(kind, mesh_t, w, h, mvps, kw)
+    plain = _prep(kind, mesh_t, w, h, mvps, dict(kw, mxu=0))
+    assert got["table"].shape == plain["table"].shape
+    assert not torch.equal(_bits(got["table"]), _bits(plain["table"]))
+    flags = _assert_frames_equal(kind, mesh_t, w, h, mvps, got, kw)
+    assert flags == [False, True]

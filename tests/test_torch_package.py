@@ -1,7 +1,8 @@
 """Package-level contracts of the PyTorch port: it imports no JAX, never
 falls back to the CPU when a CUDA device is asked for, and rejects the
-JAX package's TPU layout knobs."""
+JAX package's TPU layout knobs, and its modules import one way."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -17,6 +18,7 @@ from libnativecpurenderer_tpu_torch.ops import raster3d as tr
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "libnativecpurenderer_tpu_torch")
 
 
 def test_import_pulls_in_no_jax():
@@ -47,6 +49,52 @@ def test_import_pulls_in_no_jax():
     # of the JAX package's public names only VideoCap is left to port
     import libnativecpurenderer_tpu as R
     assert set(R.__all__) - set(port.__all__) == {"VideoCap"}
+
+
+def _imports_of(rel):
+    """Each import statement of the port's module ``rel`` as (the dotted
+    names it imports, its relative level, whether a function holds
+    it)."""
+    with open(os.path.join(PORT, rel)) as f:
+        tree = ast.parse(f.read())
+    local = {id(n) for fn in ast.walk(tree)
+             if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef))
+             for n in ast.walk(fn)}
+    out = []
+    for n in ast.walk(tree):
+        if isinstance(n, ast.ImportFrom):
+            mod = n.module or ""
+            names = [mod] + [f"{mod}.{a.name}" for a in n.names]
+            out.append((names, n.level, id(n) in local))
+        elif isinstance(n, ast.Import):
+            out.append(([a.name for a in n.names], 0, id(n) in local))
+    return out
+
+
+def _names_module(names, module):
+    return any(module in name.split(".") for name in names)
+
+
+def test_mesh_imports_point_one_way():
+    """Mesh entries -> kernel wrappers -> ``_kernels``, the canvas ops
+    beside them: the kernel wrappers and the canvas ops import nothing of
+    ``raster3d``, ``sampling`` nothing of the package, and ``raster3d``
+    and ``testing`` import ``tile_raster`` once, at module top."""
+    for rel in ("ops/tile_raster.py", "ops/sampling.py", "ops/executor.py"):
+        assert not any(_names_module(names, "raster3d")
+                       for names, _, _ in _imports_of(rel)), rel
+    assert all(level == 0 for _, level, _ in _imports_of("ops/sampling.py"))
+    for rel in ("ops/raster3d.py", "testing.py"):
+        imports = _imports_of(rel)
+        assert not any(_names_module(names, "tile_raster") and local
+                       for names, _, local in imports), rel
+        assert any(_names_module(names, "tile_raster") and not local
+                   for names, _, local in imports), rel
+    # the names the tests and tools read through raster3d still resolve
+    from libnativecpurenderer_tpu_torch.ops import sampling, tile_raster
+    for name in ("IDX_BITS", "IDX_MASK", "Z_LEVELS", "NO_TRI", "SKY_KEY"):
+        assert getattr(tr, name) == getattr(tile_raster, name)
+    assert tr._to_i32 is sampling._to_i32 is tile_raster._to_i32
 
 
 def _tri():
