@@ -115,9 +115,19 @@ class RenderContext:
     _BOX_AABB, _BOX_FAST, _BOX_QUAD, _BOX_FULL = 0, 1, 2, 3
 
     def _record_draw(self, kind, mode, gx, gy, gw, gh, spec):
-        """Record one draw with the command box of ``mode``
-        (``context.py:95-143``, its pure-Python branch)."""
+        """Record one draw with the command box of ``mode``: in one call
+        of the record core (``CommandBuffer.append_draw``) where it is
+        built and takes the draw, else in the Python body below
+        (``context.py:95-143``, its pure-Python branch), which the core
+        equals bit for bit.  ``.native`` and ``.python`` count the draws
+        each recorded."""
         st = self._state
+        if self._cmds.append_draw(kind, st.matrix, st.color, mode, gx, gy,
+                                  gw, gh, spec, float(self.width),
+                                  float(self.height)):
+            self._seq += 1
+            RenderContext._record_draw.native += 1
+            return
         if mode == self._BOX_AABB:
             box = xf.aabb(st.matrix, gx, gy, gw, gh, float(self.width),
                           float(self.height))
@@ -140,6 +150,9 @@ class RenderContext:
         else:                                   # _BOX_FULL
             box = (0.0, float(self.width), 0.0, float(self.height))
         self._record(kind, box, spec)
+        RenderContext._record_draw.python += 1
+
+    _record_draw.native = _record_draw.python = 0
 
     def flush(self) -> None:
         """Execute all pending draw commands on the context's device,

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its record core.
 
 Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
@@ -15,15 +15,26 @@ arithmetic only: the matrix-unit walk (K1-mxu, ``wgmma``, which needs
 float32 sums are not rounded to nearest one addition at a time, and is
 held to its plain version within a tolerance.  ``-Xptxas=-v`` writes each kernel's register and
 shared-memory use into the build log beside the library.
+
+``csrc/<name>.c`` is a CPython extension module for the host (the record
+core, ``csrc/record.c``).  The host's C compiler builds it the same way,
+at first use, against the running Python's headers, under the same kind
+of hashed name (the hash covers the Python's extension suffix too), and
+``importlib`` loads it.  ``-ffp-contract=off`` keeps the compiler from
+fusing a multiply into an add: the core must round each double operation
+as CPython's float operations do.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
+import importlib.util
 import os
 import shutil
 import subprocess
+import sysconfig
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -32,6 +43,8 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas=-v")
+CC_FLAGS = ("-O2", "-fPIC", "-shared", "-ffp-contract=off", "-Wall",
+            "-I", sysconfig.get_paths()["include"])
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -46,33 +59,72 @@ def _nvcc() -> str:
                        "kernels are built from csrc/ at first use")
 
 
+def _cc() -> str:
+    for cand in ("gcc", "cc"):
+        path = shutil.which(cand)
+        if path:
+            return path
+    raise RuntimeError("no C compiler (gcc or cc) found: the port's record "
+                       "core is built from csrc/record.c at first use")
+
+
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built;
-    returns the library's path.  The nvcc output is kept in a ``.log``
+    """Compile ``csrc/<name>.cu`` (with nvcc) or ``csrc/<name>.c`` (with
+    the host's C compiler) unless its library is already built; returns
+    the library's path.  The compiler's output is kept in a ``.log``
     beside it."""
     src = CSRC / f"{name}.cu"
-    tag = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    if src.exists():
+        compiler, flags, key = _nvcc, NVCC_FLAGS, ""
+    else:
+        src = CSRC / f"{name}.c"
+        compiler, flags = _cc, CC_FLAGS
+        key = sysconfig.get_config_var("EXT_SUFFIX") or ""
+    tag = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()
+                         + key.encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"{name}-{tag}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+    res = subprocess.run([compiler(), *flags, "-o", str(tmp), str(src)],
                          capture_output=True, text=True)
     log = res.stdout + res.stderr
     lib.with_suffix(".log").write_text(log)
     if res.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on {src.name} "
+        raise RuntimeError(f"compiling {src.name} failed "
                            f"(rc {res.returncode}):\n{log}")
     os.replace(tmp, lib)
     return lib
 
 
 def build_log(name: str) -> str:
-    """The nvcc/ptxas output of the current build of ``name``."""
+    """The compiler's output of the current build of ``name``."""
     return build(name).with_suffix(".log").read_text()
+
+
+# why the record core could not be built or loaded (None: it was, or has
+# not been tried)
+record_error: str | None = None
+
+
+@functools.cache
+def record_core():
+    """The record core (``csrc/record.c``) as a loaded extension module,
+    built at the first call; None where it cannot be built or loaded (no
+    C compiler or no Python headers: ``record_error`` says why), and the
+    callers record in Python."""
+    global record_error
+    try:
+        path = build("record")
+        spec = importlib.util.spec_from_file_location("record", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+    except (OSError, RuntimeError, ImportError) as exc:
+        record_error = f"{type(exc).__name__}: {exc}"
+        return None
 
 
 def tile_raster() -> ctypes.CDLL:

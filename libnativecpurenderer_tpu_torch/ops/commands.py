@@ -54,6 +54,8 @@ import weakref
 
 import numpy as np
 
+from . import _kernels
+
 PARAM_W = 32
 
 KIND_NOOP = 0
@@ -112,6 +114,26 @@ class CommandBuffer:
         p[:len(head)] = head
         p[len(head):] = 0.0
         self.n = i + 1
+
+    def append_draw(self, kind, m, ct, mode, gx, gy, gw, gh, spec, mw,
+                    mh) -> bool:
+        """Record one draw in one call of the record core
+        (``csrc/record.c``): the inverse of ``m``, the command box of
+        ``mode`` (``RenderContext._BOX_*``), ``ct`` and ``spec``, as
+        ``RenderContext._record_draw``'s Python body records them, bit
+        for bit.  Returns False, recording nothing, where the core is not
+        built or declines the draw."""
+        core = _kernels.record_core()
+        if core is None:
+            return False
+        if self.n == self.kinds.shape[0]:
+            self._grow()
+        if not core.record_draw(self.kinds, self.params, self.n, kind, m,
+                                ct, mode, gx, gy, gw, gh,
+                                spec if spec else None, mw, mh):
+            return False
+        self.n += 1
+        return True
 
     def clear(self) -> None:
         self.n = 0
