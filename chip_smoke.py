@@ -3898,8 +3898,7 @@ def audio_main_phase(dev, card: str) -> None:
 
         seen = {}
         real_groups = AudioClip.overlay_groups
-        real_file = AudioClip.from_file
-        real_like = AudioClip.resample_like
+        real_load = hjm_mixer.Bank._load
 
         def spy_groups(self, pairs):
             pairs = list(pairs)
@@ -3927,8 +3926,9 @@ def audio_main_phase(dev, card: str) -> None:
             if again != card_wav:
                 raise AssertionError("two card mixes differ")
         peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
-        # the bank's share: decode on the host and resample on the card,
-        # each ended by a sync, in a run of its own
+        # the bank's share: each file's decode on the host and resample
+        # on the card (Bank._load), each ended by a sync, in a run of its
+        # own
         spent = [0.0]
 
         def timed(real):
@@ -3941,8 +3941,7 @@ def audio_main_phase(dev, card: str) -> None:
                 return out
             return run
 
-        AudioClip.from_file = staticmethod(timed(real_file))
-        AudioClip.resample_like = timed(real_like)
+        hjm_mixer.Bank._load = timed(real_load)
         try:
             torch.cuda.synchronize()
             t = time.perf_counter()
@@ -3950,8 +3949,7 @@ def audio_main_phase(dev, card: str) -> None:
             torch.cuda.synchronize()
             bank_wall = time.perf_counter() - t
         finally:
-            AudioClip.from_file = staticmethod(real_file)
-            AudioClip.resample_like = real_like
+            hjm_mixer.Bank._load = real_load
         calls, busy, _ = profile_frames(lambda: mix("card4.wav"), 1)
         t = time.perf_counter()
         cpu_wav = mix("cpu.wav", device="cpu")

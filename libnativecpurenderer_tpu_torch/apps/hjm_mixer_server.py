@@ -13,7 +13,10 @@ reference's ``timidity | ffmpeg`` base track (:27) is synthesised here
 (additive GM-family voices, ``synth_base``).  The voices are rendered on
 the host with NumPy, as the JAX package renders them; the mix, the 18 kHz
 resample and the float32 cast run on ``Handler.device`` (the card by
-default).
+default).  :func:`main` loads the instrument banks once
+(``hjm_mixer.Bank``, every file) and ``Handler`` hands that bank to each
+request's mix, where upstream reloads the banks a request; the answer's
+bytes are the same.
 
     python -m libnativecpurenderer_tpu_torch.apps.hjm_mixer_server \\
         --res <bank dir> [--port 8080] [--device cpu]
@@ -24,7 +27,6 @@ from __future__ import annotations
 import http.server
 import os
 import tempfile
-import types
 import urllib.parse
 
 import numpy as np
@@ -185,20 +187,22 @@ def synth_base(midi_bytes: bytes, rate: int = 44100, *,
 
 def mix_request(midi_bytes: bytes, min_note: int, max_note: int,
                 dnote: int, offset: int, res_dir: str, *,
-                device="cuda") -> bytes:
+                device="cuda", bank: hjm_mixer.Bank = None) -> bytes:
     """The request: base synth -> hjm mix -> 18 kHz -> encoded bytes (an
-    MP3, or a WAV when the native media runtime is not built)."""
+    MP3, or a WAV when the native media runtime is not built).  The mix
+    takes its clips from ``bank``, or from a bank of ``res_dir`` made for
+    this request."""
     base = synth_base(midi_bytes, device=device)
+    if bank is None:
+        bank = hjm_mixer.Bank(res_dir, base.sample_rate, base.channels,
+                              base.device)
+    wav = hjm_mixer.mix(midi_bytes, bank, min_note, max_note, dnote,
+                        offset, base).save_as_wav()
     with tempfile.TemporaryDirectory() as td:
-        in_fp = os.path.join(td, "in.mid")
-        out_fp = os.path.join(td, "out.wav")
-        with open(in_fp, "wb") as f:
-            f.write(midi_bytes)
-        hjm_mixer.main(types.SimpleNamespace(
-            res=res_dir, input=in_fp, output=out_fp,
-            min_note=min_note, max_note=max_note, dnote=dnote,
-            base=base, offset=offset, device=device))
-        mixed = AudioClip.from_file(out_fp, device=device)
+        wav_fp = os.path.join(td, "out.wav")
+        with open(wav_fp, "wb") as f:
+            f.write(wav)
+        mixed = AudioClip.from_file(wav_fp, device=device)
         # the reference re-encodes at 18 kHz (:44-45)
         mixed.resample(18000, mixed.channels)
         mp3_fp = os.path.join(td, "out.mp3")
@@ -212,6 +216,7 @@ def mix_request(midi_bytes: bytes, min_note: int, max_note: int,
 class Handler(http.server.BaseHTTPRequestHandler):
     res_dir = "../test_files/"
     device = "cuda"
+    bank = None          # the resident bank; None: one a request
 
     def do_GET(self):
         if urllib.parse.unquote(self.path) in ("/", "/index.html"):
@@ -236,7 +241,8 @@ class Handler(http.server.BaseHTTPRequestHandler):
             length = int(self.headers.get("Content-Length", "0"))
             midi_bytes = self.rfile.read(length)
             out = mix_request(midi_bytes, min_note, max_note, dnote,
-                              offset, self.res_dir, device=self.device)
+                              offset, self.res_dir, device=self.device,
+                              bank=self.bank)
         except Exception as e:  # 500 with the message (reference :38-41)
             body = str(e).encode()
             self.send_response(500)
@@ -260,6 +266,7 @@ def main(host: str = "0.0.0.0", port: int = 8080, res_dir: str = None,
     if res_dir:
         Handler.res_dir = res_dir
     Handler.device = device
+    Handler.bank = hjm_mixer.Bank(Handler.res_dir, device=device).preload()
     server = http.server.ThreadingHTTPServer((host, port), Handler)
     print(f"hjm_mixer server on {host}:{port}, mixing on {device}")
     server.serve_forever()

@@ -13,7 +13,9 @@ with a stdlib WAV fallback (``media.py``).
 
 Spans (``tracing``): ``lncr.audio.overlay_many`` around
 :meth:`AudioClip.overlay_many` (the FFT route inside it is
-``lncr.audio.fft``, ``ops/audio_ops``); ``lncr.audio.save_as_wav`` around
+``lncr.audio.fft``, ``ops/audio_ops``); ``lncr.audio.overlay_groups``
+around :meth:`AudioClip.overlay_groups` (the cohort sort and the scatter
+route's slice adds); ``lncr.audio.save_as_wav`` around
 :meth:`AudioClip.save_as_wav`, and inside it ``lncr.audio.copy_out`` (the
 int16 quantise and, from the card, the pinned buffer and its copy
 enqueued) and ``lncr.audio.assemble`` (the wait on the copy and the
@@ -243,19 +245,20 @@ class AudioClip:
         length bucket), groups in the order given within a cohort.  The
         cross-group float sums depend on that order, so it is kept,
         though the port compiles nothing per cohort and pads nothing."""
-        cohorts: dict = {}
-        for source, secs in pairs:
-            starts = self._starts(secs)
-            source = self._matched(source)
-            n_src = int(source._buf.shape[0])
-            cohorts.setdefault((_bucket(len(starts)), _bucket(n_src)),
-                               []).append((source._buf, n_src, starts))
-        ordered = [g for _, grp in sorted(cohorts.items(),
-                                          key=lambda kv: kv[0])
-                   for g in grp]
-        audio_ops.overlay_groups(self._buf, [g[0] for g in ordered],
-                                 [g[1] for g in ordered],
-                                 [g[2] for g in ordered])
+        with tracing.span("lncr.audio.overlay_groups"):
+            cohorts: dict = {}
+            for source, secs in pairs:
+                starts = self._starts(secs)
+                source = self._matched(source)
+                n_src = int(source._buf.shape[0])
+                cohorts.setdefault((_bucket(len(starts)), _bucket(n_src)),
+                                   []).append((source._buf, n_src, starts))
+            ordered = [g for _, grp in sorted(cohorts.items(),
+                                              key=lambda kv: kv[0])
+                       for g in grp]
+            audio_ops.overlay_groups(self._buf, [g[0] for g in ordered],
+                                     [g[1] for g in ordered],
+                                     [g[2] for g in ordered])
 
     def cut(self, start, end, *, time_unit: str = "frame") -> None:
         """ApplyCutAudioClip (cpp:1265-1279) with the binding's second/frame

@@ -30,7 +30,10 @@ The FFT route of :func:`overlay_many` is the span ``lncr.audio.fft``
 calls that take the FFT route; ``overlay_many.events``, the events that
 survive the drop on either route of :func:`overlay_many` (its scatter
 route included, and :func:`overlay_many_bucketed`, ``AudioClip``'s way
-onto that route).
+onto that route); ``overlay_groups.groups``, ``.events`` and
+``.segments``, the groups :func:`overlay_groups` took, their events that
+survive the drop and the slice adds (so the launches) they made.  Each
+counter moves once a call, after the loop over the events.
 """
 
 from __future__ import annotations
@@ -79,18 +82,20 @@ def _drop_segments(start: int, n: int, rows: int) -> List[Tuple[int, int,
 
 
 def _scatter(target: torch.Tensor, source: torch.Tensor,
-             starts: Iterable[int]) -> int:
+             starts: Iterable[int]) -> Tuple[int, int]:
     """The scatter route: ``source`` added into ``target`` at each start,
     in place, events in order (XLA:CPU's order of the flattened updates).
-    Returns the number of events that survive the drop."""
+    Returns the number of events that survive the drop and the number of
+    slice adds made (one a run of an event, so at most two an event)."""
     rows, n = target.shape[0], source.shape[0]
-    kept = 0
+    kept = adds = 0
     for s in starts:
         segments = _drop_segments(int(s), n, rows)
         kept += bool(segments)
+        adds += len(segments)
         for a, b, d in segments:
             target[d:d + b - a] += source[a:b]
-    return kept
+    return kept, adds
 
 
 def overlay(target: torch.Tensor, source: torch.Tensor,
@@ -116,7 +121,7 @@ def overlay_many(target: torch.Tensor, source: torch.Tensor,
     st = _as_starts(starts)
     n = source.shape[0]
     if st.size * n <= FFT_ABOVE:
-        overlay_many.events += _scatter(target, source, st)
+        overlay_many.events += _scatter(target, source, st)[0]
         return target
     with tracing.span("lncr.audio.fft"):
         overlay_many.fft += 1
@@ -151,7 +156,7 @@ def overlay_many_bucketed(target: torch.Tensor, source: torch.Tensor,
     rows of ``source`` (the JAX op masks the rows of a power-of-two padded
     source; here nothing is compiled per length, so nothing is padded)."""
     overlay_many.events += _scatter(target, source[:int(src_len)],
-                                    _as_starts(starts))
+                                    _as_starts(starts))[0]
     return target
 
 
@@ -161,10 +166,21 @@ def overlay_groups(target: torch.Tensor, sources: Sequence[torch.Tensor],
     (L_k, C) tensor ``sources[k]`` overlaid at the host start frames
     ``starts[k]`` on the scatter route, in place: the JAX op's loop
     (``:93-116``)."""
+    kept = adds = 0
     for k in range(len(src_lens)):
-        _scatter(target, sources[k][:int(src_lens[k])],
-                 _as_starts(starts[k]))
+        got = _scatter(target, sources[k][:int(src_lens[k])],
+                       _as_starts(starts[k]))
+        kept += got[0]
+        adds += got[1]
+    overlay_groups.groups += len(src_lens)
+    overlay_groups.events += kept
+    overlay_groups.segments += adds
     return target
+
+
+overlay_groups.groups = 0
+overlay_groups.events = 0
+overlay_groups.segments = 0
 
 
 def gain(buf: torch.Tensor, g: float) -> torch.Tensor:
@@ -193,10 +209,19 @@ def resample(buf: torch.Tensor, new_num: int, new_channels: int,
     v_lo)``) and, across channel counts, the scaled difference
     (``fma(sum_hi, 1 / channels, -s_lo)``).  ``torch.addcmul`` is that
     fused multiply-add on the CPU and on the card.  The scalar factors
-    are rounded in the buffer's dtype on the host, so the card multiplies
-    by the same numbers as the CPU and divides by none."""
+    are rounded on the host, so the card multiplies by the same numbers
+    as the CPU and divides by none.
+
+    All of it runs in float64, as the reference's doubles do, whatever
+    the buffer's dtype, and the result is cast back to that dtype.  In
+    float32 the source index (~48,000 at a 1 s 48 kHz clip's end, a step
+    of 2^-8) would be off by up to ~0.005 frames, which moves a high
+    note's samples by up to 7 int16 levels.  So a float64 buffer gets
+    JAX's bits, and a float32 one JAX's float64 bits rounded to float32."""
+    out_dtype = buf.dtype
+    buf = buf.to(torch.float64)
     num_frames, channels = buf.shape
-    real = np.dtype(str(buf.dtype).replace("torch.", "")).type
+    real = np.float64
     step = real(old_rate) * (real(1) / real(new_rate))
     old_idx = torch.arange(new_num, dtype=buf.dtype,
                            device=buf.device) * _scalar(step, buf)
@@ -207,7 +232,8 @@ def resample(buf: torch.Tensor, new_num: int, new_channels: int,
     lo, hi = lo.long(), hi.long()
     if channels == new_channels:
         v_lo = buf[lo]
-        return torch.addcmul(v_lo, buf[hi] - v_lo, frac[:, None])
+        return torch.addcmul(v_lo, buf[hi] - v_lo,
+                             frac[:, None]).to(out_dtype)
 
     def channel_sum(rows):
         s = torch.zeros(rows.shape[0], dtype=buf.dtype, device=buf.device)
@@ -220,7 +246,8 @@ def resample(buf: torch.Tensor, new_num: int, new_channels: int,
     s_lo = channel_sum(buf[lo]) * inv
     diff = torch.addcmul(-s_lo, channel_sum(buf[hi]), inv)
     v = torch.addcmul(s_lo, diff, frac)
-    return v[:, None].expand(new_num, new_channels).contiguous()
+    return v.to(out_dtype)[:, None].expand(new_num,
+                                          new_channels).contiguous()
 
 
 def cut(buf: torch.Tensor, start: int, length: int) -> torch.Tensor:

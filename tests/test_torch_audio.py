@@ -389,15 +389,21 @@ def test_resample_matches_jax(dtype, old, new):
     # channel counts, the scaled difference of the channel sums); the port
     # computes the same, so the bits agree at rate ratios whose fractions
     # are not exact (the golden model above is the reference's order,
-    # within 1e-12)
-    use_dtype(dtype)
+    # within 1e-12).  The port resamples in float64 whatever the clip's
+    # dtype and casts back, so a float32 clip gets JAX's float64 bits of
+    # the same samples, rounded to float32
+    real = DTYPES[dtype][0]
     rng = np.random.default_rng(21)
-    j, p = pair(old[0], old[1], rng.standard_normal((997, old[1])))
+    s = rng.standard_normal((997, old[1])).astype(real)
+    use_dtype("float64")
+    j = jclip(old[0], old[1], s)
     j.resample(*new)
+    use_dtype(dtype)
+    p = pclip(old[0], old[1], s)
     p.resample(*new)
     assert (p.num_frames, p.sample_rate, p.channels) == \
         (j.num_frames, j.sample_rate, j.channels)
-    assert_same_bits(p, j)
+    assert_same_bits(p, j.numpy().astype(real))
 
 
 def test_resample_clamp_quirk_matches_jax():
