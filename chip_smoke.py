@@ -10,7 +10,8 @@ imports nothing of JAX.  Phases, one line each (or a few), any failure
 raising:
   1. device: the card, and its name and power limit from nvidia-smi;
   2. build: K1, K3, K2b, K2a, K5, K6, K1-wf, K1-mxu
-     (csrc/tile_raster.cu) and K4 (csrc/canvas_span.cu) compiled from the
+     (csrc/tile_raster.cu), K4 (csrc/canvas_span.cu) and the audio
+     scatter kernel (csrc/audio_scatter.cu) compiled from the
      checkout, one nvcc each, started together; ptxas registers and
      spills for each instantiation, the MMA walk's held to no spill, at
      most MMA_MAX_REGS registers and no serialized wgmma (ptxas warning
@@ -217,7 +218,13 @@ raising:
      overlay_groups (200 groups of 1-40 events, clips of 2k-48k frames);
      the two card runs bit-identical, card = CPU bit for bit but on the
      FFT route (within AUDIO_FFT_ATOL), and the save_as_wav bytes equal
-     (on the FFT route within one level, the share printed);
+     (on the FFT route within one level, the share printed); then the
+     scatter kernel at the mixer's shape (a ~115.6 s stereo float32
+     target, 1,500 events of 1.0 s clips from 219): bit-equal to its plain
+     version on the card, one launch a call, its device ms a call
+     (queued), the plain slice-add loop's host ms and device busy time
+     (profiler), the host's ms to enqueue an overlay_groups call, the
+     byte bounds, registers;
  20. audio main path: apps.hjm_mixer.main on its default device, the
      card, on a seeded song (SONG_NOTES notes, ~2 minutes) and a seeded
      bank of 396 48 kHz WAVs written to a temporary directory: the WAV
@@ -828,12 +835,13 @@ def build_kernels(_kernels) -> float:
     :func:`check_mma_build`, :func:`check_k5_build`,
     :func:`check_k2b_k6_build`, :func:`check_k2a_build` and
     :func:`check_k4_build`; returns the seconds."""
-    names = ("tile_raster", "canvas_span")
+    names = ("tile_raster", "canvas_span", "audio_scatter")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(_kernels.build, names))
     _kernels.tile_raster()
     _kernels.canvas_span()
+    _kernels.audio_scatter()
     build_s = time.perf_counter() - t0
     print(f"[build] {', '.join(n + '.cu' for n in names)} built and loaded "
           f"in {build_s:.1f} s", flush=True)
@@ -3651,8 +3659,9 @@ def pipeline_phase(dev, card: str, k4_row: dict) -> None:
 
 # Phases 19-21: the audio engine and the MIDI -> WAV path.  bench.py's
 # audio cell (bench.py:778-822): a 112 s, 44.1 kHz stereo target and 876
-# overlays of a 0.5 s clip.  No Pallas kernel lies on this path, so no row
-# joins the kernel table.
+# overlays of a 0.5 s clip.  No Pallas kernel lies on this path; the
+# scatter routes' kernel (csrc/audio_scatter.cu), which replaces none, is
+# the kernel table's last row.
 AUDIO_RATE, AUDIO_SECONDS = 44100, 112.0
 AUDIO_OVERLAYS = 876
 # the FFT route's tolerance, card against CPU: the JAX package's own for
@@ -3665,6 +3674,9 @@ AUDIO_FFT_ATOL = 1e-9
 # decaying tones, 48 kHz s16 stereo, as the reference's are laid out
 SONG_NOTES, SONG_CHANNELS, SONG_LO, SONG_HI = 1500, 4, 36, 108
 BANK_RATE, BANK_SECONDS = 48000, 1.0
+# phase 19's scatter kernel at the mixer cell's shape: a ~115.6 s song's
+# target, 1,500 events of 1.0 s clips (44.1 kHz) from ~219 of the bank's
+SCATTER_SECONDS, SCATTER_CLIPS, SCATTER_EVENTS = 115.6, 219, 1500
 
 
 def wav_i16(wav: bytes) -> np.ndarray:
@@ -3682,9 +3694,11 @@ def same_wav(a: bytes, b: bytes) -> tuple:
     return False, int((d > 0).sum()), int(d.max())
 
 
-def audio_ops_phase(dev, card: str) -> None:
+def audio_ops_phase(dev, card: str) -> dict:
     """Phase 19: each AudioClip op at bench scale on the card twice and on
-    the CPU port, float64."""
+    the CPU port, float64; then the scatter kernel's times.  Returns the
+    kernel table's row of the scatter kernel, its launches on the main
+    path left to phase 20."""
     from libnativecpurenderer_tpu_torch import AudioClip, config
 
     rng = np.random.default_rng(19)
@@ -3799,6 +3813,130 @@ def audio_ops_phase(dev, card: str) -> None:
             del a, b, c
     finally:
         config.set_default_dtype(prev)
+    return scatter_times(dev, card)
+
+
+def scatter_times(dev, card: str) -> dict:
+    """Phase 19's scatter kernel (csrc/audio_scatter.cu) at the mixer's
+    shape: one call bit-equal to the plain version on the card, one launch
+    a call; then its device ms a call (queued), the plain version's
+    host and device time, the host's ms to enqueue a whole
+    overlay_groups call, and the byte bounds; and one 1 s overlay onto
+    the full-length target, kernel against the plain version's slice add.
+    Returns the kernel table's row, ``launches`` None."""
+    from libnativecpurenderer_tpu_torch.ops import _kernels, audio_ops
+
+    rng = np.random.default_rng(22)
+    rows = int(AUDIO_RATE * SCATTER_SECONDS)
+    clips = [torch.from_numpy(rng.standard_normal((AUDIO_RATE, 2)).astype(
+        np.float32) * 0.1).to(dev) for _ in range(SCATTER_CLIPS)]
+    which = rng.integers(0, SCATTER_CLIPS, SCATTER_EVENTS)
+    onsets = np.sort(rng.integers(0, rows - AUDIO_RATE, SCATTER_EVENTS))
+    starts = [onsets[which == k] for k in range(SCATTER_CLIPS)]
+    lens = [AUDIO_RATE] * SCATTER_CLIPS
+    table, _ = audio_ops.segment_table(rows, lens, starts)
+    base = torch.from_numpy(rng.standard_normal((rows, 2)).astype(
+        np.float32) * 0.05).to(dev)
+    got, want = base.clone(), base.clone()
+    launches = audio_ops.scatter_table.launches
+    audio_ops.scatter_table(got, clips, table)
+    one = audio_ops.scatter_table.launches - launches
+    audio_ops.scatter_table_reference(want, clips, table)
+    torch.cuda.synchronize()
+    off = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    tgt = base.clone()
+    kernel_ms = [cuda_ms(lambda: audio_ops.scatter_table(tgt, clips, table),
+                         20, queued=True) for _ in range(2)]
+    # the plain loop's 1,500 launches take the host longer than the card
+    # takes to run them, so its device time is the profiler's busy time
+    def plain():
+        audio_ops.scatter_table_reference(tgt, clips, table)
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    plain()
+    torch.cuda.synchronize()
+    plain_wall = 1e3 * (time.perf_counter() - t)
+    _, plain_busy, _ = profile_frames(plain, 1)
+    host = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        audio_ops.overlay_groups(tgt, clips, lens, starts)
+        host.append(1e3 * (time.perf_counter() - t))
+    torch.cuda.synchronize()
+    used = sum(1 for st in starts if st.size)
+    n_bytes = rows * 2 * 4 * 2 + used * AUDIO_RATE * 2 * 4
+    bound_ms = 1e3 * n_bytes / MEM_BYTES_S
+    event_bytes = rows * 2 * 4 * 2 + int(table[:, 1].sum()) * 2 * 4
+    print(f"[scatter kernel] {card}: a {rows}-row stereo float32 target, "
+          f"{SCATTER_EVENTS} events of {AUDIO_RATE}-row clips from {used} "
+          f"clips, {len(table)} runs: kernel vs plain version "
+          f"{'bit-equal' if not off else f'{off} samples DIFFER'}, {one} "
+          f"launch a call; kernel {kernel_ms} ms a call (CUDA events, 20 "
+          f"calls queued, twice); plain slice-add loop {plain_wall} ms "
+          f"a call on the host clock, device {plain_busy}; overlay_groups "
+          f"on the host {sorted(host)} ms (enqueue, no sync); bound "
+          f"{bound_ms:.4f} ms by bytes ({n_bytes / 1e6:.1f} MB: the target "
+          f"read and written, each clip read once), the kernel at "
+          f"{bound_ms / min(kernel_ms):.3f}; each event's rows read once "
+          f"besides: {event_bytes / 1e6:.1f} MB, "
+          f"{1e3 * event_bytes / MEM_BYTES_S:.4f} ms; "
+          f"ptxas {ptxas_summary(_kernels.build_log('audio_scatter'))}",
+          flush=True)
+    if off or one != 1:
+        raise AssertionError("the scatter kernel differs from its plain "
+                             "version or did not launch once")
+
+    # one overlay of a 1 s clip onto the full-length target: the launch
+    # covers the tiles of the clip's rows alone, as the slice add does
+    start = rows // 2
+    single = audio_ops.segment_table(rows, [AUDIO_RATE], [[start]])[0]
+    got, want = base.clone(), base.clone()
+    audio_ops.overlay(got, clips[0], start)
+    audio_ops.scatter_table_reference(want, clips[:1], single)
+    torch.cuda.synchronize()
+    one_off = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+
+    def one_kernel():
+        audio_ops.overlay(tgt, clips[0], start)
+
+    def one_plain():
+        audio_ops.scatter_table_reference(
+            tgt, clips[:1],
+            audio_ops.segment_table(rows, [AUDIO_RATE], [[start]])[0])
+
+    one_ms, one_host = {}, {}
+    for name, fn in (("kernel", one_kernel), ("plain", one_plain),
+                     ("kernel", one_kernel), ("plain", one_plain)):
+        one_ms.setdefault(name, []).append(cuda_ms(fn, 50, queued=True))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        one_host.setdefault(name, []).append(
+            1e3 * (time.perf_counter() - t) / 50)
+    one_bytes = 3 * AUDIO_RATE * 2 * 4
+    print(f"[scatter kernel] {card}: one overlay of a {AUDIO_RATE}-row "
+          f"clip at row {start} of the {rows}-row target: kernel vs plain "
+          f"{'bit-equal' if not one_off else f'{one_off} samples DIFFER'};"
+          f" device ms a call (CUDA events, 50 queued, in turns) kernel "
+          f"{one_ms['kernel']}, plain slice add {one_ms['plain']}; host "
+          f"ms a call (50 calls, then a sync) kernel {one_host['kernel']},"
+          f" plain {one_host['plain']}; bound "
+          f"{1e3 * one_bytes / MEM_BYTES_S:.5f} ms by bytes "
+          f"({one_bytes / 1e6:.3f} MB: the clip's rows of the target read "
+          f"and written, the clip read)", flush=True)
+    if one_off:
+        raise AssertionError("one overlay: the kernel differs from its "
+                             "plain version")
+    return {"name": "audio_scatter", "route": "cuda",
+            "source": "libnativecpurenderer_tpu_torch/csrc/audio_scatter.cu",
+            "replaces": None, "launches": None, "max_abs_err": 0.0,
+            "ms": float(np.mean(kernel_ms)),
+            "plain_ms": plain_wall, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None}
 
 
 def seeded_song() -> bytes:
@@ -3867,10 +4005,11 @@ def write_bank(root: str) -> None:
                     "<i2").tobytes())
 
 
-def audio_main_phase(dev, card: str) -> None:
+def audio_main_phase(dev, card: str, scatter_row: dict) -> dict:
     """Phase 20: apps.hjm_mixer.main on the card (the default device) on a
     seeded song and bank, against the same call on the CPU; then the web
-    service's request, card against CPU."""
+    service's request, card against CPU.  Returns phase 19's
+    ``scatter_row`` with the scatter kernel's launches in one card mix."""
     import os
     import tempfile
     import types
@@ -3878,6 +4017,7 @@ def audio_main_phase(dev, card: str) -> None:
     from libnativecpurenderer_tpu_torch.apps import hjm_mixer
     from libnativecpurenderer_tpu_torch.apps import hjm_mixer_server as srv
     from libnativecpurenderer_tpu_torch.audio import AudioClip
+    from libnativecpurenderer_tpu_torch.ops import audio_ops
 
     song = seeded_song()
     with tempfile.TemporaryDirectory() as td:
@@ -3902,6 +4042,7 @@ def audio_main_phase(dev, card: str) -> None:
 
         def spy_groups(self, pairs):
             pairs = list(pairs)
+            seen["calls"] = seen.get("calls", 0) + 1
             seen["groups"] = len(pairs)
             seen["events"] = sum(len(s) for _, s in pairs)
             seen["device"] = self.device.type
@@ -3909,9 +4050,15 @@ def audio_main_phase(dev, card: str) -> None:
 
         AudioClip.overlay_groups = spy_groups
         try:
+            audio_ops.scatter_table.launches = 0
             card_wav = mix("card.wav")                  # warm, the default
+            launches = audio_ops.scatter_table.launches
             if seen["device"] != dev.type:
                 raise AssertionError("the mix did not run on the card")
+            if seen["calls"] != 1 or launches != 1:
+                raise AssertionError(
+                    f"the mix made {seen['calls']} overlay_groups calls "
+                    f"and {launches} scatter kernel launches, not 1 and 1")
         finally:
             AudioClip.overlay_groups = real_groups
         walls = []
@@ -3963,7 +4110,8 @@ def audio_main_phase(dev, card: str) -> None:
               f"{SONG_LO}-{SONG_HI}, two tempo changes; {song_s} s) and a "
               f"seeded 48 kHz bank of 396 x {BANK_SECONDS} s files "
               f"(written in {bank_s} s): {seen['groups']} groups, "
-              f"{seen['events']} events, one overlay_groups call; WAV "
+              f"{seen['events']} events, one overlay_groups call, "
+              f"{launches} scatter kernel launch; WAV "
               f"bytes card vs CPU "
               f"{'bit-equal' if eq else f'DIFFER on {n_off} samples by up to {lv}'}"
               f" ({len(card_wav)} bytes); wall {sorted(walls)} s (host "
@@ -4013,6 +4161,7 @@ def audio_main_phase(dev, card: str) -> None:
         if not req_eq and (media.native_available() or req_lv > 1):
             raise AssertionError("mix_request: the card differs from the "
                                  "CPU")
+    return dict(scatter_row, launches=launches)
 
 
 def audio_times_phase(dev, card: str) -> None:
@@ -4113,12 +4262,11 @@ def main() -> None:
     gouraud_rows = gouraud_phases(dev, card, tex_rows[2])
     wf_mxu_rows = wf_mxu_phases(dev, card)
     pipeline_phase(dev, card, k4)
-    audio_ops_phase(dev, card)
-    audio_main_phase(dev, card)
+    scatter_row = audio_main_phase(dev, card, audio_ops_phase(dev, card))
     audio_times_phase(dev, card)
     mesh_batch_phase(dev, card)
     print(json.dumps({"kernels": [k1, k4, *tex_rows, *gouraud_rows,
-                                  *wf_mxu_rows]}))
+                                  *wf_mxu_rows, scatter_row]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -8,7 +8,8 @@ mirror of the reference's ``src/hjm_mixer.py``: pair note_on/off per
 :class:`Bank`, round-robin the instrument per distinct onset time
 (:79-87) and overlay additively: every (instrument, note) group in one
 ``overlay_groups`` call, on the target's device (``--device``, the card
-by default).
+by default), which adds the song's events in order from one segment
+table: one kernel launch on the card.
 
 :func:`mix` is the mix alone: song bytes and a bank in, the mixed
 ``AudioClip`` out, no file read or written.  A long-lived caller (the

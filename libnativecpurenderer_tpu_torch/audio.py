@@ -244,7 +244,10 @@ class AudioClip:
         ``audio.py:420-465``): cohorts sorted by (power-of-two event bucket, power-of-two source
         length bucket), groups in the order given within a cohort.  The
         cross-group float sums depend on that order, so it is kept,
-        though the port compiles nothing per cohort and pads nothing."""
+        though the port compiles nothing per cohort and pads nothing:
+        every group's events go into one ordered segment table, added
+        into the clip in that order by one launch on the card
+        (``audio_ops.overlay_groups``)."""
         with tracing.span("lncr.audio.overlay_groups"):
             cohorts: dict = {}
             for source, secs in pairs:

@@ -193,6 +193,38 @@ def launch_canvas_span(fb, width, height, kinds, params, n, tiles, n_tiles,
             f"({lib.canvas_span_error_string(err).decode()})")
 
 
+def audio_scatter() -> ctypes.CDLL:
+    """The loaded ``audio_scatter`` library (the scatter routes' segment
+    table executor), built if needed."""
+    lib = _libs.get("audio_scatter")
+    if lib is None:
+        lib = ctypes.CDLL(str(build("audio_scatter")))
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        # target, rows, C, row_lo, row_hi, table, n_runs, ptrs, is_double,
+        # stream
+        lib.audio_scatter.argtypes = [p, ll, i, ll, ll, p, i, p, i, p]
+        lib.audio_scatter.restype = ctypes.c_int
+        lib.audio_scatter_error_string.argtypes = [ctypes.c_int]
+        lib.audio_scatter_error_string.restype = ctypes.c_char_p
+        _libs["audio_scatter"] = lib
+    return lib
+
+
+def launch_audio_scatter(target, rows, channels, row_lo, row_hi, table,
+                         n_runs, ptrs, is_double, stream) -> None:
+    """Launch the segment table executor over the n_runs rows at
+    ``table`` into the (rows, channels) target, whose target rows all lie
+    in ``[row_lo, row_hi)``, each group's source at ``ptrs`` (pointers and
+    stream as ints); raises on a refused launch."""
+    lib = audio_scatter()
+    err = lib.audio_scatter(target, rows, channels, row_lo, row_hi, table,
+                            n_runs, ptrs, int(is_double), stream)
+    if err:
+        raise RuntimeError(
+            f"audio_scatter launch failed: cudaError {err} "
+            f"({lib.audio_scatter_error_string(err).decode()})")
+
+
 # The walks of ``tile_raster_occupancy``, each at its C entry's number
 # (its index here)
 WALKS = ("split FMA", "split MMA", "split bins", "split pairs f32")

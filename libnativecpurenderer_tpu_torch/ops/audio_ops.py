@@ -4,17 +4,26 @@ Counterpart of ``libnativecpurenderer_tpu/ops/audio_ops.py``: the
 reference AudioClip math (``libNativeCPURenderer.cpp:998-1283``) as torch
 ops that run on the device of their tensors.  No Pallas kernel lies on
 this path (the JAX module is XLA gathers, scatters and FFTs), so these are
-torch ops, arranged so that the card and the CPU give the same bits:
+torch ops, and one kernel of the port's own for the scatter route,
+arranged so that the card and the CPU give the same bits:
 
 * **Fixed order of the overlay sums.**  Float ``index_add_`` on CUDA sums
   with atomics in no fixed order.  XLA:CPU's scatter adds the flattened
   updates in order, so a target row gets its contributions in event order.
-  The scatter route here is one in-place slice add per event (or two, see
-  below), which gives that order on every device.
+  Every scatter route here (``overlay``, ``overlay_many``'s scatter route,
+  ``overlay_many_bucketed``, ``overlay_groups``) builds one ordered segment
+  table on the host (:func:`segment_table`: a row a run of an event,
+  groups, events and runs in order) and adds it into the target in table
+  order (:func:`scatter_table`): on the card one launch of
+  ``csrc/audio_scatter.cu``, whose blocks each hold a tile of the target
+  and add the runs that meet it in table order; on the CPU one slice add a
+  run (:func:`scatter_table_reference`).  Only adds, one rounded add at a
+  time, in that order on every device.
 * **JAX's ``mode="drop"``.**  ``x.at[idx].add(v, mode="drop")`` first
   wraps a negative row in ``[-N, 0)`` to the end of the target, then drops
   rows outside ``[0, N)``.  ``_drop_segments`` cuts an event into the
-  (at most two) contiguous runs of rows that survive that.
+  (at most two) contiguous runs of rows that survive that;
+  :func:`segment_table` applies the same rule to every event at once.
 * **No division on the device.**  CUDA divides by a Python scalar as a
   multiply by its reciprocal; XLA:CPU folds the JAX op's divisions by
   constants into such multiplies too.  ``resample`` takes the reciprocals
@@ -32,13 +41,15 @@ survive the drop on either route of :func:`overlay_many` (its scatter
 route included, and :func:`overlay_many_bucketed`, ``AudioClip``'s way
 onto that route); ``overlay_groups.groups``, ``.events`` and
 ``.segments``, the groups :func:`overlay_groups` took, their events that
-survive the drop and the slice adds (so the launches) they made.  Each
-counter moves once a call, after the loop over the events.
+survive the drop and the runs of their segment table (the CPU's slice
+adds); ``scatter_table.launches``, the kernel's launches (one a scatter
+call on the card with a run to add, none on the CPU).  Each counter
+moves once a call.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, List, Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -81,21 +92,158 @@ def _drop_segments(start: int, n: int, rows: int) -> List[Tuple[int, int,
     return out
 
 
-def _scatter(target: torch.Tensor, source: torch.Tensor,
-             starts: Iterable[int]) -> Tuple[int, int]:
-    """The scatter route: ``source`` added into ``target`` at each start,
-    in place, events in order (XLA:CPU's order of the flattened updates).
-    Returns the number of events that survive the drop and the number of
-    slice adds made (one a run of an event, so at most two an event)."""
-    rows, n = target.shape[0], source.shape[0]
-    kept = adds = 0
-    for s in starts:
-        segments = _drop_segments(int(s), n, rows)
-        kept += bool(segments)
-        adds += len(segments)
-        for a, b, d in segments:
-            target[d:d + b - a] += source[a:b]
-    return kept, adds
+def segment_table(rows: int, src_lens: Sequence[int],
+                  starts: Sequence) -> Tuple[np.ndarray, int]:
+    """The scatter route's ordered segment table: groups ``k`` in order,
+    each the first ``src_lens[k]`` source rows overlaid at the host start
+    frames ``starts[k]`` onto a target of ``rows`` rows.  Each start takes
+    :func:`_as_starts`' int32 wrap, then :func:`_drop_segments`' rule, in
+    int64 over every group's starts at once (no loop over the events).
+    Returns the int64 (runs, 4) table of rows (dst_lo, len, src_lo, k):
+    groups in order, events in order within a group, an event's wrapped
+    run before its in-range run, dead runs dropped; and the number of
+    events with a run (those that survive the drop)."""
+    if len(starts) != len(src_lens):
+        raise ValueError(f"{len(src_lens)} source lengths for "
+                         f"{len(starts)} groups of starts")
+    # each group's starts cast to int64 on its own, as _as_starts does
+    s = _as_starts(np.concatenate(starts, axis=None, dtype=np.int64,
+                                  casting="unsafe")) if len(starts) else \
+        np.zeros(0, np.int64)
+    group = np.repeat(np.arange(len(starts), dtype=np.int64),
+                      [np.size(g) for g in starts])
+    end = s + np.asarray(src_lens, np.int64).reshape(-1)[group]
+    # column 0 the wrapped run ([-rows, 0) -> the end), column 1 in range
+    lo = np.maximum(s[:, None], np.array([-rows, 0], np.int64))
+    hi = np.minimum(end[:, None], np.array([0, rows], np.int64))
+    live = lo < hi
+    kept = int(np.count_nonzero(live.any(1)))
+    at = np.flatnonzero(live)
+    ev = at >> 1
+    lo, hi = lo.reshape(-1)[at], hi.reshape(-1)[at]
+    table = np.empty((at.size, 4), np.int64)
+    table[:, 0] = np.where(lo < 0, lo + rows, lo)
+    table[:, 1] = hi - lo
+    table[:, 2] = lo - s[ev]
+    table[:, 3] = group[ev]
+    return table, kept
+
+
+def scatter_table_reference(target: torch.Tensor,
+                            sources: Sequence[torch.Tensor],
+                            table: np.ndarray) -> torch.Tensor:
+    """Plain version of :func:`scatter_table`: one in-place slice add a
+    run, in table order."""
+    for d, n, a, k in table.tolist():
+        target[d:d + n] += sources[k][a:a + n]
+    return target
+
+
+def _table_sources(target: torch.Tensor, sources: Sequence[torch.Tensor],
+                   table: np.ndarray) -> Tuple[List[torch.Tensor], int, int]:
+    """``sources`` as the executor reads them, after the checks: each
+    contiguous (a copy where it is not) and a copy where it shares memory
+    with the target (the JAX op reads a source as it was before the call);
+    and the target rows ``[lo, hi)`` that the table's runs span (0, 0 for
+    an empty table).  Raises unless the target is (N, C), each source
+    (L_k, C) of its dtype on its device and every run of the table inside
+    the target and its group's source."""
+    if target.dim() != 2:
+        raise ValueError(f"the target is {tuple(target.shape)}, not (N, C)")
+    rows, c = target.shape
+    dev, dtype = target.device, target.dtype
+    t_lo = target.data_ptr()
+    t_hi = t_lo + target.nbytes
+    out, lens = [], []
+    for k, src in enumerate(sources):
+        if src.device != dev or src.dim() != 2 or src.shape[1] != c \
+                or src.dtype != dtype:
+            raise ValueError(f"source {k} is {tuple(src.shape)} "
+                             f"{src.dtype} on {src.device}, not (L, {c}) "
+                             f"{dtype} on {dev}")
+        if not src.is_contiguous():
+            src = src.contiguous()
+        p = src.data_ptr()
+        if p < t_hi and t_lo < p + src.nbytes:
+            src = src.clone()
+        out.append(src)
+        lens.append(src.shape[0])
+    if table.dtype != np.int64 or table.ndim != 2 or table.shape[1] != 4:
+        raise ValueError(f"the table is {table.shape} {table.dtype}, not "
+                         f"int64 (runs, 4)")
+    if not table.size:
+        return out, 0, 0
+    d, n, a, k = table.T
+    least = table.min(0)              # of dst_lo, len, src_lo, group
+    hi = int((d + n).max())
+    if least[0] < 0 or least[1] <= 0 or least[2] < 0 or least[3] < 0 \
+            or hi > rows or k.max() >= len(out) \
+            or (a + n > np.asarray(lens, np.int64)[k]).any():
+        raise ValueError("a run of the table lies outside the target or "
+                         "its source")
+    return out, int(least[0]), hi
+
+
+def scatter_table(target: torch.Tensor, sources: Sequence[torch.Tensor],
+                  table: np.ndarray) -> torch.Tensor:
+    """Each run (dst_lo, len, src_lo, k) of ``table`` (from
+    :func:`segment_table`) added in table order, in place: target rows
+    ``[dst_lo, dst_lo + len)`` += rows ``[src_lo, src_lo + len)`` of
+    ``sources[k]``; returns ``target``.  target: (N, C), contiguous and
+    float32 or float64 on the card; sources: (L_k, C) tensors of its
+    dtype on its device (made contiguous or copied where needed: see
+    :func:`_table_sources`), held by the caller until the device is done
+    with them.
+
+    CUDA tensors launch ``csrc/audio_scatter.cu`` once on the current
+    stream, over the tiles of the target rows the runs span, after one
+    non-blocking upload of the table and the sources' pointers, in one
+    buffer from pinned memory (no sync; nothing for an empty table).  CPU
+    tensors run :func:`scatter_table_reference`.  Either way every target
+    element receives its contributions in table order, one rounded add at
+    a time, so the two give the same bits."""
+    sources, row_lo, row_hi = _table_sources(target, sources, table)
+    dev = target.device
+    if dev.type == "cpu":
+        return scatter_table_reference(target, sources, table)
+    if dev.type != "cuda":
+        raise ValueError(f"no scatter kernel for device {dev}")
+    if target.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"no scatter kernel for {target.dtype}")
+    if not target.is_contiguous():
+        raise ValueError("the target must be contiguous")
+    rows, c = target.shape
+    if not table.size or not rows * c:
+        return target
+    from . import _kernels
+    host = np.concatenate([table.reshape(-1), np.array(
+        [s.data_ptr() for s in sources], np.int64)])
+    up = torch.from_numpy(host).pin_memory().to(dev, non_blocking=True)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _kernels.launch_audio_scatter(
+            target.data_ptr(), rows, c, row_lo, row_hi, up.data_ptr(),
+            len(table), up.data_ptr() + 8 * table.size,
+            target.dtype == torch.float64, stream)
+    scatter_table.launches += 1
+    return target
+
+
+scatter_table.launches = 0
+
+
+def _scatter(target: torch.Tensor, sources: Sequence[torch.Tensor],
+             src_lens: Sequence[int], starts: Sequence) -> Tuple[int, int]:
+    """The scatter route: groups ``k`` in order, the first
+    ``src_lens[k]`` rows of ``sources[k]`` added into ``target`` at each
+    of the host start frames ``starts[k]``, in place, through one segment
+    table (XLA:CPU's order of the flattened updates).  Returns the events
+    that survive the drop and the table's runs."""
+    lens = [slice(int(m)).indices(s.shape[0])[1]
+            for s, m in zip(sources, src_lens, strict=True)]
+    table, kept = segment_table(target.shape[0], lens, starts)
+    scatter_table(target, sources, table)
+    return kept, len(table)
 
 
 def overlay(target: torch.Tensor, source: torch.Tensor,
@@ -103,7 +251,7 @@ def overlay(target: torch.Tensor, source: torch.Tensor,
     """Additive overlay of ``source`` (n, C) into ``target`` (N, C) at frame
     ``start``, in place; rows outside the target follow ``mode="drop"``
     (cpp:1129-1154)."""
-    _scatter(target, source, _as_starts([start]))
+    _scatter(target, [source], [source.shape[0]], [[start]])
     return target
 
 
@@ -121,7 +269,7 @@ def overlay_many(target: torch.Tensor, source: torch.Tensor,
     st = _as_starts(starts)
     n = source.shape[0]
     if st.size * n <= FFT_ABOVE:
-        overlay_many.events += _scatter(target, source, st)[0]
+        overlay_many.events += _scatter(target, [source], [n], [st])[0]
         return target
     with tracing.span("lncr.audio.fft"):
         overlay_many.fft += 1
@@ -155,8 +303,8 @@ def overlay_many_bucketed(target: torch.Tensor, source: torch.Tensor,
     """The scatter route of :func:`overlay_many` over the first ``src_len``
     rows of ``source`` (the JAX op masks the rows of a power-of-two padded
     source; here nothing is compiled per length, so nothing is padded)."""
-    overlay_many.events += _scatter(target, source[:int(src_len)],
-                                    _as_starts(starts))[0]
+    overlay_many.events += _scatter(target, [source], [src_len],
+                                    [starts])[0]
     return target
 
 
@@ -166,15 +314,10 @@ def overlay_groups(target: torch.Tensor, sources: Sequence[torch.Tensor],
     (L_k, C) tensor ``sources[k]`` overlaid at the host start frames
     ``starts[k]`` on the scatter route, in place: the JAX op's loop
     (``:93-116``)."""
-    kept = adds = 0
-    for k in range(len(src_lens)):
-        got = _scatter(target, sources[k][:int(src_lens[k])],
-                       _as_starts(starts[k]))
-        kept += got[0]
-        adds += got[1]
+    kept, runs = _scatter(target, sources, src_lens, starts)
     overlay_groups.groups += len(src_lens)
     overlay_groups.events += kept
-    overlay_groups.segments += adds
+    overlay_groups.segments += runs
     return target
 
 
