@@ -1,7 +1,8 @@
 """On-card smoke run of the PyTorch port: the mesh -> u8 frame path, the
 2D canvas, the textured mesh -> u8 frame path, the float/depth Gouraud
 rasterizer, the wf= and mxu= routes of the u8 entries, the recorded
-2D frame -> u8 pipeline, and the audio engine with the MIDI -> WAV app.
+2D frame -> u8 pipeline, the audio engine with the MIDI -> WAV app, and
+the blended quad batch (BASELINE config 2).
 
     python3 chip_smoke.py
 
@@ -10,9 +11,9 @@ imports nothing of JAX.  Phases, one line each (or a few), any failure
 raising:
   1. device: the card, and its name and power limit from nvidia-smi;
   2. build: K1, K3, K2b, K2a, K5, K6, K1-wf, K1-mxu
-     (csrc/tile_raster.cu), K4 (csrc/canvas_span.cu) and the audio
-     scatter kernel (csrc/audio_scatter.cu) compiled from the
-     checkout, one nvcc each, started together; ptxas registers and
+     (csrc/tile_raster.cu), K4 (csrc/canvas_span.cu), the audio
+     scatter kernel (csrc/audio_scatter.cu) and K7 (csrc/tile_blend.cu)
+     compiled from the checkout, one nvcc each, started together; ptxas registers and
      spills for each instantiation, the MMA walk's held to no spill, at
      most MMA_MAX_REGS registers and no serialized wgmma (ptxas warning
      C7518) (phase 16 adds the count of HGMMA
@@ -249,8 +250,23 @@ raising:
      and CUDA events with the calls queued, device time alone), host
      launch and copy calls a batch and the device's busy share
      (profiler).
+ 23. blend: the blended quad batch of the cell baseline_textured_720p
+     (its configuration and the system's inputs: the scene, the opaque
+     depth ramp from the first frame, 32x32 tiles, span 12x12, capacity
+     2048): at 320x192 with 256 quads and 4 frames, K7 against its plain
+     version on the card's prep and render_blended_u8_loop's frames on
+     the card against the CPU's, bit for bit; at 1280x720 with 4,096
+     quads and 16 frames a launch, K7's device ms a batch (CUDA events,
+     queued) beside its bound (rooflines/tile_blend over the reference's
+     covered and drawn fragments, operations at the kernel table's
+     float32 peak), K7 against its plain version on the same card
+     tensors, bit for bit, and that plain version's device ms, the
+     loop's ms (prep, K7, detile), registers; then
+     MeshVideoPipeline(blend=True) over 3 batches held to one prep and
+     one K7 launch a batch.
 The line before the last is the kernel table as JSON (the audio path has
-no Pallas kernel, so no row of its own), the last line
+no Pallas kernel, so no row of its own; the scatter kernel and K7,
+which replace none, have theirs), the last line
 {"ok": true, "device": {...}}.
 """
 
@@ -263,6 +279,7 @@ import re
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -835,13 +852,14 @@ def build_kernels(_kernels) -> float:
     :func:`check_mma_build`, :func:`check_k5_build`,
     :func:`check_k2b_k6_build`, :func:`check_k2a_build` and
     :func:`check_k4_build`; returns the seconds."""
-    names = ("tile_raster", "canvas_span", "audio_scatter")
+    names = ("tile_raster", "canvas_span", "audio_scatter", "tile_blend")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(_kernels.build, names))
     _kernels.tile_raster()
     _kernels.canvas_span()
     _kernels.audio_scatter()
+    _kernels.tile_blend()
     build_s = time.perf_counter() - t0
     print(f"[build] {', '.join(n + '.cu' for n in names)} built and loaded "
           f"in {build_s:.1f} s", flush=True)
@@ -4242,6 +4260,178 @@ def audio_times_phase(dev, card: str) -> None:
     finally:
         config.set_default_dtype(prev)
 
+# phase 23: the blended quad batch (BASELINE config 2), its reduced check
+# and its cell's shape
+BLEND_SMALL = (320, 192, 256, 4)        # width, height, quads, frames
+BLEND_CELL = (1280, 720, 4096, 16)
+BLEND_KW = dict(tile_w=32, tile_h=32, capacity=2048, span_x=12, span_y=12)
+
+
+def blend_inputs(dev, width: int, height: int, quads: int, frames: int,
+                 seed: int = 2):
+    """The blend cell's inputs at a size, on ``dev``: its configuration
+    (``bench_torch/configs/baseline_quads_720p.json``) and traffic mix
+    (``quad_orbit``) with the size changed, made by the cell's own
+    ``systems.quad_blend_video.inputs`` (the scene, the sprite and the
+    opaque depth ramp from the first frame): (verts, faces, uvs, tex)
+    tensors, the opaque depth and the first ``frames`` matrices."""
+    from bench_torch.harness import traffic
+    from bench_torch.systems import quad_blend_video
+    bench = Path(__file__).resolve().parent / "bench_torch"
+    config = json.loads((bench / "configs" / "baseline_quads_720p.json")
+                        .read_text())
+    mix = json.loads((bench / "traffic" / "quad_orbit.json").read_text())
+    config.update(width=width, height=height, quads=quads)
+    made = quad_blend_video.inputs(config, mix, seed, dev)
+    gen = traffic.generator(mix, config, seed)
+    mvps = np.stack([gen.frame(k) for k in range(frames)])
+    mesh = tuple(torch.from_numpy(made[k]).to(dev)
+                 for k in ("verts", "faces", "uvs", "tex"))
+    return (mesh, torch.from_numpy(made["opaque_depth"]).to(dev),
+            torch.from_numpy(mvps).to(dev))
+
+
+def blend_phase(dev, card: str) -> dict:
+    """Phase 23: K7 and the blended mode.  At a reduced size the card's
+    K7 against its plain version on the same prep, and the card's
+    render_blended_u8_loop against the CPU's, bit for bit; at the cell's
+    shape K7 against its plain version on the same card tensors, bit for
+    bit, K7's device ms a batch (CUDA events, queued) beside its bound
+    (rooflines/tile_blend over the reference's fragments) and its plain
+    version's, the loop's ms a batch, and MeshVideoPipeline's K7
+    launches and preps over 3 batches.  Returns K7's kernel-table
+    row."""
+    from bench_torch.references import quad_blend
+    from bench_torch.rooflines import tile_blend as roof
+    from libnativecpurenderer_tpu_torch import MeshVideoPipeline
+    from libnativecpurenderer_tpu_torch.ops import _kernels, raster3d, \
+        tile_raster
+
+    k7 = tile_raster.raster_tiles_blend_u8
+    w, h, q, n = BLEND_SMALL
+    mesh, od, mvps = blend_inputs(dev, w, h, q, n)
+    pre = raster3d.blend_pre(*mesh)
+    prep = raster3d.prepare_blended_frame(
+        mesh[0], mesh[1], pre[1], w, h, mvps, centres=pre[3], **BLEND_KW)
+    args = [prep[k] for k in ("sorted_pad", "starts", "counts", "table",
+                              "order")]
+    bg = torch.zeros(4, device=dev)
+    got = k7(*args, od, pre[2], (256, 256), bg, w, h, 32, 32)
+    want = tile_raster.raster_tiles_blend_u8_reference(
+        *[a.cpu() for a in args], od.cpu(), pre[2].cpu(), (256, 256),
+        bg.cpu(), w, h, 32, 32)
+    off_plain = int((got.cpu() != want).sum())
+    card_frames, ovf = raster3d.render_blended_u8_loop(
+        *mesh, w, h, mvps, opaque_depth=od, **BLEND_KW)
+    cpu_frames, _ = raster3d.render_blended_u8_loop(
+        *[a.cpu() for a in mesh], w, h, mvps.cpu(), opaque_depth=od.cpu(),
+        **BLEND_KW)
+    off_cpu = int((card_frames.cpu() != cpu_frames).any(-1).sum())
+    lit = float((cpu_frames[..., 3] > 0).double().mean())
+    print(f"[blend] {q} quads at {w}x{h}, {n} frames: K7 vs its plain "
+          f"version on the card's prep: {off_plain} pixel words differ; "
+          f"render_blended_u8_loop card vs CPU: {off_cpu} pixels differ; "
+          f"overflow {bool(ovf)}; share of pixels drawn {lit:.3f}",
+          flush=True)
+    if off_plain or off_cpu or bool(ovf) or lit < 0.01:
+        raise AssertionError("K7 differs from its plain version, or the "
+                             "card's frames from the CPU's")
+
+    w, h, q, n = BLEND_CELL
+    mesh, od, mvps = blend_inputs(dev, w, h, q, n)
+    pre = raster3d.blend_pre(*mesh)
+    prep = raster3d.prepare_blended_frame(
+        mesh[0], mesh[1], pre[1], w, h, mvps, centres=pre[3], **BLEND_KW)
+    args = [prep[k] for k in ("sorted_pad", "starts", "counts", "table",
+                              "order")]
+    counts = prep["counts"]
+    runs = (f"pairs a frame {float(counts.sum()) / n:.0f}, longest run "
+            f"{int(counts.max())}, overflow "
+            f"{bool(prep['overflow'].any())}")
+
+    def kernel():
+        return k7(*args, od, pre[2], (256, 256), bg, w, h, 32, 32)
+
+    def plain():
+        return tile_raster.raster_tiles_blend_u8_reference(
+            *args, od, pre[2], (256, 256), bg, w, h, 32, 32)
+
+    off_plain = int((kernel() != plain()).sum())
+    print(f"[blend] {q} quads at {w}x{h}, {n} frames a launch: K7 vs its "
+          f"plain version on the same card tensors: {off_plain} pixel "
+          f"words differ", flush=True)
+    if off_plain:
+        raise AssertionError("K7 differs from its plain version at the "
+                             "cell's shape")
+    plain_ms = cuda_ms(plain, 1)
+
+    def loop():
+        raster3d.render_blended_u8_loop(*mesh, w, h, mvps, opaque_depth=od,
+                                        pre=pre, **BLEND_KW)
+
+    kernel_ms = [cuda_ms(kernel, 5, queued=True) for _ in range(2)]
+    loop_ms = in_turns({"loop": loop}, reps=3)["loop"]
+    scene = {"verts": mesh[0], "faces": mesh[1], "uvs": mesh[2],
+             "tex": mesh[3], "bg": bg}
+    covered = drawn = 0
+    for m in mvps.cpu():
+        c, d = quad_blend.fragments(scene, m, w, h, od)
+        covered += c
+        drawn += d
+    work = {"frames": n, "covered": covered, "drawn": drawn,
+            "pixels": n * w * h, "frame_bytes": 64,
+            "shared_bytes": 256 * 256 * 4 + w * h * 4 + q * 4 * 5 * 4
+            + q * 2 * 3 * 4}
+    n_bytes, n_ops = roof.work(work)
+    bound_ms = 1e3 * max(n_bytes / MEM_BYTES_S,
+                         n_ops / PEAK_OPS_S[torch.float32])
+    print(f"[blend] {card}: {q} quads at {w}x{h}, {n} frames a launch "
+          f"({runs}): K7 {kernel_ms} ms a batch (CUDA events, 5 queued, "
+          f"twice), the loop (prep, K7, detile) {loop_ms} ms; covered "
+          f"fragments a frame {covered / n:.0f}, drawn {drawn / n:.0f} (z "
+          f"test rejects {1 - drawn / covered:.3f}); bound {bound_ms:.4f} "
+          f"ms a batch ({n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.2f} G "
+          f"operations at {PEAK_OPS_S[torch.float32]:.3g} op/s): K7 at "
+          f"{bound_ms / min(kernel_ms):.3f}; the plain version {plain_ms} "
+          f"ms a batch; ptxas "
+          f"{ptxas_summary(_kernels.build_log('tile_blend'))}", flush=True)
+
+    class Drop:
+        def put_frame_u8(self, frame):
+            pass
+
+    saved = k7.launches, raster3d.prepare_blended_frame.calls
+    k7.launches = 0
+    calls = raster3d.prepare_blended_frame.calls
+    pipe = MeshVideoPipeline(Drop(), w, h, *[a.cpu().numpy() for a in
+                                             (mesh[0], mesh[1])],
+                             uvs=mesh[2].cpu().numpy(),
+                             tex_u8=mesh[3].cpu().numpy(), blend=True,
+                             opaque_depth=od, batch=n, device=dev,
+                             **BLEND_KW)
+    for _ in range(3):
+        for m in mvps.cpu().numpy():
+            pipe.submit(m)
+    pipe.finish()
+    launches = k7.launches
+    preps = raster3d.prepare_blended_frame.calls - calls
+    k7.launches = saved[0] + launches
+    print(f"[blend] MeshVideoPipeline(blend=True), 3 batches of {n}: K7 "
+          f"launches {launches}, preps {preps}", flush=True)
+    if launches != 3 or preps != 3:
+        raise AssertionError("the blended pipeline is not one prep and "
+                             "one K7 launch a batch")
+    return {"name": "tile_blend", "route": "cuda",
+            "source": "libnativecpurenderer_tpu_torch/csrc/tile_blend.cu",
+            "replaces": None, "launches": launches, "max_abs_err": 0.0,
+            "ms": min(kernel_ms) / n, "plain_ms": plain_ms / n,
+            "bound_ms": bound_ms / n,
+            "bound_by": ("bytes" if n_bytes / MEM_BYTES_S
+                         > n_ops / PEAK_OPS_S[torch.float32]
+                         else "operations"),
+            "library_ms": None}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -4265,8 +4455,9 @@ def main() -> None:
     scatter_row = audio_main_phase(dev, card, audio_ops_phase(dev, card))
     audio_times_phase(dev, card)
     mesh_batch_phase(dev, card)
+    blend_row = blend_phase(dev, card)
     print(json.dumps({"kernels": [k1, k4, *tex_rows, *gouraud_rows,
-                                  *wf_mxu_rows, scatter_row]}))
+                                  *wf_mxu_rows, scatter_row, blend_row]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -29,8 +29,14 @@ reference it is tested against.  Slices so far:
     and ``render_gouraud_pallas_batch`` (the gridded kernel over
     materialised bins, the flat f32 and u8 kernels, the kernel over rows
     gathered in pair order), ``near_clip`` on the binned entries, and the
-    tensor-op paths ``render_gouraud`` (naive), ``render_gouraud_binned``,
-    ``render_textured_binned`` and ``render_blended``;
+    tensor-op paths ``render_gouraud`` (naive), ``render_gouraud_binned``
+    and ``render_textured_binned``;
+  * the blended quad batch (BASELINE config 2): ``render_blended_u8_loop``
+    orders each frame's quads back to front, bins them by draw step and
+    blends each tile's run in order in a hand-written CUDA kernel (K7,
+    ``csrc/tile_blend.cu``), z-tested against an opaque depth, and the
+    blended mode of ``MeshVideoPipeline`` (``blend=True``); its plain
+    per-triangle version is ``render_blended``;
   * the ``wf=`` and ``mxu=`` routes of the u8 entries: ``wf=n`` of
     ``render_gouraud_u8`` and ``render_gouraud_pallas(flat=True,
     u8=True)`` walks with K1-wf, K1's split walk claiming n items at a
@@ -56,7 +62,8 @@ from .helpers import Helpers
 from .interop import (audio_clip_to_torch, canvas_to_torch, commands_to_torch,
                       kernel_inputs_to_torch, mesh_to_torch, prep_to_torch,
                       textured_mesh_to_torch)
-from .ops.raster3d import (pack_texture_u8, render_blended, render_gouraud,
+from .ops.raster3d import (pack_texture_u8, render_blended,
+                           render_blended_u8_loop, render_gouraud,
                            render_gouraud_binned, render_gouraud_pallas,
                            render_gouraud_pallas_batch, render_gouraud_u8,
                            render_gouraud_u8_loop, render_textured,
@@ -94,6 +101,7 @@ __all__ = [
     "pack_texture_u8",
     "prep_to_torch",
     "render_blended",
+    "render_blended_u8_loop",
     "render_gouraud",
     "render_gouraud_binned",
     "render_gouraud_pallas",

@@ -225,6 +225,35 @@ def launch_audio_scatter(target, rows, channels, row_lo, row_hi, table,
             f"({lib.audio_scatter_error_string(err).decode()})")
 
 
+def tile_blend() -> ctypes.CDLL:
+    """The loaded ``tile_blend`` library (K7), built if needed."""
+    lib = _libs.get("tile_blend")
+    if lib is None:
+        lib = ctypes.CDLL(str(build("tile_blend")))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        # ids, ids_len, starts, counts, nblocks, nt, table, nrows, order,
+        # n_faces, ntx, tile_w, tile_h, depth, width, height, tex, tex_w,
+        # tex_h, bg, out, stream
+        lib.tile_blend_u8.argtypes = [p, i, p, p, i, i, p, i, p, i, i, i, i,
+                                      p, i, i, p, i, i, p, p, p]
+        lib.tile_blend_u8.restype = ctypes.c_int
+        lib.tile_blend_error_string.argtypes = [ctypes.c_int]
+        lib.tile_blend_error_string.restype = ctypes.c_char_p
+        _libs["tile_blend"] = lib
+    return lib
+
+
+def launch_tile_blend(*args) -> None:
+    """Launch K7 (pointers and stream as ints, in the order of
+    ``tile_blend_u8``'s argtypes); raises on a refused launch."""
+    lib = tile_blend()
+    err = lib.tile_blend_u8(*args)
+    if err:
+        raise RuntimeError(
+            f"tile_blend_u8 launch failed: cudaError {err} "
+            f"({lib.tile_blend_error_string(err).decode()})")
+
+
 # The walks of ``tile_raster_occupancy``, each at its C entry's number
 # (its index here)
 WALKS = ("split FMA", "split MMA", "split bins", "split pairs f32")

@@ -10,10 +10,13 @@ path (``raster_binned_fused``, ``render_gouraud_binned``,
 ``render_gouraud_pallas_batch`` and ``render_gouraud_u8[_loop]``, the
 textured ones ``render_textured_u8[_loop|_batch]`` (u8 texels) and
 ``render_textured`` (float texture, with depth), and the painter's-order
-``render_blended``.  The per-tile visibility and shading of the binned
-entries runs in ``tile_raster`` (the hand-written CUDA kernels K1, K3,
-K2b, K2a, K5 and K6, or their plain versions for CPU tensors); the naive,
-fused and blended paths are torch ops, as they were XLA ops.
+``render_blended``, with its binned form ``render_blended_u8_loop``
+(BASELINE config 2: each frame's quads ordered back to front, binned by
+draw step, blended in order by K7).  The per-tile visibility and shading
+of the binned entries runs in ``tile_raster`` (the hand-written CUDA
+kernels K1, K3, K2b, K2a, K5, K6 and K7, or their plain versions for CPU
+tensors); the naive, fused and per-triangle blended paths are torch ops,
+as they were XLA ops.
 
 Every function runs on the device of the tensors it is given.  The op
 order follows the JAX code op for op, and no step fuses a multiply into an
@@ -409,7 +412,8 @@ def bin_triangles(sxy, valid, width: int, height: int, tile_w: int,
 
 def bin_triangles_flat(sxy, valid, width: int, height: int, tile_w: int,
                        tile_h: int, block_k: int, span_x: int = 8,
-                       span_y: int = 8, edges=None):
+                       span_y: int = 8, edges=None, ids=None,
+                       tall_split: bool = True):
     """Gatherless tile binning (``raster3d.py:440-639``).
 
     Each valid triangle emits one packed ``(tile << IDX_BITS) | tri`` pair
@@ -436,7 +440,14 @@ def bin_triangles_flat(sxy, valid, width: int, height: int, tile_w: int,
     ``lax.top_k`` becomes ``torch.topk``; the two break ties in another
     order, which changes which sentinel slots the tail holds but no valid
     pair: an unchosen triangle with span <= SY_A emits no extra valid
-    pair, and a chosen one beyond it raises the flag in both."""
+    pair, and a chosen one beyond it raises the flag in both.
+
+    ``ids`` ((F,) or (B, F) int32, each below F) puts triangle f's id in
+    its pairs in place of f: the blend prep gives each triangle its draw
+    step, so each tile's run comes out in draw order.  ``tall_split``
+    False emits every triangle's whole span window instead of the tall
+    split's top-k budget, which a batch with more tall triangles than
+    the budget (the blend batch seen edge-on) would overflow."""
     ntx = (width + tile_w - 1) // tile_w
     nty = (height + tile_h - 1) // tile_h
     nt = ntx * nty
@@ -492,8 +503,9 @@ def bin_triangles_flat(sxy, valid, width: int, height: int, tile_w: int,
     # tall split (raster3d.py:539-615): a base box of SY_A rows for every
     # triangle, the remaining rows only for the top-TK tallest
     SY_A = 4
-    all_tris = torch.arange(F, dtype=i32, device=dev)
-    if F >= 4096 and span_y > SY_A:
+    all_tris = (torch.arange(F, dtype=i32, device=dev) if ids is None
+                else ids)
+    if tall_split and F >= 4096 and span_y > SY_A:
         TK = min(4096 if span_y >= 8 else 2048, F)
         pieces = [emit(y0c, x0c, x1c, y1c, nonempty, all_tris, 0, SY_A,
                        edges)]
@@ -504,8 +516,10 @@ def bin_triangles_flat(sxy, valid, width: int, height: int, tile_w: int,
         rows = ((torch.arange(lead[0], device=dev)[:, None], idx) if lead
                 else (idx,))
         ed = (tuple(e[rows] for e in edges) if edges is not None else None)
+        tall_ids = (idx.to(i32) if ids is None
+                    else torch.gather(ids.expand(lead + (F,)), -1, idx))
         pieces.append(emit(y0c[rows], x0c[rows], x1c[rows], y1c[rows],
-                           nonempty[rows], idx.to(i32), SY_A, span_y - SY_A,
+                           nonempty[rows], tall_ids, SY_A, span_y - SY_A,
                            ed))
     else:
         pieces = [emit(y0c, x0c, x1c, y1c, nonempty, all_tris, 0, span_y,
@@ -589,12 +603,14 @@ def _setup_edges(verts, faces, mvp, width: int, height: int, *, v4f=None,
 def _prep_geometry(verts, faces, mvp, width: int, height: int, *,
                    tile_w: int, tile_h: int, capacity: int, span_x: int,
                    span_y: int, z_clip: bool, v4f=None, attrs=None,
-                   near_clip: bool = False, exact_c: bool = False):
+                   near_clip: bool = False, exact_c: bool = False,
+                   ids=None, tall_split: bool = True):
     """What the Gouraud and textured per-frame preps share: projection
     (near-clipped with ``near_clip``), edges and gatherless binning, with
     ``z_clip=False``'s check that every valid vertex z lies in [0, 1]
     (the condition under which skipping the per-pixel z test is sound,
-    ``raster3d.py:917-925,1225-1233``) folded into the overflow flag.
+    ``raster3d.py:917-925,1225-1233``) folded into the overflow flag;
+    ``ids`` and ``tall_split`` as in :func:`bin_triangles_flat`.
     Returns (tri, attrs, (A, B, C, zsc, inv_area, sign, valid),
     {sorted_pad, starts, counts, overflow}); with mvp (B, 4, 4) each
     with a leading B, the check and the flag a frame."""
@@ -607,7 +623,8 @@ def _prep_geometry(verts, faces, mvp, width: int, height: int, *,
     with tracing.span("lncr.raster3d.bin"):
         sorted_pad, starts, counts, overflow = bin_triangles_flat(
             tri["sxy"], valid, width, height, tile_w, tile_h, capacity,
-            span_x, span_y, edges=(A, B, C, sign))
+            span_x, span_y, edges=(A, B, C, sign), ids=ids,
+            tall_split=tall_split)
     if not z_clip:
         z = tri["z"]
         z_ok = torch.where(tri["valid"][..., None], (z >= 0.0) & (z <= 1.0),
@@ -1358,3 +1375,149 @@ def render_blended(verts, faces, uvs, tex, width: int, height: int,
         new = torch.cat([blended, torch.maximum(fb[..., 3:], alpha)], -1)
         fb = torch.where(covered[..., None], new, fb)
     return fb
+
+
+def quad_centres(verts, faces):
+    """(Q, 3) float64 centres of the quads of a blend batch: faces 2q and
+    2q + 1 are quad q split along its diagonal, (a, b, c) and (a, c, d),
+    as ``models.mesh.quad_batch`` lays them out, and its centre is
+    ((a + b) + (c + d)) / 4 of the float vertices, in float64.  Raises
+    ``ValueError`` for faces that are not such pairs."""
+    if faces.dim() != 2 or faces.shape[0] % 2 or faces.shape[1] != 3:
+        raise ValueError(f"a blend batch draws quads, two faces each: got "
+                         f"faces {tuple(faces.shape)}")
+    f = faces.reshape(-1, 2, 3)
+    if not bool(((f[:, 1, 0] == f[:, 0, 0]) & (f[:, 1, 1] == f[:, 0, 2]))
+                .all()):
+        raise ValueError("faces 2q and 2q + 1 must be (a, b, c) and "
+                         "(a, c, d), one quad split along its diagonal")
+    v = verts.to(torch.float64)[torch.stack(
+        [f[:, 0, 0], f[:, 0, 1], f[:, 0, 2], f[:, 1, 2]], dim=1)]
+    return ((v[:, 0] + v[:, 1]) + (v[:, 2] + v[:, 3])) * 0.25
+
+
+def blend_order(centres, mvp):
+    """The draw order of a blend batch: quads back to front by the
+    clip-space w of their centre, ((m30 x + m31 y) + m32 z) + m33 in
+    float64 from the float32 matrix (mvp (4, 4), or (B, 4, 4) for B
+    frames), ties by quad index; each quad's two faces drawn together,
+    2q then 2q + 1.  float32 keys would not do: about 20 pairs of the
+    4,096 quads of BASELINE config 2 lie closer in w than float32
+    resolves.  Returns (draw, step): draw (..., F) int32, the face drawn
+    at each step, and step (..., F) int32, each face's step.
+    ``blend_order.quads`` counts the quads ordered."""
+    m = mvp.to(torch.float64)
+    c = centres.to(device=m.device)
+    w = (((m[..., 3, 0, None] * c[:, 0] + m[..., 3, 1, None] * c[:, 1])
+          + m[..., 3, 2, None] * c[:, 2]) + m[..., 3, 3, None])
+    order = torch.sort(-w, dim=-1, stable=True).indices     # (..., Q)
+    blend_order.quads += order.numel()
+    draw = (2 * order[..., None]
+            + torch.arange(2, device=m.device)).flatten(-2)
+    step = torch.empty_like(draw).scatter_(
+        -1, draw, torch.arange(draw.shape[-1], device=m.device).expand_as(
+            draw).contiguous())
+    return draw.to(torch.int32), step.to(torch.int32)
+
+
+blend_order.quads = 0
+
+
+def blend_pre(verts, faces, uvs, tex_u8):
+    """What :func:`render_blended_u8_loop` hoists out of a frame loop:
+    ``(pregather_mesh(verts, faces), uvs[faces],
+    pack_texture_u8(tex_u8), quad_centres(verts, faces))``."""
+    return (pregather_mesh(verts, faces), uvs[faces],
+            pack_texture_u8(tex_u8), quad_centres(verts, faces))
+
+
+def prepare_blended_frame(verts, faces, fuv, width: int, height: int, mvp,
+                          *, centres, tile_w: int, tile_h: int,
+                          capacity: int, span_x: int, span_y: int,
+                          v4f=None):
+    """The blend prep, everything before K7, for mvp (4, 4) or B frames'
+    (B, 4, 4) in one pass: the draw order of each frame
+    (:func:`blend_order` of the quads' ``centres``), projection, edges
+    (the u8 entries' constants, see :func:`edge_coeffs`), the gatherless
+    binning
+    with each triangle's draw step as its id (so each tile's run lists
+    its triangles back to front, with no gather of faces) and no tall
+    split (more than its 4,096 triangles are tall when quads turn
+    edge-on), and the blend
+    table (``tile_raster.build_blend_table``: edges, vertex z and
+    (u, v); ``fuv`` is ``uvs[faces]``).  Returns a dict with
+    ``sorted_pad``, ``starts``, ``counts``, ``table``, ``order`` (the
+    face drawn at each step) and the device ``overflow`` flag, each with
+    a leading B for B frames.  ``prepare_blended_frame.calls`` and
+    ``.frames`` count the calls and the frames they covered."""
+    with tracing.span("lncr.raster3d.prep"):
+        prepare_blended_frame.calls += 1
+        prepare_blended_frame.frames += _frames_of(mvp, False)
+        with tracing.span("lncr.raster3d.blend_order"):
+            draw, step = blend_order(centres, mvp)
+        tri, _, edges, prep = _prep_geometry(
+            verts, faces, mvp, width, height, tile_w=tile_w, tile_h=tile_h,
+            capacity=capacity, span_x=span_x, span_y=span_y, z_clip=True,
+            v4f=v4f, exact_c=True, ids=step, tall_split=False)
+        A, B, C, _, inv_area, sign, valid = edges
+        with tracing.span("lncr.raster3d.table"):
+            prep["table"] = tile_raster.build_blend_table(
+                A, B, C, tri["z"], inv_area, sign, valid, fuv)
+        prep["order"] = draw
+    return prep
+
+
+prepare_blended_frame.calls = 0
+prepare_blended_frame.frames = 0
+
+
+def render_blended_u8_loop(verts, faces, uvs, tex_u8, width: int,
+                           height: int, mvps, *, opaque_depth=None,
+                           tile_w: int = 32, tile_h: int = 32,
+                           capacity: int = 2048, bg=None, span_x: int = 12,
+                           span_y: int = 12, pre=None, tiled: bool = False):
+    """B frames (mvps (B, 4, 4)) of a batch of textured quads blended back
+    to front over an opaque depth — BASELINE config 2 on the binned path:
+    one prep pass over the B frames (:func:`prepare_blended_frame`), one
+    K7 launch (``tile_raster.raster_tiles_blend_u8``) and one detile.
+
+    Per frame it draws what :func:`render_blended` draws with the faces
+    put in :func:`blend_order`'s order: inclusive edges (a quad's
+    diagonal is blended twice), affine (u, v) and the nearest clamped
+    texel of ``tex_u8`` ((th, tw, 4) uint8) as c / 255, the test
+    0 <= z <= ``opaque_depth`` ((H, W) float32; default 1), src-over in
+    float32 with alpha = max, from ``bg`` ((4,), default 0), each channel
+    then quantised clip(v * 255, 0, 255) truncated.  One op order
+    differs: the edges' constants are formed as the u8 entries form them,
+    in float64 and rounded once (:func:`edge_coeffs`), where
+    :func:`render_blended` forms them in float32; with its constants the
+    frames are :func:`render_blended`'s to the bit.  Faces 2q and 2q + 1
+    must be quad q (:func:`quad_centres`).
+
+    verts (V, 3), faces (F, 3), uvs (V, 2) are tensors on one device; the
+    render runs there.  ``pre``: optional :func:`blend_pre` of the mesh,
+    hoisted out of frame loops.  Returns (frames (B, H, W, 4) uint8 — or
+    (B, NT, P, 4) when ``tiled`` —, overflow device bool over the batch:
+    a run longer than ``capacity`` or a triangle's tile box past
+    ``span_x`` x ``span_y``).  No host sync."""
+    dev = verts.device
+    if bg is None:
+        bg = torch.zeros(4, dtype=torch.float32, device=dev)
+    if opaque_depth is None:
+        opaque_depth = torch.ones((height, width), dtype=torch.float32,
+                                  device=dev)
+    v4f, fuv, tex_packed, centres = (pre if pre is not None else
+                                     blend_pre(verts, faces, uvs, tex_u8))
+    prep = prepare_blended_frame(
+        verts, faces, fuv, width, height, mvps, centres=centres,
+        tile_w=tile_w, tile_h=tile_h, capacity=capacity, span_x=span_x,
+        span_y=span_y, v4f=v4f)
+    packed = tile_raster.raster_tiles_blend_u8(
+        prep["sorted_pad"], prep["starts"], prep["counts"], prep["table"],
+        prep["order"], opaque_depth, tex_packed, tuple(tex_u8.shape[:2]),
+        torch.as_tensor(bg, dtype=torch.float32, device=dev), width, height,
+        tile_w, tile_h)
+    if tiled:
+        return tile_raster.tiles_u8(packed), prep["overflow"].any()
+    return (tile_raster.detile_packed(packed, width, height, tile_w, tile_h),
+            prep["overflow"].any())

@@ -1,5 +1,5 @@
 """Per-tile visibility and its epilogues: kernels K1, K3, K2b, K2a, K5, K6,
-K1-wf and K1-mxu.
+K1-wf and K1-mxu; and the ordered blend walk K7.
 
 Counterpart of ``libnativecpurenderer_tpu/ops/pallas_raster.py``: the row
 table (``build_table``, ``pallas_raster.py:1445``), the packed background
@@ -35,14 +35,20 @@ kernels their launchers pick:
     with the walk's planes evaluated on the tensor cores (the ``mxu``
     branch of ``_make_kernel_flat``, ``:242-250,285-301,326-327``), K1's
     and K3's epilogues on the winner's attribute planes, evaluated on the
-    CUDA cores (:func:`mma_operands` builds the product's operands).
+    CUDA cores (:func:`mma_operands` builds the product's operands);
+
+and K7, ``raster_tiles_blend_u8`` (``csrc/tile_blend.cu``, no TPU kernel:
+the JAX package blends with a scan of XLA ops): each tile's run, listed
+in draw order, alpha-blended in order over a blend table
+(:func:`build_blend_table`), z-tested against an opaque depth.
 
 Each wrapper, on CUDA tensors, launches the hand-written kernel in
 ``csrc/tile_raster.cu`` (one walk; the epilogue and the row source are
-template parameters) or raises; on CPU tensors it runs its
-``*_reference``, the plain torch version in the same operation order,
-bit-identical to the kernel on the card (the matrix-unit walk's within
-a tolerance: the tensor cores do not round each sum to nearest).  Each
+template parameters; K7's in ``csrc/tile_blend.cu``) or raises; on CPU
+tensors it runs its ``*_reference``, the plain torch version in the same
+operation order, bit-identical to the kernel on the card (the
+matrix-unit walk's within a tolerance: the tensor cores do not round
+each sum to nearest).  Each
 wrapper counts its kernel launches in its ``launches`` attribute.  The
 walks over pairs and rows take one frame or B frames (a leading B on
 each input) in one launch.
@@ -1295,3 +1301,177 @@ def render_binned_dynrows_batch_u8(rows, starts, counts, bg, width: int,
     packed = raster_tiles_rows_u8(rows, starts, counts, pack_bg(bg), width,
                                   tile_w, tile_h)
     return detile_packed(packed, width, height, tile_w, tile_h)
+
+
+# Kernel K7: the ordered blend walk (csrc/tile_blend.cu)
+
+
+def build_blend_table(A, B, C, z, inv_area, sign, valid, fuv):
+    """The blend walk's float32 row table, (F + 1, ROW_W), NaN rows for
+    invalid triangles and for the pad row F; B frames' inputs (a leading B
+    on each, ``fuv`` (F, 3, 2) or (B, F, 3, 2)) give (B, F + 1, ROW_W).
+
+    Row layout: 0:9 the sign-folded edges as in :func:`build_table`;
+    9:12 the vertex depths z_i; 12 sign; 13 inv_area; 14:17 u_i; 17:20
+    v_i.  The kernel recovers each barycentric weight as e_i' (sign
+    inv_area), which is e_i inv_area to the bit (a sign flip is exact),
+    so the depth and (u, v) are ``raster3d.render_blended``'s sums
+    (w0 q0 + w1 q1) + w2 q2 of the raw vertex values."""
+    sg = sign[..., None]
+    edges = torch.stack([A * sg, B * sg, C * sg], dim=-1).flatten(-2)
+    fuv = fuv.to(A.dtype).expand(A.shape[:-1] + fuv.shape[-2:])
+    table = torch.cat([edges, z, sg, inv_area[..., None], fuv[..., 0],
+                       fuv[..., 1]], dim=-1)
+    table = torch.where(valid[..., None], table, float("nan")).to(
+        torch.float32)
+    table = torch.cat([table, table.new_full(
+        table.shape[:-2] + (1, table.shape[-1]), float("nan"))], dim=-2)
+    return torch.nn.functional.pad(table, (0, ROW_W - table.shape[-1]))
+
+
+def _check_blend_inputs(sorted_pad, starts, counts, table, order,
+                        opaque_depth, tex_packed, tex_dims, bg, width,
+                        height, tile_w, tile_h):
+    _check_inputs(sorted_pad, starts, counts, table, tile_w, tile_h,
+                  tex_packed=tex_packed, tex_dims=tex_dims)
+    _check_tensors(table.device, order=(order, torch.int32),
+                   opaque_depth=(opaque_depth, torch.float32),
+                   bg=(bg, torch.float32))
+    lead = tuple(counts.shape[:-1])
+    if order.shape != lead + (table.shape[-2] - 1,):
+        raise ValueError(f"order must be {lead + (table.shape[-2] - 1,)}, "
+                         f"one face a draw step, got {tuple(order.shape)}")
+    if opaque_depth.shape != (height, width):
+        raise ValueError(f"opaque_depth must be ({height}, {width}), got "
+                         f"{tuple(opaque_depth.shape)}")
+    if bg.shape != (4,):
+        raise ValueError(f"bg must be (4,), got {tuple(bg.shape)}")
+    ntx = (width + tile_w - 1) // tile_w
+    nty = (height + tile_h - 1) // tile_h
+    if counts.shape[-1] != ntx * nty:
+        raise ValueError(f"{counts.shape[-1]} tiles a frame, expected "
+                         f"{ntx * nty} at {width}x{height}")
+
+
+def raster_tiles_blend_u8(sorted_pad, starts, counts, table, order,
+                          opaque_depth, tex_packed, tex_dims, bg,
+                          width: int, height: int, tile_w: int,
+                          tile_h: int):
+    """Kernel K7: each tile's run blended in order, one packed u8 RGBA
+    int32 per pixel of every tile, (NT, P); B frames (a leading B on
+    ``sorted_pad``, ``starts``, ``counts``, ``table`` and ``order``) give
+    (B, NT, P) in one launch.
+
+    The run's ids are draw steps: slot j of tile t is step
+    s = sorted_pad[starts[t] + j] & IDX_MASK, the row of face
+    ``order[s]`` of the blend table (:func:`build_blend_table`), and the
+    sort of the binning lists each run in step order.  Each pixel
+    (ox + p % tile_w, oy + p // tile_w) starts at ``bg`` (float32, (4,))
+    and, for each slot in run order whose triangle covers it (the K3 edge
+    test, inclusive) with 0 <= z <= ``opaque_depth[y, x]`` ((H, W)
+    float32; slots outside the frame draw nothing), takes the texel
+    ``tex_packed[vi * tw + ui]`` of its clamped-nearest affine (u, v),
+    as float32 c / 255, and blends rgb = rgb (1 - a) + texel a,
+    alpha = max(alpha, a), in float32: ``raster3d.render_blended``'s
+    per-pixel arithmetic.  Each channel is then quantised
+    clip(v * 255, 0, 255) truncated and packed r | g << 8 | b << 16 |
+    a << 24.
+
+    CUDA tensors launch the kernel on the current stream (no sync): one
+    block a tile, which walks its whole run; a blend is not a minimum, so
+    no run is split across blocks.  CPU tensors run
+    :func:`raster_tiles_blend_u8_reference`."""
+    _check_tex_tile(tile_w, tile_h)
+    _check_blend_inputs(sorted_pad, starts, counts, table, order,
+                        opaque_depth, tex_packed, tex_dims, bg, width,
+                        height, tile_w, tile_h)
+    if _on_cpu(table, "K7"):
+        return raster_tiles_blend_u8_reference(
+            sorted_pad, starts, counts, table, order, opaque_depth,
+            tex_packed, tex_dims, bg, width, height, tile_w, tile_h)
+    from . import _kernels
+    th, tw = tex_dims
+    ntx = (width + tile_w - 1) // tile_w
+    out = torch.empty(counts.shape + (tile_w * tile_h,), dtype=torch.int32,
+                      device=table.device)
+    dev = table.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _kernels.launch_tile_blend(
+            sorted_pad.data_ptr(), sorted_pad.shape[-1], starts.data_ptr(),
+            counts.data_ptr(), counts.numel(), counts.shape[-1],
+            table.data_ptr(), table.shape[-2], order.data_ptr(),
+            order.shape[-1], ntx, tile_w, tile_h, opaque_depth.data_ptr(),
+            width, height, tex_packed.data_ptr(), tw, th, bg.data_ptr(),
+            out.data_ptr(), stream)
+    raster_tiles_blend_u8.launches += 1
+    return out
+
+
+raster_tiles_blend_u8.launches = 0
+
+
+def unpack_texels(texel):
+    """Packed u8 texels (int32, r in the low byte) -> (..., 4) float32
+    channels c / 255, the divisor a tensor (IEEE division, as the
+    kernel's ``__fdiv_rn``; CUDA torch divides by a Python scalar as a
+    reciprocal multiply)."""
+    c = torch.stack([(texel >> (8 * k)) & 255 for k in range(4)], dim=-1)
+    return c.to(torch.float32) / torch.full((), 255.0, device=texel.device)
+
+
+def raster_tiles_blend_u8_reference(sorted_pad, starts, counts, table,
+                                    order, opaque_depth, tex_packed,
+                                    tex_dims, bg, width: int, height: int,
+                                    tile_w: int, tile_h: int):
+    """Plain torch version of K7, same values bit for bit: the runs'
+    slots in order, every tile that reaches slot j at once."""
+    nt = counts.shape[-1]
+    nb = counts.numel()
+    P = tile_w * tile_h
+    ntx = (width + tile_w - 1) // tile_w
+    th, tw = tex_dims
+    dev = table.device
+    i32 = torch.int32
+    spad, nrows, F = sorted_pad.shape[-1], table.shape[-2], order.shape[-1]
+    sp, st = sorted_pad.reshape(-1), starts.reshape(-1)
+    od, tb = order.reshape(-1), table.reshape(-1, ROW_W)
+    b = torch.arange(nb, device=dev)
+    t = (b % nt).to(i32)
+    p = torch.arange(P, dtype=i32, device=dev)
+    xi = (t % ntx * tile_w)[:, None] + p % tile_w
+    yi = (t // ntx * tile_h)[:, None] + p // tile_w
+    inside = (xi < width) & (yi < height)
+    zmax = torch.where(inside, opaque_depth[yi.clamp(max=height - 1).long(),
+                                            xi.clamp(max=width - 1).long()],
+                       -1.0)
+    X, Y = xi.to(torch.float32), yi.to(torch.float32)
+    fb = bg.to(torch.float32).expand(nb, P, 4).clone()
+    n = counts.reshape(-1)
+    for j in range(int(n.max()) if nb else 0):
+        act = torch.nonzero(n > j).squeeze(1)
+        f = act // nt
+        step = sp[f * spad + (st[act] + j).clamp(max=spad - 1)] & IDX_MASK
+        face = torch.where(step < F, od[f * F + step.clamp(max=F - 1)],
+                           nrows - 1).clamp(max=nrows - 1)
+        r = tb[f * nrows + face][:, None, :]              # (n, 1, ROW_W)
+        e0, e1, e2 = _edges(r, X[act], Y[act])
+        ia = r[..., 12] * r[..., 13]
+        w0, w1, w2 = e0 * ia, e1 * ia, e2 * ia
+        z = w0 * r[..., 9] + w1 * r[..., 10] + w2 * r[..., 11]
+        cov = ((e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0) & (z >= 0.0)
+               & (z <= zmax[act]))
+        u = w0 * r[..., 14] + w1 * r[..., 15] + w2 * r[..., 16]
+        v = w0 * r[..., 17] + w1 * r[..., 18] + w2 * r[..., 19]
+        ui = _to_i32(u * tw).clamp(0, tw - 1)
+        vi = _to_i32(v * th).clamp(0, th - 1)
+        texel = unpack_texels(tex_packed[(vi * tw + ui).long()])
+        cur = fb[act]
+        a = texel[..., 3:]
+        blended = cur[..., :3] * (1 - a) + texel[..., :3] * a
+        new = torch.cat([blended, torch.maximum(cur[..., 3:], a)], -1)
+        fb[act] = torch.where(cov[..., None], new, cur)
+    q = _quant_u8(fb)
+    packed = (q[..., 0] | (q[..., 1] << 8) | (q[..., 2] << 16)
+              | (q[..., 3] << 24))
+    return packed.reshape(counts.shape + (P,))

@@ -154,11 +154,17 @@ class BatchedVideoPipeline:
 class MeshVideoPipeline:
     """Render submitted MVPs in batches of ``batch`` frames on ``device``
     (the card unless the caller asks for ``"cpu"``) and feed them to
-    ``cap``.  Gouraud when ``colors`` is given, textured when ``uvs`` and
-    ``tex_u8`` are (exactly one of the two).
+    ``cap``, in one of three modes: Gouraud when ``colors`` is given,
+    textured when ``uvs`` and ``tex_u8`` are, blended when ``uvs``,
+    ``tex_u8`` and ``blend=True`` are (exactly one of the three).  The
+    blended mode draws a batch of textured quads back to front, alpha
+    blended and z-tested against ``opaque_depth`` ((H, W) float32, the
+    depth of an opaque layer drawn before them; uploaded once, default
+    1), BASELINE config 2 (``raster3d.render_blended_u8_loop``).
 
         pipe = MeshVideoPipeline(sink, W, H, verts, faces, colors=cols)
         # or uvs=uvs, tex_u8=tex ((th, tw, 4) uint8)
+        # or uvs=uvs, tex_u8=tex, blend=True, opaque_depth=depth
         for mvp in mvps: pipe.submit(mvp)
         pipe.finish()
 
@@ -170,23 +176,37 @@ class MeshVideoPipeline:
     Each batch's
     overflow flag stays on the device until :meth:`finish`, which raises
     ``ValueError`` if any frame overflowed.  ``render_kw`` are the
-    keyword arguments of ``render_gouraud_u8_loop`` or
-    ``render_textured_u8_loop`` (tile shape, capacity, spans, bg, and
-    opaque or perspective_correct, z_clip); others raise ``TypeError``
-    here.  The mesh is rendered in float32, whatever
-    ``config.default_dtype()`` is, as in the JAX pipeline.  Without a
+    keyword arguments of the mode's loop entry, ``render_gouraud_u8_loop``,
+    ``render_textured_u8_loop`` or ``render_blended_u8_loop`` (tile
+    shape, capacity, spans, bg, and opaque or perspective_correct,
+    z_clip); others raise ``TypeError`` here.  Each batch is one
+    prep pass, one kernel launch and one detile.  The mesh is rendered in
+    float32, whatever ``config.default_dtype()`` is, as in the JAX
+    pipeline.  Without a
     card the default ``device="cuda"`` raises."""
 
     def __init__(self, cap, width: int, height: int, verts, faces,
                  colors=None, uvs=None, tex_u8=None, batch: int = 16,
-                 tiled=None, *, device="cuda", **render_kw):
+                 tiled=None, *, device="cuda", blend: bool = False,
+                 opaque_depth=None, **render_kw):
         textured = uvs is not None or tex_u8 is not None
         if (colors is not None) == textured or \
                 (uvs is None) != (tex_u8 is None):
-            raise ValueError("exactly one of colors= and (uvs=, tex_u8=)")
-        self._render = (raster3d.render_textured_u8_loop if textured
+            raise ValueError("exactly one of colors=, (uvs=, tex_u8=) and "
+                             "(uvs=, tex_u8=, blend=True)")
+        if opaque_depth is not None and not blend:
+            raise ValueError("opaque_depth= is the blended mode's "
+                             "(blend=True)")
+        if blend and not textured:
+            raise ValueError("blend=True draws textured quads: pass uvs= "
+                             "and tex_u8=, not colors=")
+        self._render = (raster3d.render_blended_u8_loop if blend
+                        else raster3d.render_textured_u8_loop if textured
                         else raster3d.render_gouraud_u8_loop)
         inspect.signature(self._render).bind_partial(**render_kw)
+        if blend and ("pre" in render_kw or "opaque_depth" in render_kw):
+            raise TypeError("the pipeline makes the blended mode's pre= "
+                            "and takes opaque_depth= itself")
         self.cap = cap
         self.width = width
         self.height = height
@@ -204,6 +224,17 @@ class MeshVideoPipeline:
         self._tiled = has_tiled if tiled is None else (bool(tiled)
                                                        and has_tiled)
         kw = dict(render_kw)
+        if blend:
+            # frame-invariant: the face rows, the packed texels, the
+            # quads' centres, and the opaque layer's depth
+            kw["pre"] = raster3d.blend_pre(*self._mesh)
+            od = torch.as_tensor(np.ones((height, width), np.float32)
+                                 if opaque_depth is None else opaque_depth)
+            if tuple(od.shape) != (height, width):
+                raise ValueError(f"opaque_depth must be ({height}, "
+                                 f"{width}), got {tuple(od.shape)}")
+            kw["opaque_depth"] = od.to(self.device,
+                                       torch.float32).contiguous()
         kw.setdefault("tile_w", 32)
         kw.setdefault("tile_h", 32)
         self._tile_w = kw["tile_w"]
