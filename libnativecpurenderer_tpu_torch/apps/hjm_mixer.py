@@ -24,9 +24,17 @@ reference's duplicate ``-o`` flag (:103/:107) is repaired by giving
 the start, where the overlay follows JAX's ``mode="drop"``
 (``ops/audio_ops.py``).
 
+The SMF parse, the note pairing and the round-robin grouping
+(:func:`note_groups`) are one call of the SMF core (``csrc/smf.c``, a
+host extension built at the first mix), bit for bit with their Python
+path (``models/midi.MidiFile``, :func:`collect_notes` and the grouping
+loop), which runs where the core is not built or declines the song.
+
 Span (``tracing``): ``lncr.hjm.notes`` around the SMF parse, the note
-pairing and the round-robin grouping of :func:`mix`.  Counter, reset to
-0 here: ``Bank.decodes``, the bank files decoded by every bank.
+pairing and the round-robin grouping of :func:`mix`.  Counters, reset to
+0 here: ``Bank.decodes``, the bank files decoded by every bank;
+``note_groups.native`` / ``.python``, the songs each path of
+:func:`note_groups` took.
 
     python -m libnativecpurenderer_tpu_torch.apps.hjm_mixer \\
         -r <bank dir> -i song.mid -o out.wav [--device cpu]
@@ -43,6 +51,7 @@ from .. import tracing
 from ..audio import AudioClip
 from ..interop import as_device
 from ..models import midi
+from ..ops import _kernels
 
 DEFAULT_NOTELENGTH = 0.1
 FRAME_RATE = 44100
@@ -135,7 +144,29 @@ def note_groups(midi_bytes: bytes, min_note: int, max_note: int,
     """The song's notes (``collect_notes``) and its groups: onset seconds
     by (instrument, bank list position), the instrument round-robin per
     distinct onset (reference :79-87), the note shifted by ``dnote``
-    before the min/max filter and the onset by ``offset`` ms."""
+    before the min/max filter and the onset by ``offset`` ms.  One call
+    of the SMF core where it is built and takes the song, else the
+    Python path; ``.native`` and ``.python`` count the songs each took."""
+    core = _kernels.host_core("smf")
+    got = None if core is None else core.note_groups(
+        midi_bytes, min_note, max_note, dnote, offset, DEFAULT_NOTELENGTH,
+        len(BANK_NAMES))
+    if got is None:
+        note_groups.python += 1
+        return _note_groups(midi_bytes, min_note, max_note, dnote, offset)
+    note_groups.native += 1
+    notes, groups = got
+    if not notes:
+        raise ValueError("no notes in MIDI file")
+    return notes, defaultdict(list, groups)
+
+
+note_groups.native = note_groups.python = 0
+
+
+def _note_groups(midi_bytes: bytes, min_note: int, max_note: int,
+                 dnote: int = 0, offset: int = 0):
+    """:func:`note_groups`' Python path."""
     notes = collect_notes(midi.MidiFile(midi_bytes))
     if not notes:
         raise ValueError("no notes in MIDI file")

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels and its record core.
+"""Build and load the port's CUDA kernels and its host cores.
 
 Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
@@ -17,7 +17,8 @@ held to its plain version within a tolerance.  ``-Xptxas=-v`` writes each kernel
 shared-memory use into the build log beside the library.
 
 ``csrc/<name>.c`` is a CPython extension module for the host (the record
-core, ``csrc/record.c``).  The host's C compiler builds it the same way,
+core, ``csrc/record.c``; the SMF core, ``csrc/smf.c``), loaded by
+:func:`host_core`.  The host's C compiler builds it the same way,
 at first use, against the running Python's headers, under the same kind
 of hashed name (the hash covers the Python's extension suffix too), and
 ``importlib`` loads it.  ``-ffp-contract=off`` keeps the compiler from
@@ -64,8 +65,8 @@ def _cc() -> str:
         path = shutil.which(cand)
         if path:
             return path
-    raise RuntimeError("no C compiler (gcc or cc) found: the port's record "
-                       "core is built from csrc/record.c at first use")
+    raise RuntimeError("no C compiler (gcc or cc) found: the port's host "
+                       "cores are built from csrc/*.c at first use")
 
 
 def build(name: str) -> Path:
@@ -104,27 +105,36 @@ def build_log(name: str) -> str:
     return build(name).with_suffix(".log").read_text()
 
 
-# why the record core could not be built or loaded (None: it was, or has
-# not been tried)
+# why a host core could not be built or loaded, by name
+core_errors: dict[str, str] = {}
+# the same for the record core (None: it was, or has not been tried)
 record_error: str | None = None
 
 
 @functools.cache
-def record_core():
-    """The record core (``csrc/record.c``) as a loaded extension module,
+def host_core(name: str):
+    """The host core ``csrc/<name>.c`` as a loaded extension module,
     built at the first call; None where it cannot be built or loaded (no
-    C compiler or no Python headers: ``record_error`` says why), and the
-    callers record in Python."""
-    global record_error
+    C compiler or no Python headers: ``core_errors[name]`` says why), and
+    the callers take their Python path."""
     try:
-        path = build("record")
-        spec = importlib.util.spec_from_file_location("record", path)
+        path = build(name)
+        spec = importlib.util.spec_from_file_location(name, path)
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
         return mod
     except (OSError, RuntimeError, ImportError) as exc:
-        record_error = f"{type(exc).__name__}: {exc}"
+        core_errors[name] = f"{type(exc).__name__}: {exc}"
         return None
+
+
+def record_core():
+    """The record core (``csrc/record.c``): :func:`host_core`'s, with
+    ``record_error`` saying why it is None."""
+    global record_error
+    core = host_core("record")
+    record_error = core_errors.get("record")
+    return core
 
 
 def tile_raster() -> ctypes.CDLL:
